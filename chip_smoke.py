@@ -1,0 +1,621 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+
+    python3 chip_smoke.py        # from the repository root, one GPU
+
+Phases (any failure exits nonzero; nothing is caught and passed over):
+  1. environment: torch/CUDA versions, the card's name and power limit
+     from nvidia-smi, the kernel build (one nvcc per source, in parallel);
+  2. kernels: every CUDA entry against its plain PyTorch version on the
+     card, bitwise, over R x E x A shapes (the gossip verb's among
+     them), offsets and scenario states;
+  3. entry: ``entry()`` at 256 x 256 against the plain round, bitwise;
+  4. full-state: the 1,048,576 x 256 fleet (A = 256 writers) through the
+     dissemination schedule and the butterfly schedule, converged, with
+     the kernel launches counted; then every round of both schedules
+     at that size again, the kernel against the plain version on the
+     same input, bitwise; one butterfly run traced with torch.profiler
+     (device idle share); per-launch times beside their bounds;
+  5. δ north star: the same for the v2 δ fleet; both phases also hold
+     the whole schedule at R = 16,384 against the plain schedule;
+  6. the gossip CLI verb on the card;
+then one JSON line with every kernel (launches on the main path, error
+against the plain version, times and bounds), and a last line
+``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM published peaks (NVIDIA data sheet; at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+# 32-bit scalar ALU rate: the float32 non-tensor peak, used as the rate
+# of the merges' 32-bit integer and logic operations
+ALU_OPS_PER_S = 67e12
+# integer/logic operations per element lane and per vv slot, counted from
+# the algebra in csrc/merge.cu and csrc/delta.cu
+OPS_PER_LANE = {"merge": 20, "delta": 60}
+OPS_PER_SLOT = {"merge": 2, "delta": 6}
+
+FLEET_R, FLEET_E, FLEET_W = 1 << 20, 256, 256
+CHECK_R = 16_384
+# the gossip verb's fleet: 64 replicas, 128 elements, one actor each
+CLI_SHAPE = (64, 128, 64)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def max_abs_err(got, want, what: str) -> int:
+    """Largest unsigned difference over every field; raises unless 0."""
+    import torch
+
+    from go_crdt_playground_tpu_torch._u32 import widen
+
+    err = 0
+    for name, g, w in zip(want._fields, got, want):
+        if torch.equal(g, w):
+            continue
+        if g.dtype == torch.bool:
+            d = (g.to(torch.int64) - w.to(torch.int64)).abs()
+        else:
+            d = (widen(g) - widen(w)).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: field {name} differs from the "
+                                 f"plain version (max abs err {err})")
+    return err
+
+
+def random_delta_state(rng, R, E, A, base, device):
+    """A random δ state: deletions, re-adds (present lanes with a
+    deletion record), ~20% silent rows (never wrote: empty, zero clocks),
+    counters offset by ``base`` (straddling 2^31 when base is near it)."""
+    from go_crdt_playground_tpu_torch.models import awset_delta
+
+    maxc = 8
+    present = rng.random((R, E)) < 0.5
+    deleted = rng.random((R, E)) < 0.3
+    silent = rng.random(R) < 0.2
+    present[silent] = False
+    deleted[silent] = False
+
+    def counters(shape, lo):
+        return rng.integers(lo, maxc + 2, shape).astype(np.uint64)
+
+    vv, proc = counters((R, A), 0), counters((R, A), 0)
+    vv[silent] = 0
+    proc[silent] = 0
+    vv = np.where(vv > 0, vv + base, 0)
+    proc = np.where(proc > 0, proc + base, 0)
+    da = rng.integers(0, A, (R, E))
+    xa = rng.integers(0, A, (R, E))
+    dc = counters((R, E), 1) + base
+    xc = counters((R, E), 1) + base
+    arrays = {
+        "vv": vv, "present": present,
+        "dot_actor": np.where(present, da, 0),
+        "dot_counter": np.where(present, dc, 0),
+        "actor": rng.integers(0, A, R),
+        "deleted": deleted,
+        "del_dot_actor": np.where(deleted, xa, 0),
+        "del_dot_counter": np.where(deleted, xc, 0),
+        "processed": proc,
+    }
+    arrays = {k: (v if v.dtype == bool else (v % (1 << 32)).astype(np.uint32))
+              for k, v in arrays.items()}
+    return awset_delta.from_arrays(arrays, device=device)
+
+
+def checksum(state) -> int:
+    """A device->host scalar that depends on every field."""
+    import torch
+
+    return int(sum(x.to(torch.int64).sum() for x in state))
+
+
+def cuda_time_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call from CUDA events around ``reps`` calls,
+    after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    del out
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_rounds(step, state, partners, key: str, errs: dict, what: str):
+    """Replay a schedule round by round: each round's kernel output
+    against the plain version on the same input, bitwise; the kernel's
+    output feeds the next round.  Returns the final state."""
+    for i, partner in enumerate(partners):
+        got = step(state, partner, kernel="cuda")
+        want = step(state, partner, kernel="torch")
+        errs[key] = max(errs.get(key, 0),
+                        max_abs_err(got, want, f"{what} round {i}"))
+        del want
+        state = got
+    return state
+
+
+def trace_run(fn, kernel_names):
+    """Run ``fn`` once under torch.profiler; returns (result, report)
+    where report holds the host wall, the device time of the named
+    kernels and of every other device op, and the device's idle share
+    of the wall (1 - the union of device intervals / wall).  The report
+    is None when the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, kern_us, other_us = [], 0.0, 0.0
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        if any(k in ev.name for k in kernel_names):
+            kern_us += end - start
+        else:
+            other_us += end - start
+    if not spans:
+        return result, None
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return result, {"wall_ms": wall_us / 1e3, "kernel_ms": kern_us / 1e3,
+                    "other_device_ms": other_us / 1e3,
+                    "device_busy_ms": busy / 1e3,
+                    "idle_share": max(0.0, 1.0 - busy / wall_us)}
+
+
+class Counters:
+    """The wrappers' launch counts, reset and read around one path."""
+
+    def __init__(self):
+        from go_crdt_playground_tpu_torch.ops import cuda_delta, cuda_merge
+
+        self.wrappers = {
+            "ring_round_rows": cuda_merge.ring_round_rows,
+            "gossip_round_rows": cuda_merge.gossip_round_rows,
+            "merge_pairwise_rows": cuda_merge.merge_pairwise_rows,
+            "delta_ring_round": cuda_delta.delta_ring_round,
+            "delta_gossip_round": cuda_delta.delta_gossip_round,
+        }
+        self.main_path = {name: 0 for name in self.wrappers}
+
+    def reset(self):
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def read(self, path: str, exact: dict = None, at_least: dict = None):
+        """Counts since reset; adds them to the main-path totals and
+        fails unless each named kernel launched exactly ``exact[name]``
+        times, or at least ``at_least[name]`` times."""
+        counts = {n: fn.launches for n, fn in self.wrappers.items()}
+        for name, want in (exact or {}).items():
+            if counts[name] != want:
+                raise AssertionError(f"{path}: {name} launched "
+                                     f"{counts[name]} times, expected {want}")
+        for name, want in (at_least or {}).items():
+            if counts[name] < want:
+                raise AssertionError(f"{path}: {name} launched "
+                                     f"{counts[name]} times, expected at "
+                                     f"least {want}")
+        for name, got in counts.items():
+            self.main_path[name] += got
+        log(f"  launches [{path}]: "
+            + ", ".join(f"{n}={c}" for n, c in counts.items() if c))
+        return counts
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_environment():
+    import torch
+
+    from go_crdt_playground_tpu_torch.ops import _build
+
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    smi = nvidia_smi_line()
+    log(smi)
+    t0 = time.perf_counter()
+    libs = _build.build_all(["merge", "delta"])
+    log(f"kernel build: {time.perf_counter() - t0:.3f} s "
+        f"({', '.join(p.name for p in libs.values())})")
+    return smi
+
+
+def phase_kernels(errs: dict, shapes=None):
+    """Every entry against its plain version, bitwise, on the card."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import gossip
+
+    if shapes is None:
+        shapes = [(R, E, A) for R in (7, 128, 1000, 4096)
+                  for E in (16, 300, 640) for A in (5, 256, 2048)]
+        shapes.append(CLI_SHAPE)
+    modes = [("v2", True), ("reference", True), ("reference", False)]
+    rng = np.random.default_rng(2024)
+    n_checks = 0
+
+    def check(key, got, want, what):
+        nonlocal n_checks
+        errs[key] = max(errs.get(key, 0), max_abs_err(got, want, what))
+        n_checks += 1
+
+    t0 = time.perf_counter()
+    for i, (R, E, A) in enumerate(shapes):
+        base = (0x7FFFFFFB, 0, 0xFFFFFFF0 - 10)[i % 3]
+        st = random_delta_state(rng, R, E, A, base, "cuda")
+        other = random_delta_state(rng, R, E, A, base, "cuda").base()
+        full = st.base()
+        offsets = [0, 1, 63, 64, 65, 128, R + 5, 3 * R + 64]
+        perms = [torch.from_numpy(rng.permutation(R)).cuda(),
+                 gossip.ring_perm(R, 65, "cuda")]
+        tag = f"R={R} E={E} A={A} base={base:#x}"
+        for off in offsets:
+            check("K1", cm.ring_round_rows(full, off, kernel="cuda"),
+                  cm.ring_round_rows(full, off, kernel="torch"),
+                  f"ring_round_rows {tag} offset={off}")
+            for sem, strict in modes:
+                kw = dict(delta_semantics=sem,
+                          strict_reference_semantics=strict)
+                check("K4", cd.delta_ring_round(st, off, kernel="cuda", **kw),
+                      cd.delta_ring_round(st, off, kernel="torch", **kw),
+                      f"delta_ring_round {tag} offset={off} {kw}")
+        for perm in perms:
+            check("K2", cm.gossip_round_rows(full, perm, kernel="cuda"),
+                  cm.gossip_round_rows(full, perm, kernel="torch"),
+                  f"gossip_round_rows {tag}")
+            for sem, strict in modes:
+                kw = dict(delta_semantics=sem,
+                          strict_reference_semantics=strict)
+                check("K5", cd.delta_gossip_round(st, perm, kernel="cuda",
+                                                  **kw),
+                      cd.delta_gossip_round(st, perm, kernel="torch", **kw),
+                      f"delta_gossip_round {tag} {kw}")
+        check("K2", cm.merge_pairwise_rows(full, other, kernel="cuda"),
+              cm.merge_pairwise_rows(full, other, kernel="torch"),
+              f"merge_pairwise_rows {tag}")
+        # a converged fleet: every later δ is empty, so strict reference
+        # rounds exercise the vv-skip
+        conv = st
+        for off in gossip.dissemination_offsets(R):
+            conv = cd.delta_ring_round(conv, off, kernel="torch")
+        for sem, strict in modes:
+            kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+            check("K4", cd.delta_ring_round(conv, 1, kernel="cuda", **kw),
+                  cd.delta_ring_round(conv, 1, kernel="torch", **kw),
+                  f"delta_ring_round converged {tag} {kw}")
+    torch.cuda.synchronize()
+    log(f"kernels: {n_checks} kernel-vs-plain checks over {len(shapes)} "
+        f"shapes bitwise equal ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_entry(counters: Counters, errs: dict):
+    from go_crdt_playground_tpu_torch.entry import entry
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import collectives
+
+    fn, (state, offset) = entry()
+    counters.reset()
+    merged, conv = fn(state, offset)
+    counters.read("entry", exact={"ring_round_rows": 1})
+    want = cm.ring_round_rows(state, offset, kernel="torch")
+    errs["K1"] = max(errs.get("K1", 0),
+                     max_abs_err(merged, want, "entry() vs plain round"))
+    if bool(conv) != bool(collectives.converged(want.present, want.vv)):
+        raise AssertionError("entry(): converged flag differs")
+    log(f"entry: 256 x 256 ring round bitwise equal to the plain round, "
+        f"converged={bool(conv)}")
+
+
+def _schedule_bytes(kind: str, R: int, E: int, A: int, gather: bool):
+    """Least bytes of one round: each input read once, each output
+    written once (the partner rows are rows of the same input)."""
+    if kind == "merge":
+        state = R * (4 * A + 9 * E)            # vv, present, 2 dot arrays
+        extra = 0
+    else:
+        state = R * (8 * A + 18 * E)           # + processed, deletion log
+        extra = 4 * R                          # the actor column
+    return 2 * state + extra + (8 * R if gather else 0)
+
+
+def bounds(kind: str, R: int, E: int, A: int, gather: bool):
+    nbytes = _schedule_bytes(kind, R, E, A, gather)
+    ops = R * (E * OPS_PER_LANE[kind] + A * OPS_PER_SLOT[kind])
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def phase_fleet(kind: str, counters: Counters, errs: dict, timings: dict,
+                smi: str):
+    """The 1M-replica fleet through the dissemination schedule (ring
+    kernel) and the butterfly schedule (gather kernel), converged; every
+    round of both at 1M and the R = 16,384 schedule against the plain
+    version, bitwise."""
+    import torch
+
+    from go_crdt_playground_tpu_torch import fleet as fleet_mod
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import collectives, gossip
+
+    delta = kind == "delta"
+    R, E, W = FLEET_R, FLEET_E, FLEET_W
+    build = fleet_mod.delta_fleet if delta else fleet_mod.build_state
+    ring_name = "delta_ring_round" if delta else "ring_round_rows"
+    gather_name = "delta_gossip_round" if delta else "gossip_round_rows"
+    ring_k, gather_k = ("K4", "K5") if delta else ("K1", "K2")
+    label = "δ v2" if delta else "full-state"
+
+    # whole schedule at R = 16,384: kernel vs plain, bitwise
+    small = build(CHECK_R, E, W, "cuda")
+    ring = cd.delta_ring_round if delta else cm.ring_round_rows
+    got, want = small, small
+    for off in gossip.dissemination_offsets(CHECK_R):
+        got = ring(got, off, kernel="cuda")
+        want = ring(want, off, kernel="torch")
+    errs[ring_k] = max(errs.get(ring_k, 0), max_abs_err(
+        got, want, f"{label} schedule at R={CHECK_R}"))
+    if not bool(collectives.converged(got.present, got.vv)):
+        raise AssertionError(f"{label} schedule at R={CHECK_R} not "
+                             "converged")
+    log(f"{label}: R={CHECK_R} dissemination schedule on the kernel "
+        "bitwise equal to the plain schedule, converged")
+    del small, got, want
+
+    t0 = time.perf_counter()
+    state = build(R, E, W, "cuda")
+    torch.cuda.synchronize()
+    log(f"{label}: fleet {R} x {E}, A={W} built in "
+        f"{time.perf_counter() - t0:.2f} s "
+        f"({sum(x.numel() * x.element_size() for x in state) / 1e9:.3f} GB)")
+    offsets = gossip.dissemination_offsets(R)
+
+    # warm once, then the counted and timed main-path run
+    warm = gossip.all_pairs_converge(state, delta=delta)
+    del warm
+    torch.cuda.synchronize()
+    counters.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = gossip.all_pairs_converge(state, delta=delta)
+    end.record()
+    total = checksum(out)
+    sched_ms = start.elapsed_time(end)
+    counters.read(f"{label} dissemination", exact={ring_name: len(offsets)})
+    conv = bool(collectives.converged(out.present, out.vv))
+    if not conv:
+        raise AssertionError(f"{label} fleet not converged after the "
+                             "dissemination schedule")
+    del out
+    bound_ms, _, nbytes = bounds("delta" if delta else "merge", R, E, W,
+                                 False)
+    log(f"{label}: {len(offsets)} dissemination rounds, converged={conv}, "
+        f"schedule {sched_ms:.3f} ms, {sched_ms / len(offsets):.4f} "
+        f"ms/round (least bytes {nbytes / 1e9:.3f} GB/round -> bound "
+        f"{bound_ms:.4f} ms/round at 3.35 TB/s; checksum {total}) "
+        f"[{smi}]")
+
+    # the same schedule again, every round's kernel output against the
+    # plain version on the same input (not counted as main path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay = check_rounds(ring, state, offsets, ring_k, errs,
+                          f"{label} {R}x{E} dissemination")
+    if checksum(replay) != total:
+        raise AssertionError(f"{label}: the replayed schedule differs from "
+                             "the counted run")
+    del replay
+    log(f"{label}: all {len(offsets)} dissemination rounds at {R} x {E} "
+        f"bitwise equal to the plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # the butterfly schedule through rounds_to_convergence: gather kernel,
+    # a digest every check_every rounds and bisection to the exact count
+    torch.cuda.empty_cache()
+    counters.reset()
+    start.record()
+    t0 = time.perf_counter()
+    rounds, out = gossip.rounds_to_convergence(state, delta=delta,
+                                               schedule="butterfly")
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counters.read(f"{label} butterfly",
+                             at_least={gather_name: rounds})[gather_name]
+    if rounds != len(offsets):
+        raise AssertionError(f"{label} butterfly: {rounds} rounds, "
+                             f"expected {len(offsets)}")
+    total = checksum(out)
+    del out
+    log(f"{label}: butterfly schedule converged in {rounds} rounds, "
+        f"{launched} launches with the bisection replay; "
+        f"{wall * 1e3:.3f} ms host wall, {start.elapsed_time(end):.3f} ms "
+        f"between CUDA events [{smi}]")
+
+    # one more run of it under torch.profiler: where the time goes
+    torch.cuda.empty_cache()
+    (_, traced), report = trace_run(
+        lambda: gossip.rounds_to_convergence(state, delta=delta,
+                                             schedule="butterfly"),
+        ("merge_rows", "delta_rows"))
+    del traced
+    if report is None:
+        log(f"{label}: butterfly trace: the profiler recorded no device "
+            "activity; idle share not measured")
+    else:
+        log(f"{label}: butterfly trace (torch.profiler): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in report.items()) + f" [{smi}]")
+
+    # the butterfly rounds again, kernel against plain version
+    torch.cuda.empty_cache()
+    stages = R.bit_length() - 1
+    replay = check_rounds(
+        cd.delta_gossip_round if delta else cm.gossip_round_rows, state,
+        [gossip.butterfly_perm(R, rnd % stages, "cuda")
+         for rnd in range(rounds)],
+        gather_k, errs, f"{label} {R}x{E} butterfly")
+    if checksum(replay) != total:
+        raise AssertionError(f"{label}: the replayed butterfly schedule "
+                             "differs from rounds_to_convergence's")
+    del replay
+    log(f"{label}: all {rounds} butterfly rounds at {R} x {E} bitwise "
+        "equal to the plain version")
+
+    # per-launch times at the fleet's shapes (not counted as main path)
+    torch.cuda.empty_cache()
+    kind_k = "delta" if delta else "merge"
+    perm = gossip.butterfly_perm(R, 3, "cuda")
+    rounds_iter = iter(range(10 ** 9))
+
+    def ring_call(kernel):
+        return lambda: ring(state, offsets[next(rounds_iter) % len(offsets)],
+                            kernel=kernel)
+
+    gather = cd.delta_gossip_round if delta else cm.gossip_round_rows
+    for key, call, plain_call, gathered in (
+            (ring_k, ring_call("cuda"), ring_call("torch"), False),
+            (gather_k, lambda: gather(state, perm, kernel="cuda"),
+             lambda: gather(state, perm, kernel="torch"), True)):
+        ms = cuda_time_ms(call, 20)
+        torch.cuda.empty_cache()
+        plain_ms = cuda_time_ms(plain_call, 2)
+        torch.cuda.empty_cache()
+        bound_ms, bound_by, nbytes = bounds(kind_k, R, E, W, gathered)
+        timings[key] = {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"{label} {key}: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB) "
+            f"-> {bound_ms / ms:.1%} of bound [{smi}]")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_cli(counters: Counters):
+    """The gossip verb on the card, in process."""
+    from go_crdt_playground_tpu_torch.__main__ import main
+
+    counters.reset()
+    if main(["gossip", "--device", "cuda"]) != 0:
+        raise AssertionError("gossip verb failed")
+    counters.read("cli gossip", at_least={"ring_round_rows": 1})
+    counters.reset()
+    if main(["gossip", "--device", "cuda", "--delta", "--drop-rate", "0.3",
+             "--schedule", "random", "--seed", "3"]) != 0:
+        raise AssertionError("gossip verb (delta, random, drops) failed")
+    counters.read("cli gossip delta random",
+                  at_least={"delta_gossip_round": 1})
+
+
+KERNELS = [
+    ("K1", "ring_round_rows", "csrc/merge.cu", "pallas_merge.py:832",
+     ("ring_round_rows",)),
+    ("K2", "gossip_round_rows + merge_pairwise_rows", "csrc/merge.cu",
+     "pallas_merge.py:413", ("gossip_round_rows", "merge_pairwise_rows")),
+    ("K4", "delta_ring_round", "csrc/delta.cu", "pallas_delta.py:460",
+     ("delta_ring_round",)),
+    ("K5", "delta_gossip_round", "csrc/delta.cu", "pallas_delta.py:291",
+     ("delta_gossip_round",)),
+]
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    smi = phase_environment()
+    counters = Counters()
+    errs, timings = {}, {}
+    phase_kernels(errs)
+    phase_entry(counters, errs)
+    phase_fleet("merge", counters, errs, timings, smi)
+    phase_fleet("delta", counters, errs, timings, smi)
+    phase_cli(counters)
+
+    kernels = []
+    for key, name, src, replaces, wrappers in KERNELS:
+        launches = sum(counters.main_path[w] for w in wrappers)
+        if launches < 1:
+            raise AssertionError(f"{key} never launched on the main path")
+        kernels.append({
+            "name": f"{key} {name}", "route": "cuda",
+            "source": f"go_crdt_playground_tpu_torch/{src}",
+            "replaces": f"go_crdt_playground_tpu/ops/{replaces}",
+            "launches": launches, "max_abs_err": errs[key],
+            "bitwise": errs[key] == 0, **timings[key],
+            "library_ms": None,
+        })
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,126 @@
+"""The port's entry points against the JAX package's, and the port's
+ground rules: no JAX imports, CUDA by default, no silent CPU fallback."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__
+import bench
+from go_crdt_playground_tpu.__main__ import main as jax_main
+from go_crdt_playground_tpu_torch import fleet
+from go_crdt_playground_tpu_torch.config import REFERENCE_CONFIG, Config
+from go_crdt_playground_tpu_torch.entry import entry
+from tests.test_torch_models import assert_same
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "go_crdt_playground_tpu_torch"
+
+
+def test_entry_matches_graft_entry():
+    jfn, (jstate, joff) = __graft_entry__.entry()
+    tfn, (tstate, toff) = entry(device="cpu")
+    assert_same(jstate, tstate, "example state")
+    assert int(toff) == int(joff)
+    jmerged, jconv = jfn(jstate, joff)
+    tmerged, tconv = tfn(tstate, toff)
+    assert_same(jmerged, tmerged, "merged")
+    assert bool(tconv) == bool(jconv)
+
+
+@pytest.mark.parametrize("R,E,W", [(300, 64, 16), (70, 33, 70)])
+def test_fleets_match_bench_builders(R, E, W):
+    """uint32 wrapping products reproduced bit for bit."""
+    assert_same(bench.build_state(R, E, W),
+                fleet.build_state(R, E, W, device="cpu"))
+    assert_same(bench._delta_fleet(R, E, W),
+                fleet.delta_fleet(R, E, W, device="cpu"))
+    for delta in (False, True):
+        assert_same(__graft_entry__._demo_state(R, E, delta=delta),
+                    fleet.demo_state(R, E, delta=delta, device="cpu"))
+
+
+def _port_cli(*args):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "go_crdt_playground_tpu_torch", "gossip",
+         *args], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout.strip().splitlines()[-1]
+
+
+@pytest.mark.parametrize("args", [
+    ("--replicas", "8"),
+    ("--replicas", "16", "--delta", "--schedule", "butterfly"),
+])
+def test_gossip_verb_prints_what_the_jax_verb_prints(args, capsys):
+    assert jax_main(["gossip", *args]) == 0
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    got = _port_cli(*args, "--device", "cpu")
+    assert got == want
+    assert "converged in" in got
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "go_crdt_playground_tpu"), \
+                f"{path.relative_to(REPO)} imports {mod}"
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device runs")
+    from go_crdt_playground_tpu_torch.__main__ import main
+    from go_crdt_playground_tpu_torch.models import awset, awset_delta
+
+    calls = [
+        lambda: awset.init(2, 4, 2),
+        lambda: awset_delta.init(2, 4, 2),
+        lambda: awset.from_arrays({"vv": np.zeros((1, 1), np.uint32),
+                                   "present": np.zeros((1, 1), bool),
+                                   "dot_actor": np.zeros((1, 1), np.uint32),
+                                   "dot_counter": np.zeros((1, 1), np.uint32),
+                                   "actor": np.zeros(1, np.uint32)}),
+        lambda: fleet.build_state(8, 4, 2),
+        lambda: fleet.delta_fleet(8, 4, 2),
+        lambda: entry(),
+        lambda: Config(num_replicas=2, num_actors=2).init_awset(),
+        lambda: main(["gossip", "--replicas", "4"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()
+
+
+def test_config_validates():
+    assert REFERENCE_CONFIG.num_replicas == 3
+    with pytest.raises(ValueError):
+        Config(num_replicas=0)
+    with pytest.raises(ValueError):
+        Config(num_actors=0)
+    st = REFERENCE_CONFIG.init_awset_delta(device="cpu")
+    assert tuple(st.vv.shape) == (3, 3)
