@@ -8,17 +8,27 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      from nvidia-smi, the kernel build (one nvcc per source, in parallel);
   2. kernels: every CUDA entry against its plain PyTorch version on the
      card, bitwise, over R x E x A shapes (the gossip verb's among
-     them), offsets and scenario states;
+     them), offsets and scenario states; the packed entries (K6-K9) over
+     their own shapes, in every δ mode, with counters near 2^31 and 2^32
+     (bitpacked) or at the dot-word cap, and the R % 64 guard;
   3. entry: ``entry()`` at 256 x 256 against the plain round, bitwise;
   4. full-state: the 1,048,576 x 256 fleet (A = 256 writers) through the
      dissemination schedule and the butterfly schedule, converged, with
-     the kernel launches counted; then every round of both schedules
-     at that size again, the kernel against the plain version on the
-     same input, bitwise; one butterfly run traced with torch.profiler
-     (device idle share); per-launch times beside their bounds;
-  5. δ north star: the same for the v2 δ fleet; both phases also hold
+     the kernel launches counted; then rounds of both schedules at that
+     size again, the kernel against the plain version on the same input,
+     bitwise; one butterfly run traced with torch.profiler (device idle
+     share); per-launch times beside their bounds;
+  5. packed full-state: the same fleet packed in the bitpacked and the
+     dot-word layout through the dissemination schedule (K6, K7),
+     converged, bitwise equal to the packed bool-layout result of phase
+     4, every round against the plain version, times beside bounds;
+  6. δ north star: phase 4 for the v2 δ fleet; phases 4 and 6 also hold
      the whole schedule at R = 16,384 against the plain schedule;
-  6. the gossip CLI verb on the card;
+  7. packed δ north star: phase 5 for the δ fleet (K8, K9);
+  8. one-row merge entries (K3): the gossip verb's fleet converged by
+     ``gossip_round`` over ring permutations, then ``merge_pairwise``
+     with a second fleet, against the plain versions;
+  9. the gossip CLI verb on the card;
 then one JSON line with every kernel (launches on the main path, error
 against the plain version, times and bounds), and a last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
@@ -221,8 +231,16 @@ class Counters:
             "ring_round_rows": cuda_merge.ring_round_rows,
             "gossip_round_rows": cuda_merge.gossip_round_rows,
             "merge_pairwise_rows": cuda_merge.merge_pairwise_rows,
+            "gossip_round": cuda_merge.gossip_round,
+            "merge_pairwise": cuda_merge.merge_pairwise,
+            "ring_round_rows_packed": cuda_merge.ring_round_rows_packed,
+            "ring_round_rows_dotpacked":
+                cuda_merge.ring_round_rows_dotpacked,
             "delta_ring_round": cuda_delta.delta_ring_round,
             "delta_gossip_round": cuda_delta.delta_gossip_round,
+            "delta_ring_round_packed": cuda_delta.delta_ring_round_packed,
+            "delta_ring_round_dotpacked":
+                cuda_delta.delta_ring_round_dotpacked,
         }
         self.main_path = {name: 0 for name in self.wrappers}
 
@@ -318,6 +336,9 @@ def phase_kernels(errs: dict, shapes=None):
             check("K2", cm.gossip_round_rows(full, perm, kernel="cuda"),
                   cm.gossip_round_rows(full, perm, kernel="torch"),
                   f"gossip_round_rows {tag}")
+            check("K3", cm.gossip_round(full, perm, kernel="cuda"),
+                  cm.gossip_round(full, perm, kernel="torch"),
+                  f"gossip_round {tag}")
             for sem, strict in modes:
                 kw = dict(delta_semantics=sem,
                           strict_reference_semantics=strict)
@@ -328,6 +349,9 @@ def phase_kernels(errs: dict, shapes=None):
         check("K2", cm.merge_pairwise_rows(full, other, kernel="cuda"),
               cm.merge_pairwise_rows(full, other, kernel="torch"),
               f"merge_pairwise_rows {tag}")
+        check("K3", cm.merge_pairwise(full, other, kernel="cuda"),
+              cm.merge_pairwise(full, other, kernel="torch"),
+              f"merge_pairwise {tag}")
         # a converged fleet: every later δ is empty, so strict reference
         # rounds exercise the vv-skip
         conv = st
@@ -341,6 +365,92 @@ def phase_kernels(errs: dict, shapes=None):
     torch.cuda.synchronize()
     log(f"kernels: {n_checks} kernel-vs-plain checks over {len(shapes)} "
         f"shapes bitwise equal ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_packed_kernels(errs: dict, shapes=None):
+    """The packed entries (K6-K9) against their plain versions, bitwise,
+    on the card: every offset of phase 2, every δ mode, converged fleets
+    (empty δ).  Bitpacked states take phase 2's counter bases (across
+    2^31, near 2^32); dot-word states a base whose counters reach the
+    20-bit cap.  R = 1000 must raise, as the reference does."""
+    import torch
+
+    from go_crdt_playground_tpu_torch._u32 import widen
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import gossip
+
+    if shapes is None:
+        shapes = [(R, E, A) for R in (128, 1024, 4096)
+                  for E in (16, 300, 640, 4100) for A in (5, 256, 2048)]
+    modes = [("v2", True), ("reference", True), ("reference", False)]
+    rng = np.random.default_rng(2025)
+    n_checks = 0
+
+    def check(key, fn, state, off, what, **kw):
+        nonlocal n_checks
+        errs[key] = max(errs.get(key, 0), max_abs_err(
+            fn(state, off, kernel="cuda", **kw),
+            fn(state, off, kernel="torch", **kw), what))
+        n_checks += 1
+
+    def converge(st):
+        for off in gossip.dissemination_offsets(st.num_replicas):
+            st = cd.delta_ring_round(st, off, kernel="torch")
+        return st
+
+    t0 = time.perf_counter()
+    for i, (R, E, A) in enumerate(shapes):
+        bits_base = (0x7FFFFFFB, 0, 0xFFFFFFF0 - 10)[i % 3]
+        dots_base = (packed.DOT_MAX_COUNTER - 9, 0)[i % 2]
+        st = random_delta_state(rng, R, E, A, bits_base, "cuda")
+        std = random_delta_state(rng, R, E, A, dots_base, "cuda")
+        if dots_base and int(widen(std.dot_counter).max()) != \
+                packed.DOT_MAX_COUNTER:
+            raise AssertionError("no dot counter at the 20-bit cap")
+        tag = f"R={R} E={E} A={A}"
+        layouts = (
+            ("K6", cm.ring_round_rows_packed, packed.pack_awset(st.base())),
+            ("K7", cm.ring_round_rows_dotpacked,
+             packed.pack_awset_dots(std.base())),
+            ("K8", cd.delta_ring_round_packed, packed.pack_awset_delta(st)),
+            ("K9", cd.delta_ring_round_dotpacked,
+             packed.pack_awset_delta_dots(std)))
+        if E >= 32 and int(layouts[0][2].present_bits.min()) >= 0:
+            raise AssertionError("no membership word has bit 31 set")
+        for off in [0, 1, 63, 64, 65, 128, R + 5, 3 * R + 64]:
+            for key, fn, state in layouts:
+                if key in ("K6", "K7"):
+                    check(key, fn, state, off, f"{key} {tag} offset={off}")
+                    continue
+                for sem, strict in modes:
+                    check(key, fn, state, off,
+                          f"{key} {tag} offset={off} {sem}/{strict}",
+                          delta_semantics=sem,
+                          strict_reference_semantics=strict)
+        # converged fleets: every δ is empty (the strict vv skip)
+        conv = (("K8", cd.delta_ring_round_packed,
+                 packed.pack_awset_delta(converge(st))),
+                ("K9", cd.delta_ring_round_dotpacked,
+                 packed.pack_awset_delta_dots(converge(std))))
+        for key, fn, state in conv:
+            for sem, strict in modes:
+                check(key, fn, state, 1,
+                      f"{key} converged {tag} {sem}/{strict}",
+                      delta_semantics=sem, strict_reference_semantics=strict)
+    bad = packed.pack_awset(random_delta_state(rng, 1000, 16, 5, 0,
+                                               "cuda").base())
+    try:
+        cm.ring_round_rows_packed(bad, 1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a packed state with R = 1000 did not raise")
+    torch.cuda.synchronize()
+    log(f"packed kernels: {n_checks} kernel-vs-plain checks over "
+        f"{len(shapes)} shapes bitwise equal; R = 1000 raises "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_entry(counters: Counters, errs: dict):
@@ -361,20 +471,27 @@ def phase_entry(counters: Counters, errs: dict):
         f"converged={bool(conv)}")
 
 
-def _schedule_bytes(kind: str, R: int, E: int, A: int, gather: bool):
+def _schedule_bytes(kind: str, R: int, E: int, A: int, gather: bool,
+                    layout: str = "bool"):
     """Least bytes of one round: each input read once, each output
-    written once (the partner rows are rows of the same input)."""
+    written once (the partner rows are rows of the same input).  Per
+    row, W = ceil(E/32): full-state bool 4A+9E, bitpacked 4A+4W+8E,
+    dot-word 4A+4W+4E; δ twice that (processed, the deletion log), plus
+    the actor column."""
+    w = (E + 31) // 32
+    lanes = {"bool": 9 * E, "bits": 4 * w + 8 * E, "dots": 4 * w + 4 * E}
     if kind == "merge":
-        state = R * (4 * A + 9 * E)            # vv, present, 2 dot arrays
+        state = R * (4 * A + lanes[layout])
         extra = 0
     else:
-        state = R * (8 * A + 18 * E)           # + processed, deletion log
+        state = R * 2 * (4 * A + lanes[layout])
         extra = 4 * R                          # the actor column
     return 2 * state + extra + (8 * R if gather else 0)
 
 
-def bounds(kind: str, R: int, E: int, A: int, gather: bool):
-    nbytes = _schedule_bytes(kind, R, E, A, gather)
+def bounds(kind: str, R: int, E: int, A: int, gather: bool,
+           layout: str = "bool"):
+    nbytes = _schedule_bytes(kind, R, E, A, gather, layout)
     ops = R * (E * OPS_PER_LANE[kind] + A * OPS_PER_SLOT[kind])
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ALU_OPS_PER_S * 1e3
@@ -387,7 +504,8 @@ def phase_fleet(kind: str, counters: Counters, errs: dict, timings: dict,
     """The 1M-replica fleet through the dissemination schedule (ring
     kernel) and the butterfly schedule (gather kernel), converged; every
     round of both at 1M and the R = 16,384 schedule against the plain
-    version, bitwise."""
+    version, bitwise.  Returns the dissemination schedule's final
+    state."""
     import torch
 
     from go_crdt_playground_tpu_torch import fleet as fleet_mod
@@ -444,6 +562,7 @@ def phase_fleet(kind: str, counters: Counters, errs: dict, timings: dict,
     if not conv:
         raise AssertionError(f"{label} fleet not converged after the "
                              "dissemination schedule")
+    final = out   # phases 5 and 7 hold the packed schedules against it
     del out
     bound_ms, _, nbytes = bounds("delta" if delta else "merge", R, E, W,
                                  False)
@@ -546,6 +665,173 @@ def phase_fleet(kind: str, counters: Counters, errs: dict, timings: dict,
             f"-> {bound_ms / ms:.1%} of bound [{smi}]")
     del state
     torch.cuda.empty_cache()
+    return final
+
+
+def phase_packed_fleet(kind: str, final, counters: Counters, errs: dict,
+                       timings: dict, smi: str):
+    """The 1M-replica fleet packed in the bitpacked and the dot-word
+    layout through the dissemination schedule on the packed kernels:
+    launches counted, converged, bitwise equal to ``pack(final)`` (the
+    bool-layout schedule's result), every round against the plain
+    version, each launch timed beside its layout's bound."""
+    import torch
+
+    from go_crdt_playground_tpu_torch import fleet as fleet_mod
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import collectives, gossip
+
+    delta = kind == "delta"
+    R, E, W = FLEET_R, FLEET_E, FLEET_W
+    offsets = gossip.dissemination_offsets(R)
+    if delta:
+        build = fleet_mod.delta_fleet
+        layouts = (
+            ("K8", "bits", "delta_ring_round_packed",
+             cd.delta_ring_round_packed, packed.pack_awset_delta,
+             packed.unpack_awset_delta),
+            ("K9", "dots", "delta_ring_round_dotpacked",
+             cd.delta_ring_round_dotpacked, packed.pack_awset_delta_dots,
+             packed.unpack_awset_delta_dots))
+    else:
+        build = fleet_mod.build_state
+        layouts = (
+            ("K6", "bits", "ring_round_rows_packed",
+             cm.ring_round_rows_packed, packed.pack_awset,
+             packed.unpack_awset),
+            ("K7", "dots", "ring_round_rows_dotpacked",
+             cm.ring_round_rows_dotpacked, packed.pack_awset_dots,
+             packed.unpack_awset_dots))
+    label = "δ v2" if delta else "full-state"
+    for key, layout, name, step, pack, unpack in layouts:
+        what = f"{label} {layout}"
+        t0 = time.perf_counter()
+        state = pack(build(R, E, W, "cuda"))
+        torch.cuda.synchronize()
+        log(f"{what}: fleet {R} x {E}, A={W} built and packed in "
+            f"{time.perf_counter() - t0:.2f} s ("
+            f"{sum(x.numel() * x.element_size() for x in state) / 1e9:.3f}"
+            " GB)")
+
+        def schedule(s):
+            for off in offsets:
+                s = step(s, off)
+            return s
+
+        warm = schedule(state)
+        del warm
+        torch.cuda.synchronize()
+        counters.reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = schedule(state)
+        end.record()
+        total = checksum(out)
+        sched_ms = start.elapsed_time(end)
+        counters.read(what, exact={name: len(offsets)})
+        if layout == "bits":
+            conv = bool(collectives.converged_packed(out.present_bits,
+                                                     out.vv))
+        else:
+            full = unpack(out, E)
+            conv = bool(collectives.converged(full.present, full.vv))
+            del full
+        if not conv:
+            raise AssertionError(f"{what} fleet not converged")
+        want = pack(final)
+        for field, g, w in zip(want._fields, out, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what}: field {field} differs from "
+                                     "pack() of the bool-layout schedule")
+        del out, want
+        bound_ms, _, nbytes = bounds(kind, R, E, W, False, layout)
+        log(f"{what}: {len(offsets)} dissemination rounds, converged, "
+            f"bitwise equal to pack() of the bool-layout result; schedule "
+            f"{sched_ms:.3f} ms, {sched_ms / len(offsets):.4f} ms/round "
+            f"(least bytes {nbytes / 1e9:.3f} GB/round -> bound "
+            f"{bound_ms:.4f} ms/round at 3.35 TB/s; checksum {total}) "
+            f"[{smi}]")
+
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        replay = check_rounds(step, state, offsets, key, errs,
+                              f"{what} {R}x{E} dissemination")
+        if checksum(replay) != total:
+            raise AssertionError(f"{what}: the replayed schedule differs "
+                                 "from the counted run")
+        del replay
+        log(f"{what}: all {len(offsets)} rounds at {R} x {E} bitwise equal "
+            f"to the plain version ({time.perf_counter() - t0:.1f} s)")
+
+        torch.cuda.empty_cache()
+        rounds_iter = iter(range(10 ** 9))
+
+        def call(kernel):
+            return lambda: step(
+                state, offsets[next(rounds_iter) % len(offsets)],
+                kernel=kernel)
+
+        ms = cuda_time_ms(call("cuda"), 20)
+        torch.cuda.empty_cache()
+        plain_ms = cuda_time_ms(call("torch"), 2)
+        torch.cuda.empty_cache()
+        timings[key] = {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes"}
+        log(f"{what} {key}: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms (bytes, {nbytes / 1e9:.3f} GB) -> "
+            f"{bound_ms / ms:.1%} of bound [{smi}]")
+        del state
+        torch.cuda.empty_cache()
+
+
+def phase_k3(counters: Counters, errs: dict, timings: dict, smi: str):
+    """The one-row merge entries (K3) on the gossip verb's fleet: the
+    fleet converged by ``gossip_round`` over the ring permutations of
+    the dissemination schedule, then ``merge_pairwise`` with a second
+    fleet; both against the plain versions, and timed."""
+    import torch
+
+    from go_crdt_playground_tpu_torch import fleet as fleet_mod
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import collectives, gossip
+
+    R, E, W = CLI_SHAPE
+    state = fleet_mod.build_state(R, E, W, "cuda")
+    other = fleet_mod.demo_state(R, E, device="cuda")
+    perms = [gossip.ring_perm(R, off, "cuda")
+             for off in gossip.dissemination_offsets(R)]
+    counters.reset()
+    out = state
+    for perm in perms:
+        out = cm.gossip_round(out, perm)
+    merged = cm.merge_pairwise(out, other)
+    torch.cuda.synchronize()
+    counters.read("one-row merge entries",
+                  exact={"gossip_round": len(perms), "merge_pairwise": 1})
+    if not bool(collectives.converged(out.present, out.vv)):
+        raise AssertionError("K3: the gossip verb's fleet not converged")
+    want = state
+    for perm in perms:
+        want = cm.gossip_round(want, perm, kernel="torch")
+    errs["K3"] = max(errs.get("K3", 0), max_abs_err(
+        out, want, "K3 gossip_round schedule"))
+    errs["K3"] = max(errs["K3"], max_abs_err(
+        merged, cm.merge_pairwise(want, other, kernel="torch"),
+        "K3 merge_pairwise"))
+    ms = cuda_time_ms(lambda: cm.gossip_round(state, perms[0]), 20)
+    plain_ms = cuda_time_ms(
+        lambda: cm.gossip_round(state, perms[0], kernel="torch"), 2)
+    bound_ms, bound_by, nbytes = bounds("merge", R, E, W, True)
+    timings["K3"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    log(f"K3: {R} x {E} fleet converged in {len(perms)} gossip_round "
+        f"launches, merge_pairwise with a second fleet, both bitwise "
+        f"equal to the plain versions; {ms:.4f} ms/launch, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+        f"{nbytes} B) [{smi}]")
 
 
 def phase_cli(counters: Counters):
@@ -569,10 +855,20 @@ KERNELS = [
      ("ring_round_rows",)),
     ("K2", "gossip_round_rows + merge_pairwise_rows", "csrc/merge.cu",
      "pallas_merge.py:413", ("gossip_round_rows", "merge_pairwise_rows")),
+    ("K3", "gossip_round + merge_pairwise", "csrc/merge.cu",
+     "pallas_merge.py:210", ("gossip_round", "merge_pairwise")),
     ("K4", "delta_ring_round", "csrc/delta.cu", "pallas_delta.py:460",
      ("delta_ring_round",)),
     ("K5", "delta_gossip_round", "csrc/delta.cu", "pallas_delta.py:291",
      ("delta_gossip_round",)),
+    ("K6", "ring_round_rows_packed", "csrc/merge.cu", "pallas_merge.py:832",
+     ("ring_round_rows_packed",)),
+    ("K7", "ring_round_rows_dotpacked", "csrc/merge.cu",
+     "pallas_merge.py:956", ("ring_round_rows_dotpacked",)),
+    ("K8", "delta_ring_round_packed", "csrc/delta.cu", "pallas_delta.py:460",
+     ("delta_ring_round_packed",)),
+    ("K9", "delta_ring_round_dotpacked", "csrc/delta.cu",
+     "pallas_delta.py:460", ("delta_ring_round_dotpacked",)),
 ]
 
 
@@ -590,9 +886,15 @@ def main() -> int:
     counters = Counters()
     errs, timings = {}, {}
     phase_kernels(errs)
+    phase_packed_kernels(errs)
     phase_entry(counters, errs)
-    phase_fleet("merge", counters, errs, timings, smi)
-    phase_fleet("delta", counters, errs, timings, smi)
+    final = phase_fleet("merge", counters, errs, timings, smi)
+    phase_packed_fleet("merge", final, counters, errs, timings, smi)
+    del final
+    final = phase_fleet("delta", counters, errs, timings, smi)
+    phase_packed_fleet("delta", final, counters, errs, timings, smi)
+    del final
+    phase_k3(counters, errs, timings, smi)
     phase_cli(counters)
 
     kernels = []

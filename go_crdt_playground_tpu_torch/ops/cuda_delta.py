@@ -4,15 +4,21 @@
 Kernels and the Pallas kernels they replace
 (go_crdt_playground_tpu/ops/pallas_delta.py):
 
-  K4 ``delta_ring_round``   <- ``pallas_delta_ring_round``: replica r
-                               absorbs the δ of (r + offset) mod R;
-  K5 ``delta_gossip_round`` <- ``pallas_delta_gossip_round``: r absorbs
-                               the δ of perm[r].
+  K4 ``delta_ring_round``           <- ``pallas_delta_ring_round``: replica
+                                       r absorbs the δ of (r + offset) mod R;
+  K5 ``delta_gossip_round``         <- ``pallas_delta_gossip_round``: r
+                                       absorbs the δ of perm[r];
+  K8 ``delta_ring_round_packed``    <- ``pallas_delta_ring_round_packed``:
+                                       K4 on the bitpacked layout;
+  K9 ``delta_ring_round_dotpacked`` <- ``pallas_delta_ring_round_dotpacked``:
+                                       K4 on the dot-word layout
+                                       (models/packed.py).
 
-Both take the three δ semantics of the JAX package: v2, reference
+All take the three δ semantics of the JAX package: v2, reference
 (strict: the empty-δ vv skip) and reference_loose.  Dispatch, checks and
 launch counting follow ops/cuda_merge.py; the plain version is
-``_delta_algebra`` below on whole [R, E] tensors.
+``_delta_algebra`` below on whole [R, E] tensors (the packed entries
+unpack, run it and pack).
 """
 
 from __future__ import annotations
@@ -23,10 +29,12 @@ import functools
 import torch
 
 from go_crdt_playground_tpu_torch._u32 import narrow, widen
+from go_crdt_playground_tpu_torch.models import packed
 from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
 from go_crdt_playground_tpu_torch.ops import _build
 from go_crdt_playground_tpu_torch.ops.cuda_merge import (
-    PARTNER_GATHER, PARTNER_RING, as_index, check_state, ring_index,
+    LAYOUT_BITS, LAYOUT_DOTWORD, PARTNER_GATHER, PARTNER_RING, as_index,
+    check_ring_rows, check_state, layout_of, out_like, ptr, ring_index,
     stream_of, use_kernel)
 from go_crdt_playground_tpu_torch.ops.vv import clock_at, has_dot, vv_join
 
@@ -143,37 +151,47 @@ def delta_round_plain(state: AWSetDeltaState, index: torch.Tensor,
     return _rebuild(state, _delta_algebra(state, src, src.actor, mode))
 
 
+def _delta_lanes(state):
+    """The six E-shaped lane pointers' tensors in the kernel's order;
+    the dot-word layout fills the counter slots with None."""
+    layout = layout_of(state)
+    if layout == LAYOUT_DOTWORD:
+        return (state.present_bits, state.dots, None, state.deleted_bits,
+                state.del_dots, None)
+    if layout == LAYOUT_BITS:
+        return (state.present_bits, state.dot_actor, state.dot_counter,
+                state.deleted_bits, state.del_dot_actor,
+                state.del_dot_counter)
+    return (state.present, state.dot_actor, state.dot_counter,
+            state.deleted, state.del_dot_actor, state.del_dot_counter)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("delta")
     lib.crdt_delta_round.argtypes = (
-        [_P] * 10 + [_I64, _I32, _I32] + [_P] * 8 + [_I64, _I64, _I32, _P])
+        [_P] * 10 + [_I64, _I32, _I32] + [_P] * 8
+        + [_I64, _I64, _I32, _I32, _P])
     lib.crdt_delta_round.restype = ctypes.c_int
     return lib
 
 
-def _launch(state: AWSetDeltaState, perm, offset: int, partner_mode: int,
-            mode: str) -> AWSetDeltaState:
+def _launch(state, perm, offset: int, partner_mode: int, mode: str):
     check_state(state)
     num_r, num_a = state.vv.shape
-    num_e = state.present.shape[-1]
-    outs = [torch.empty_like(state.vv), torch.empty_like(state.processed)]
-    outs += [torch.empty_like(getattr(state, name)) for name in (
-        "present", "dot_actor", "dot_counter", "deleted", "del_dot_actor",
-        "del_dot_counter")]
+    outs = out_like(state)
     lib = _lib()
     with torch.cuda.device(state.vv.device):
         rc = lib.crdt_delta_round(
-            state.vv.data_ptr(), state.processed.data_ptr(),
-            state.present.data_ptr(), state.dot_actor.data_ptr(),
-            state.dot_counter.data_ptr(), state.deleted.data_ptr(),
-            state.del_dot_actor.data_ptr(),
-            state.del_dot_counter.data_ptr(), state.actor.data_ptr(),
-            None if perm is None else perm.data_ptr(), offset, partner_mode,
-            MODES[mode], *(t.data_ptr() for t in outs),
-            num_r, num_e, num_a, stream_of(state.vv))
+            ptr(state.vv), ptr(state.processed),
+            *map(ptr, _delta_lanes(state)), ptr(state.actor),
+            ptr(perm), offset, partner_mode, MODES[mode],
+            ptr(outs.vv), ptr(outs.processed),
+            *map(ptr, _delta_lanes(outs)),
+            num_r, packed.num_elements(state), num_a, layout_of(state),
+            stream_of(state.vv))
     _build.check(lib, rc, "crdt_delta_round")
-    return _rebuild(state, outs)
+    return outs
 
 
 def delta_ring_round(state: AWSetDeltaState, offset, *,
@@ -206,5 +224,46 @@ def delta_gossip_round(state: AWSetDeltaState, perm, *,
     return out
 
 
+def delta_ring_round_packed(state: packed.PackedAWSetDeltaState, offset, *,
+                            delta_semantics: str = "v2",
+                            strict_reference_semantics: bool = True,
+                            kernel: str = "auto"
+                            ) -> packed.PackedAWSetDeltaState:
+    """K8: K4 on the bitpacked layout.  The plain version unpacks, runs
+    the δ round against the ring partner and packs."""
+    mode = kernel_mode(delta_semantics, strict_reference_semantics)
+    num_r = state.vv.shape[0]
+    check_ring_rows(num_r)
+    if not use_kernel(kernel, state.vv):
+        full = packed.unpack_awset_delta(state, packed.num_elements(state))
+        return packed.pack_awset_delta(delta_round_plain(
+            full, ring_index(num_r, offset, state.vv.device), mode))
+    out = _launch(state, None, int(offset) % num_r, PARTNER_RING, mode)
+    delta_ring_round_packed.launches += 1
+    return out
+
+
+def delta_ring_round_dotpacked(state: packed.DotPackedAWSetDeltaState,
+                               offset, *, delta_semantics: str = "v2",
+                               strict_reference_semantics: bool = True,
+                               kernel: str = "auto"
+                               ) -> packed.DotPackedAWSetDeltaState:
+    """K9: K4 on the dot-word layout.  The plain version unpacks, runs
+    the δ round against the ring partner and packs."""
+    mode = kernel_mode(delta_semantics, strict_reference_semantics)
+    num_r = state.vv.shape[0]
+    check_ring_rows(num_r)
+    if not use_kernel(kernel, state.vv):
+        full = packed.unpack_awset_delta_dots(state,
+                                              packed.num_elements(state))
+        return packed.pack_awset_delta_dots(delta_round_plain(
+            full, ring_index(num_r, offset, state.vv.device), mode))
+    out = _launch(state, None, int(offset) % num_r, PARTNER_RING, mode)
+    delta_ring_round_dotpacked.launches += 1
+    return out
+
+
 delta_ring_round.launches = 0
 delta_gossip_round.launches = 0
+delta_ring_round_packed.launches = 0
+delta_ring_round_dotpacked.launches = 0

@@ -3,20 +3,30 @@
 Kernels and the Pallas kernels they replace
 (go_crdt_playground_tpu/ops/pallas_merge.py):
 
-  K1 ``ring_round_rows``      <- ``pallas_ring_round_rows``: replica r
-                                 absorbs (r + offset) mod R, partner rows
-                                 read in place;
-  K2 ``gossip_round_rows``    <- ``pallas_gossip_round_rows``: r absorbs
-                                 perm[r], partner rows read through perm;
-     ``merge_pairwise_rows``  <- ``pallas_merge_pairwise_rows``: r absorbs
-                                 row r of an independent batch.
+  K1 ``ring_round_rows``          <- ``pallas_ring_round_rows``: replica r
+                                     absorbs (r + offset) mod R, partner
+                                     rows read in place;
+  K2 ``gossip_round_rows``        <- ``pallas_gossip_round_rows``: r absorbs
+                                     perm[r], partner rows read through perm;
+     ``merge_pairwise_rows``      <- ``pallas_merge_pairwise_rows``: r
+                                     absorbs row r of an independent batch;
+  K3 ``gossip_round``             <- ``pallas_gossip_round``, and
+     ``merge_pairwise``           <- ``pallas_merge_pairwise``: the entries
+                                     of the one-row Pallas kernel, the same
+                                     partner modes of this kernel;
+  K6 ``ring_round_rows_packed``   <- ``pallas_ring_round_rows_packed``: K1
+                                     on the bitpacked layout;
+  K7 ``ring_round_rows_dotpacked`` <- ``pallas_ring_round_rows_dotpacked``:
+                                     K1 on the dot-word layout
+                                     (models/packed.py).
 
 ``kernel="auto"`` launches the kernel for CUDA tensors and runs the plain
-version (ops/merge.merge_kernel on whole [R, E] tensors) for CPU
-tensors; ``kernel="cuda"`` insists on the kernel and ``kernel="torch"``
-asks for the plain version.  Outputs are new tensors (partner rows are
-read by other blocks of the same launch), so peak memory is state plus
-outputs.  Each wrapper counts its launches in ``<wrapper>.launches``.
+version (ops/merge.merge_kernel on whole [R, E] tensors; the packed
+entries unpack, merge and pack) for CPU tensors; ``kernel="cuda"``
+insists on the kernel and ``kernel="torch"`` asks for the plain version.
+Outputs are new tensors (partner rows are read by other blocks of the
+same launch), so peak memory is state plus outputs.  Each wrapper counts
+its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from go_crdt_playground_tpu_torch.models import packed
 from go_crdt_playground_tpu_torch.models.awset import AWSetState
 from go_crdt_playground_tpu_torch.ops import _build
 from go_crdt_playground_tpu_torch.ops.merge import merge_kernel
@@ -34,11 +45,16 @@ from go_crdt_playground_tpu_torch.ops.merge import merge_kernel
 # Shared-memory cap on the actor axis: the dst and partner vv rows are
 # staged per block (2 x A x 4 B = 16 KB at the cap).
 MAX_FUSED_ACTORS = 2048
+# The reference's packed ring kernels take whole 64-row blocks, at least
+# two (pallas_merge.ring_supported); the packed entries keep that domain.
+_RING_BLOCK_R = 64
 
 KERNEL_CHOICES = ("auto", "cuda", "torch")
 PARTNER_RING, PARTNER_GATHER, PARTNER_PAIRWISE = 0, 1, 2
+LAYOUT_BOOL, LAYOUT_BITS, LAYOUT_DOTWORD = 0, 1, 2   # csrc/common.cuh
 _BOOL_FIELDS = frozenset({"present", "deleted"})
 _ACTOR_FIELDS = frozenset({"vv", "processed"})
+_WORD_FIELDS = frozenset({"present_bits", "deleted_bits"})
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -62,11 +78,22 @@ def use_kernel(kernel: str, tensor: torch.Tensor) -> bool:
     return False
 
 
+def layout_of(state) -> int:
+    """The lane layout of a state class (csrc/common.cuh ``Layout``)."""
+    if "dots" in state._fields:
+        return LAYOUT_DOTWORD
+    if "present_bits" in state._fields:
+        return LAYOUT_BITS
+    return LAYOUT_BOOL
+
+
 def check_state(state) -> None:
     """Device, dtype, shape and contiguity checks before passing
-    pointers to a kernel."""
+    pointers to a kernel; for the bool, bitpacked and dot-word states
+    alike."""
     num_r, num_a = state.vv.shape
-    num_e = state.present.shape[-1]
+    num_e = packed.num_elements(state)
+    num_w = packed.packed_width(num_e)
     if num_a < 1:
         raise ValueError("the actor axis must be non-empty")
     if num_a > MAX_FUSED_ACTORS:
@@ -78,6 +105,7 @@ def check_state(state) -> None:
         want_dtype = torch.bool if name in _BOOL_FIELDS else torch.int32
         want_shape = ((num_r,) if name == "actor" else
                       (num_r, num_a) if name in _ACTOR_FIELDS else
+                      (num_r, num_w) if name in _WORD_FIELDS else
                       (num_r, num_e))
         if t.dtype != want_dtype or tuple(t.shape) != want_shape:
             raise ValueError(f"{name}: expected {want_dtype}{want_shape}, "
@@ -87,6 +115,17 @@ def check_state(state) -> None:
                              f"{state.vv.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_ring_rows(num_r: int) -> None:
+    """The packed ring entries raise where the reference's do: R must
+    be a multiple of 64 and at least 128 (the CUDA kernel itself would
+    take any R)."""
+    if num_r % _RING_BLOCK_R or num_r < 2 * _RING_BLOCK_R:
+        raise ValueError(
+            f"packed ring rounds need R % {_RING_BLOCK_R} == 0 and R >= "
+            f"{2 * _RING_BLOCK_R}, got R={num_r}; unpack and use the "
+            "bool-layout paths instead")
 
 
 def as_index(perm, num_r: int, device) -> torch.Tensor:
@@ -123,42 +162,56 @@ def stream_of(tensor: torch.Tensor) -> int:
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
+def out_like(state):
+    """Uninitialised outputs of a round: every field but the replica's
+    own actor column, which passes through."""
+    return type(state)(*(x if name == "actor" else torch.empty_like(x)
+                         for name, x in zip(state._fields, state)))
+
+
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _merge_lanes(state):
+    """(membership, dot actor or dot word, dot counter or None)."""
+    layout = layout_of(state)
+    if layout == LAYOUT_DOTWORD:
+        return state.present_bits, state.dots, None
+    if layout == LAYOUT_BITS:
+        return state.present_bits, state.dot_actor, state.dot_counter
+    return state.present, state.dot_actor, state.dot_counter
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("merge")
     lib.crdt_merge_round.argtypes = (
-        [_P] * 9 + [_I64, _I32] + [_P] * 4 + [_I64, _I64, _I32, _P])
+        [_P] * 9 + [_I64, _I32] + [_P] * 4 + [_I64, _I64, _I32, _I32, _P])
     lib.crdt_merge_round.restype = ctypes.c_int
     return lib
 
 
-def _launch(dst: AWSetState, src: AWSetState, perm, offset: int,
-            partner_mode: int) -> AWSetState:
+def _launch(dst, src, perm, offset: int, partner_mode: int):
     check_state(dst)
     if src is not dst:
         check_state(src)
-        if (src.vv.shape != dst.vv.shape
-                or src.present.shape != dst.present.shape
+        if (type(src) is not type(dst)
+                or any(s.shape != d.shape for s, d in zip(src, dst))
                 or src.vv.device != dst.vv.device):
-            raise ValueError("dst and src batches must match in shape "
-                             "and device")
+            raise ValueError("dst and src batches must match in layout, "
+                             "shape and device")
     num_r, num_a = dst.vv.shape
-    num_e = dst.present.shape[-1]
-    outs = AWSetState(
-        vv=torch.empty_like(dst.vv), present=torch.empty_like(dst.present),
-        dot_actor=torch.empty_like(dst.dot_actor),
-        dot_counter=torch.empty_like(dst.dot_counter), actor=dst.actor)
+    outs = out_like(dst)
     lib = _lib()
     with torch.cuda.device(dst.vv.device):
         rc = lib.crdt_merge_round(
-            dst.vv.data_ptr(), dst.present.data_ptr(),
-            dst.dot_actor.data_ptr(), dst.dot_counter.data_ptr(),
-            src.vv.data_ptr(), src.present.data_ptr(),
-            src.dot_actor.data_ptr(), src.dot_counter.data_ptr(),
-            None if perm is None else perm.data_ptr(), offset, partner_mode,
-            outs.vv.data_ptr(), outs.present.data_ptr(),
-            outs.dot_actor.data_ptr(), outs.dot_counter.data_ptr(),
-            num_r, num_e, num_a, stream_of(dst.vv))
+            ptr(dst.vv), *map(ptr, _merge_lanes(dst)),
+            ptr(src.vv), *map(ptr, _merge_lanes(src)),
+            ptr(perm), offset, partner_mode,
+            ptr(outs.vv), *map(ptr, _merge_lanes(outs)),
+            num_r, packed.num_elements(dst), num_a, layout_of(dst),
+            stream_of(dst.vv))
     _build.check(lib, rc, "crdt_merge_round")
     return outs
 
@@ -177,41 +230,105 @@ def _rows(state, index):
     return type(state)(*(x[index] for x in state))
 
 
+def _ring_plain(full: AWSetState, offset) -> AWSetState:
+    return merge_rows_plain(
+        full, _rows(full, ring_index(full.num_replicas, offset,
+                                     full.vv.device)))
+
+
 def ring_round_rows(state: AWSetState, offset,
                     kernel: str = "auto") -> AWSetState:
     """K1: one round against partner (r + offset) mod R; an offset >= R
     reduces mod R, offset 0 merges each row with itself."""
     num_r = state.num_replicas
     if not use_kernel(kernel, state.vv):
-        return merge_rows_plain(
-            state, _rows(state, ring_index(num_r, offset, state.vv.device)))
+        return _ring_plain(state, offset)
     offset = int(offset) % num_r if num_r else 0
     out = _launch(state, state, None, offset, PARTNER_RING)
     ring_round_rows.launches += 1
     return out
 
 
-def gossip_round_rows(state: AWSetState, perm,
-                      kernel: str = "auto") -> AWSetState:
-    """K2: one round in which replica r absorbs replica perm[r]."""
+def _gather_round(state: AWSetState, perm, kernel: str,
+                  wrapper) -> AWSetState:
+    """r absorbs perm[r]; a launch counts on ``wrapper``."""
     perm = as_index(perm, state.num_replicas, state.vv.device)
     if not use_kernel(kernel, state.vv):
         return merge_rows_plain(state, _rows(state, perm))
     out = _launch(state, state, perm, 0, PARTNER_GATHER)
-    gossip_round_rows.launches += 1
+    wrapper.launches += 1
     return out
+
+
+def _pairwise(dst: AWSetState, src: AWSetState, kernel: str,
+              wrapper) -> AWSetState:
+    """``dst[r] <- src[r]``; a launch counts on ``wrapper``."""
+    if not use_kernel(kernel, dst.vv):
+        return merge_rows_plain(dst, src)
+    out = _launch(dst, src, None, 0, PARTNER_PAIRWISE)
+    wrapper.launches += 1
+    return out
+
+
+def gossip_round_rows(state: AWSetState, perm,
+                      kernel: str = "auto") -> AWSetState:
+    """K2: one round in which replica r absorbs replica perm[r]."""
+    return _gather_round(state, perm, kernel, gossip_round_rows)
 
 
 def merge_pairwise_rows(dst: AWSetState, src: AWSetState,
                         kernel: str = "auto") -> AWSetState:
     """K2, pairwise: ``dst[r] <- src[r]`` between two batches."""
-    if not use_kernel(kernel, dst.vv):
-        return merge_rows_plain(dst, src)
-    out = _launch(dst, src, None, 0, PARTNER_PAIRWISE)
-    merge_pairwise_rows.launches += 1
+    return _pairwise(dst, src, kernel, merge_pairwise_rows)
+
+
+def gossip_round(state: AWSetState, perm,
+                 kernel: str = "auto") -> AWSetState:
+    """K3: one round in which replica r absorbs replica perm[r] (the
+    one-row Pallas kernel's entry; on the card the same kernel as K2,
+    counted apart)."""
+    return _gather_round(state, perm, kernel, gossip_round)
+
+
+def merge_pairwise(dst: AWSetState, src: AWSetState,
+                   kernel: str = "auto") -> AWSetState:
+    """K3, pairwise: ``dst[r] <- src[r]`` between two batches."""
+    return _pairwise(dst, src, kernel, merge_pairwise)
+
+
+def ring_round_rows_packed(state: packed.PackedAWSetState, offset,
+                           kernel: str = "auto") -> packed.PackedAWSetState:
+    """K6: K1 on the bitpacked layout.  The plain version unpacks,
+    merges with the ring partner and packs."""
+    num_r = state.vv.shape[0]
+    check_ring_rows(num_r)
+    if not use_kernel(kernel, state.vv):
+        full = packed.unpack_awset(state, packed.num_elements(state))
+        return packed.pack_awset(_ring_plain(full, offset))
+    out = _launch(state, state, None, int(offset) % num_r, PARTNER_RING)
+    ring_round_rows_packed.launches += 1
+    return out
+
+
+def ring_round_rows_dotpacked(state: packed.DotPackedAWSetState, offset,
+                              kernel: str = "auto"
+                              ) -> packed.DotPackedAWSetState:
+    """K7: K1 on the dot-word layout.  The plain version unpacks,
+    merges with the ring partner and packs."""
+    num_r = state.vv.shape[0]
+    check_ring_rows(num_r)
+    if not use_kernel(kernel, state.vv):
+        full = packed.unpack_awset_dots(state, packed.num_elements(state))
+        return packed.pack_awset_dots(_ring_plain(full, offset))
+    out = _launch(state, state, None, int(offset) % num_r, PARTNER_RING)
+    ring_round_rows_dotpacked.launches += 1
     return out
 
 
 ring_round_rows.launches = 0
 gossip_round_rows.launches = 0
 merge_pairwise_rows.launches = 0
+gossip_round.launches = 0
+merge_pairwise.launches = 0
+ring_round_rows_packed.launches = 0
+ring_round_rows_dotpacked.launches = 0

@@ -58,6 +58,17 @@ def converged(present: torch.Tensor, vv: torch.Tensor) -> torch.Tensor:
     return all_equal(state_digest(present, vv))
 
 
+def converged_packed(present_bits: torch.Tensor,
+                     vv: torch.Tensor) -> torch.Tensor:
+    """``converged`` on the bitpacked membership layout
+    (models/packed.py): equal words <=> equal membership (the tail bits
+    past E are zero), so the digest hashes word lanes directly, with no
+    unpack.  present_bits: int32[R, W] (uint32 bits)."""
+    lane = _lanes(present_bits.shape[-1], present_bits.device)
+    mh = mul32(_mix32(present_bits), lane).sum(dim=-1) & MASK
+    return all_equal(narrow(mh ^ _vv_hash(vv)))
+
+
 def global_vv_join(vv: torch.Tensor) -> torch.Tensor:
     """Elementwise unsigned max over the replica axis: int32[R, A] ->
     int32[A]."""

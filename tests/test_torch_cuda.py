@@ -2,28 +2,74 @@
 
 Marked ``cuda``: each test needs an NVIDIA GPU with nvcc and skips
 without one (the CPU suite runs the plain versions against the JAX
-package instead).  On a GPU machine:
+package instead).  The file imports the port alone, so it runs on a GPU
+machine that has no JAX; ``--noconftest`` skips the suite's conftest,
+which pins JAX to the CPU:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_models import scenario, to_torch
+from go_crdt_playground_tpu_torch.models import awset_delta
 
 pytestmark = pytest.mark.cuda
 
 MODES = [("v2", True), ("reference", True), ("reference", False)]
 
 
-@pytest.fixture
-def gpu_state():
+def random_state(seed, R, E, A):
+    """A δ state from numpy: deletions, re-adds, silent rows, canonical
+    zeros on absent lanes, counters straddling 2^31."""
+    rng = np.random.default_rng(seed)
+    present = rng.random((R, E)) < 0.5
+    deleted = rng.random((R, E)) < 0.3
+    silent = rng.random(R) < 0.2
+    present[silent] = deleted[silent] = False
+    base = 0x7FFFFFFB
+
+    def counters(shape, lo):
+        return rng.integers(lo, 10, shape).astype(np.uint64)
+
+    vv, proc = counters((R, A), 0), counters((R, A), 0)
+    vv[silent] = proc[silent] = 0
+    arrays = {
+        "vv": np.where(vv > 0, vv + base, 0),
+        "present": present,
+        "dot_actor": np.where(present, rng.integers(0, A, (R, E)), 0),
+        "dot_counter": np.where(present, counters((R, E), 1) + base, 0),
+        "actor": rng.integers(0, A, R),
+        "deleted": deleted,
+        "del_dot_actor": np.where(deleted, rng.integers(0, A, (R, E)), 0),
+        "del_dot_counter": np.where(deleted, counters((R, E), 1) + base, 0),
+        "processed": np.where(proc > 0, proc + base, 0),
+    }
+    arrays = {k: v if v.dtype == bool else v.astype(np.uint32)
+              for k, v in arrays.items()}
+    return awset_delta.from_arrays(arrays, device="cpu")
+
+
+def _on_gpu(st):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
-    st = to_torch(scenario(61, 70, 300, 8))
     return type(st)(*(x.cuda() for x in st))
+
+
+@pytest.fixture
+def gpu_state():
+    return _on_gpu(random_state(61, 70, 300, 8))
+
+
+@pytest.fixture
+def gpu_ring_state():
+    """R = 128, inside the packed ring entries' domain; dot counters
+    within the dot-word layout's 20-bit cap."""
+    st = random_state(67, 128, 300, 8)
+    small = st._replace(dot_counter=st.dot_counter & 0xFFFFF,
+                        del_dot_counter=st.del_dot_counter & 0xFFFFF)
+    return _on_gpu(small)
 
 
 def _equal(a, b):
@@ -57,3 +103,49 @@ def test_delta_kernel_matches_plain(gpu_state, sem, strict):
     perm = torch.from_numpy(np.random.default_rng(1).permutation(70)).cuda()
     assert _equal(cd.delta_gossip_round(gpu_state, perm, kernel="cuda", **kw),
                   cd.delta_gossip_round(gpu_state, perm, kernel="torch", **kw))
+
+
+def test_k3_kernel_matches_plain(gpu_state):
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+
+    full = gpu_state.base()
+    perm = torch.from_numpy(np.random.default_rng(2).permutation(70)).cuda()
+    assert _equal(cm.gossip_round(full, perm, kernel="cuda"),
+                  cm.gossip_round(full, perm, kernel="torch"))
+    other = cm.ring_round_rows(full, 5, kernel="torch")
+    assert _equal(cm.merge_pairwise(full, other, kernel="cuda"),
+                  cm.merge_pairwise(full, other, kernel="torch"))
+
+
+@pytest.mark.parametrize("layout", ["bits", "dots"])
+def test_packed_merge_kernels_match_plain(gpu_ring_state, layout):
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+
+    full = gpu_ring_state.base()
+    if layout == "bits":
+        st, fn = packed.pack_awset(full), cm.ring_round_rows_packed
+    else:
+        st, fn = packed.pack_awset_dots(full), cm.ring_round_rows_dotpacked
+    for off in (0, 1, 63, 64, 65, 133):
+        assert _equal(fn(st, off, kernel="cuda"),
+                      fn(st, off, kernel="torch")), off
+
+
+@pytest.mark.parametrize("sem,strict", MODES)
+@pytest.mark.parametrize("layout", ["bits", "dots"])
+def test_packed_delta_kernels_match_plain(gpu_ring_state, layout, sem,
+                                          strict):
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+
+    kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+    if layout == "bits":
+        st = packed.pack_awset_delta(gpu_ring_state)
+        fn = cd.delta_ring_round_packed
+    else:
+        st = packed.pack_awset_delta_dots(gpu_ring_state)
+        fn = cd.delta_ring_round_dotpacked
+    for off in (0, 1, 63, 64, 65, 133):
+        assert _equal(fn(st, off, kernel="cuda", **kw),
+                      fn(st, off, kernel="torch", **kw)), off
