@@ -29,6 +29,17 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      ``gossip_round`` over ring permutations, then ``merge_pairwise``
      with a second fleet, against the plain versions;
   9. the gossip CLI verb on the card;
+ 10. the serve write path on one node (``serve --ingest`` defaults:
+     E = 1,024, A = 16, batches of 32): 200 client micro-batches, adds,
+     deletes and a peer's PAYLOAD body through ``Node``, durable
+     checkpoints every 50 batches, ``restore_durable`` bitwise equal to
+     the live node, every WAL record byte-identical to the plain K10's,
+     the same op log on a CPU node to an equal state, K10 launched once
+     per batch; then K10 and ``ingest_batch`` timed on the legs of the
+     JAX package's ``bench.measure_ingest``;
+and, after phase 2, phase 2b: the ingest kernel (K10) against its plain
+version over E x A x B, densities, padding patterns, states with
+history and own clocks whose prefix sums cross 2^31 and wrap at 2^32;
 then one JSON line with every kernel (launches on the main path, error
 against the plain version, times and bounds), and a last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
@@ -38,8 +49,10 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,11 +66,21 @@ ALU_OPS_PER_S = 67e12
 # the algebra in csrc/merge.cu and csrc/delta.cu
 OPS_PER_LANE = {"merge": 20, "delta": 60}
 OPS_PER_SLOT = {"merge": 2, "delta": 6}
+# csrc/ingest.cu: operations per lane and row of the fold, and per lane
+# of the δ extraction after it
+INGEST_OPS_PER_ROW_LANE, INGEST_OPS_PER_LANE = 10, 30
 
 FLEET_R, FLEET_E, FLEET_W = 1 << 20, 256, 256
 CHECK_R = 16_384
 # the gossip verb's fleet: 64 replicas, 128 elements, one actor each
 CLI_SHAPE = (64, 128, 64)
+# ``serve --ingest`` as users start it (go_crdt_playground_tpu/__main__.py
+# defaults): E elements, A actors, micro-batches of up to B rows
+SERVE_E, SERVE_A, SERVE_B = 1024, 16, 32
+# the legs of the JAX package's bench.measure_ingest: E, A and
+# (B, keys per op)
+INGEST_E, INGEST_A = 1024, 8
+INGEST_LEGS = ((8, 1), (32, 1), (128, 1), (32, 16))
 
 
 def log(*args):
@@ -181,8 +204,9 @@ def trace_run(fn, kernel_names):
     """Run ``fn`` once under torch.profiler; returns (result, report)
     where report holds the host wall, the device time of the named
     kernels and of every other device op, and the device's idle share
-    of the wall (1 - the union of device intervals / wall).  The report
-    is None when the profiler records no device activity."""
+    of the wall (1 - the union of device intervals / wall) and the count
+    of device operations.  The report is None when the profiler records
+    no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -218,14 +242,16 @@ def trace_run(fn, kernel_names):
     return result, {"wall_ms": wall_us / 1e3, "kernel_ms": kern_us / 1e3,
                     "other_device_ms": other_us / 1e3,
                     "device_busy_ms": busy / 1e3,
-                    "idle_share": max(0.0, 1.0 - busy / wall_us)}
+                    "idle_share": max(0.0, 1.0 - busy / wall_us),
+                    "device_ops": len(spans)}
 
 
 class Counters:
     """The wrappers' launch counts, reset and read around one path."""
 
     def __init__(self):
-        from go_crdt_playground_tpu_torch.ops import cuda_delta, cuda_merge
+        from go_crdt_playground_tpu_torch.ops import (cuda_delta, cuda_ingest,
+                                                      cuda_merge)
 
         self.wrappers = {
             "ring_round_rows": cuda_merge.ring_round_rows,
@@ -241,6 +267,7 @@ class Counters:
             "delta_ring_round_packed": cuda_delta.delta_ring_round_packed,
             "delta_ring_round_dotpacked":
                 cuda_delta.delta_ring_round_dotpacked,
+            "ingest_rows_delta_fused": cuda_ingest.ingest_rows_delta_fused,
         }
         self.main_path = {name: 0 for name in self.wrappers}
 
@@ -285,7 +312,7 @@ def phase_environment():
     smi = nvidia_smi_line()
     log(smi)
     t0 = time.perf_counter()
-    libs = _build.build_all(["merge", "delta"])
+    libs = _build.build_all(["merge", "delta", "ingest"])
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"({', '.join(p.name for p in libs.values())})")
     return smi
@@ -365,6 +392,110 @@ def phase_kernels(errs: dict, shapes=None):
     torch.cuda.synchronize()
     log(f"kernels: {n_checks} kernel-vs-plain checks over {len(shapes)} "
         f"shapes bitwise equal ({time.perf_counter() - t0:.1f} s)")
+
+
+def ingest_slice(rng, E, A, dot_base, own_clock, wild_actors, device):
+    """One replica slice with history (``random_delta_state``'s lanes:
+    foreign dots, deletion records, re-adds, dots its vv does not cover)
+    and its own clock at ``own_clock``; with ``wild_actors`` a tenth of
+    the present lanes carry a dot actor outside [0, A) (the clip rule)."""
+    import torch
+
+    st = random_delta_state(rng, 1, E, A, dot_base, device)
+    row = type(st)(*(x[0] for x in st))
+    own = torch.arange(A, device=row.vv.device) == row.actor.to(torch.int64)
+    clock = own_clock - (1 << 32 if own_clock >= 1 << 31 else 0)
+    row = row._replace(vv=torch.where(own, clock, row.vv).to(torch.int32))
+    if wild_actors:
+        wild = torch.from_numpy(rng.random(E) < 0.1).to(row.vv.device)
+        row = row._replace(dot_actor=torch.where(
+            row.present & wild, A + 3, row.dot_actor).to(torch.int32))
+    return row
+
+
+def phase_ingest_kernel(errs: dict):
+    """K10 against its plain version on the card, bitwise: the 12 lanes,
+    vv, processed and the compact form, over E x A x B, densities,
+    padding patterns, states with history, own clocks whose prefix sums
+    cross 2^31 or wrap at 2^32, K = min(128, E) and K = 0 (no compact
+    form).  B = 0 launches the kernel; A = 2049 raises."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    rng = np.random.default_rng(2026)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2026)
+    n_checks = n_overflow = n_cross31 = n_wrap32 = 0
+
+    def check(got, want, what):
+        nonlocal n_checks
+        errs["K10"] = max(errs.get("K10", 0), max_abs_err(got, want, what))
+        n_checks += 1
+
+    t0 = time.perf_counter()
+    for i, E in enumerate((1, 72, 1000, 1024, 4100, 65536)):
+        for j, A in enumerate((5, 16, 2048)):
+            dot_base = (0x7FFFFFFB, 0, 0xFFFFFFF0 - 10)[(i + j) % 3]
+            k = min(128, E)
+            for bi, B in enumerate((0, 1, 8, 32, 128)):
+                clock = (0x7FFFFFF0, 0xFFFFFFF0, 0)[(i + j + bi) % 3]
+                row = ingest_slice(rng, E, A, dot_base, clock, E == 1000,
+                                   "cuda")
+                for density in (0.0, 0.15, 0.9):
+                    for pattern in ("all", "holes", "none"):
+                        add = torch.rand((B, E), generator=gen,
+                                         device="cuda") < density
+                        dl = torch.rand((B, E), generator=gen,
+                                        device="cuda") < density / 2
+                        live = {"all": torch.ones(B, dtype=torch.bool),
+                                "holes": torch.arange(B) % 3 != 1,
+                                "none": torch.zeros(B, dtype=torch.bool),
+                                }[pattern].cuda()
+                        tag = (f"K10 E={E} A={A} B={B} density={density} "
+                               f"live={pattern} clock={clock:#x}")
+                        want = ci.ingest_rows_delta_fused(
+                            row, add, dl, live, k_changed=k, k_deleted=k,
+                            kernel="torch")
+                        for kk in (k, 0):
+                            before = ci.ingest_rows_delta_fused.launches
+                            got = ci.ingest_rows_delta_fused(
+                                row, add, dl, live, k_changed=kk,
+                                k_deleted=kk, kernel="cuda")
+                            if ci.ingest_rows_delta_fused.launches != \
+                                    before + 1:
+                                raise AssertionError(f"{tag}: no launch")
+                            check(got[0], want[0], f"{tag} k={kk} state")
+                            check(got[1], want[1], f"{tag} k={kk} payload")
+                            if kk:
+                                check(got[2], want[2], f"{tag} compact")
+                            elif got[2] is not None:
+                                raise AssertionError(f"{tag}: k=0 gave a "
+                                                     "compact form")
+                        n_overflow += bool(want[2].overflow)
+                        steps = int((add & live[:, None]).sum()
+                                    + (dl & live[:, None]).any(1).sum())
+                        n_cross31 += clock < 1 << 31 <= clock + steps
+                        n_wrap32 += clock + steps >= 1 << 32
+    if not (n_overflow and n_cross31 and n_wrap32):
+        raise AssertionError(
+            f"K10 cases missed a regime: {n_overflow} overflowing, "
+            f"{n_cross31} crossing 2^31, {n_wrap32} wrapping 2^32")
+    wide = ingest_slice(rng, 64, 2049, 0, 5, False, "cuda")
+    rows = torch.zeros((2, 64), dtype=torch.bool, device="cuda")
+    try:
+        ci.ingest_rows_delta_fused(wide, rows, rows, rows[:, 0],
+                                   k_changed=8, k_deleted=8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K10 with A = 2049 did not raise")
+    torch.cuda.synchronize()
+    log(f"ingest kernel: {n_checks} K10-vs-plain checks over 90 (E, A, B) "
+        f"shapes x 9 batch kinds bitwise equal, B = 0 launched, "
+        f"{n_overflow} overflowing batches, {n_cross31} crossing 2^31, "
+        f"{n_wrap32} wrapping 2^32; A = 2049 raises "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_packed_kernels(errs: dict, shapes=None):
@@ -850,6 +981,262 @@ def phase_cli(counters: Counters):
                   at_least={"delta_gossip_round": 1})
 
 
+class Tally:
+    """A recorder for the node and its WAL (``.count``), keeping totals."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def count(self, name, n=1):
+        self.counts[name] = self.counts.get(name, 0) + n
+
+
+def full_payload_body(node) -> bytes:
+    """A node's whole state as a dense FULL PAYLOAD body (what it ships
+    on first contact)."""
+    from go_crdt_playground_tpu_torch.net import framing
+    from go_crdt_playground_tpu_torch.ops.delta import DeltaPayload
+
+    me = node.state_slice()
+    p = DeltaPayload(
+        src_vv=me.vv, changed=me.present, ch_da=me.dot_actor,
+        ch_dc=me.dot_counter, deleted=me.deleted, del_da=me.del_dot_actor,
+        del_dc=me.del_dot_counter, src_actor=me.actor,
+        src_processed=me.processed)
+    return framing.encode_payload_msg(framing.MODE_FULL, node.actor,
+                                      me.processed, p)
+
+
+def serve_op_log(seed: int, E: int, B: int, n_batches: int):
+    """The serve phase's op log: micro-batches of B rows (keys per op 1
+    and 16 in turn, deletes, padding rows), an add and a delete call
+    after every 10th batch, the peer's body at the middle and a durable
+    checkpoint every 50 batches."""
+    rng = np.random.default_rng(seed)
+    ops = []
+    for i in range(n_batches):
+        keys = 16 if i % 2 else 1
+        add = np.zeros((B, E), bool)
+        for b in range(B):
+            add[b, rng.choice(E, size=keys, replace=False)] = True
+        dl = np.zeros((B, E), bool)
+        dl[rng.random(B) < 0.2, rng.integers(E)] = True
+        live = rng.random(B) < 0.85
+        ops.append(("batch", (add, dl, live)))
+        if i % 10 == 9:
+            ops.append(("add", [int(x) for x in rng.integers(0, E, 3)]))
+            ops.append(("delete", [int(x) for x in rng.integers(0, E, 2)]))
+        if i == n_batches // 2:
+            ops.append(("peer", ()))
+        if i % 50 == 49:
+            ops.append(("save", ()))
+    return ops
+
+
+def drive_node(node, ops, peer_body: bytes, store=None):
+    for kind, args in ops:
+        if kind == "batch":
+            node.ingest_batch(*args)
+        elif kind == "add":
+            node.add(*args)
+        elif kind == "delete":
+            node.delete(*args)
+        elif kind == "peer":
+            node.apply_payload_body(peer_body)
+        elif store is not None:
+            node.save_durable(store)
+
+
+def ingest_bounds(E: int, A: int, B: int):
+    """K10's least time: bytes (vv and the actor, the 6 state lanes read,
+    the 12 output lanes written, the two row masks and the add counters
+    of B rows, the B deletion counters) over the memory rate, and
+    operations over the scalar rate; the larger."""
+    nbytes = 4 * A + 4 + (18 + 36) * E + 6 * B * E + 4 * B
+    ops = E * (B * INGEST_OPS_PER_ROW_LANE + INGEST_OPS_PER_LANE)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def time_k10(E: int, A: int, B: int, keys: int, tmp: str, smi: str):
+    """One leg: K10 per launch (CUDA events; device time from the
+    profiler), the whole fused wrapper, its plain version, and
+    ``Node.ingest_batch`` wall per batch with the WAL's fsync and without,
+    with the WAL bytes per batch.  The batch is bench.measure_ingest's:
+    B ops of ``keys`` distinct keys, one delete in the middle row."""
+    import functools
+
+    import torch
+
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.utils.wal import DeltaWal
+
+    rng = np.random.default_rng(7)
+    add = np.zeros((B, E), bool)
+    for b in range(B):
+        add[b, rng.choice(E, size=keys, replace=False)] = True
+    dl = np.zeros((B, E), bool)
+    dl[B // 2, rng.integers(E)] = True
+    live = np.ones(B, bool)
+    k = min(128, E)
+    fresh = Node(0, E, A, device="cuda").state_slice()
+    add_t, dl_t, live_t = (torch.from_numpy(x).cuda() for x in (add, dl, live))
+    arow, drow, add_dc, del_ctr, final = ci.row_counters(fresh, add_t, dl_t,
+                                                         live_t)
+    vv, proc = ci.clock_outputs(fresh, final, B)
+    launch = functools.partial(ci._launch, fresh, arow, drow, add_dc,
+                               del_ctr, vv, proc)
+    ms = cuda_time_ms(launch, 200)
+    _, report = trace_run(lambda: [launch() for _ in range(50)],
+                          ("ingest_fold",))
+    device_ms = None if report is None else report["kernel_ms"] / 50
+    fused_ms = cuda_time_ms(lambda: ci.ingest_rows_delta_fused(
+        fresh, add_t, dl_t, live_t, k_changed=k, k_deleted=k), 100)
+    plain_ms = cuda_time_ms(lambda: ci.ingest_rows_delta_fused(
+        fresh, add_t, dl_t, live_t, k_changed=k, k_deleted=k,
+        kernel="torch"), 10)
+    bound_ms, bound_by, nbytes = ingest_bounds(E, A, B)
+    walls, trace = {}, None
+    for fsync in (True, False):
+        tally = Tally()
+        node = Node(0, E, A, recorder=tally, device="cuda", wal=DeltaWal(
+            tempfile.mkdtemp(dir=tmp), fsync=fsync, recorder=tally))
+        node.ingest_batch(add, dl, live)
+        before = dict(tally.counts)
+        reps = 40
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            node.ingest_batch(add, dl, live)
+        walls[fsync] = (time.perf_counter() - t0) * 1e3 / reps
+        wal_bytes = (tally.counts["wal.appended_bytes"]
+                     - before["wal.appended_bytes"]) / reps
+        compact = tally.counts.get("wal.compact_records", 0) > 0
+        if fsync:
+            # where a batch's time goes: device busy time and operations
+            _, trace = trace_run(lambda: [node.ingest_batch(add, dl, live)
+                                          for _ in range(20)],
+                                 ("ingest_fold",))
+        node.wal.close()
+    leg = {"E": E, "A": A, "B": B, "keys_per_op": keys, "k10_ms": ms,
+           "k10_device_ms": device_ms, "fused_wrapper_ms": fused_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_bytes": nbytes, "ingest_batch_ms": walls[True],
+           "ingest_batch_ms_no_fsync": walls[False],
+           "wal_bytes_per_batch": wal_bytes, "compact_records": compact,
+           "ingest_batch_trace": None if trace is None else {
+               "device_busy_ms_per_batch": trace["device_busy_ms"] / 20,
+               "device_ops_per_batch": trace["device_ops"] / 20,
+               "idle_share": trace["idle_share"]}}
+    device = ("not measured" if device_ms is None
+              else f"{device_ms:.6f} ms")
+    log(f"serve leg B={B} keys/op={keys} (E={E}, A={A}): K10 {ms:.4f} "
+        f"ms/launch (device time {device}), "
+        f"fused wrapper {fused_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}, {nbytes} B); ingest_batch "
+        f"{walls[True]:.4f} ms/batch with fsync, {walls[False]:.4f} "
+        f"without; WAL {wal_bytes:.1f} B/batch "
+        f"({'compact' if compact else 'dense'}) [{smi}]")
+    return leg
+
+
+def phase_serve(counters: Counters, errs: dict, timings: dict, smi: str):
+    """The serve write path on one node at ``serve --ingest``'s shape:
+    the op log through ``Node`` on the card (K10 once per batch, counted
+    on the main path), durable checkpoints, ``restore_durable`` bitwise
+    equal to the live node, the WAL records byte-identical to those of
+    the plain K10 with the same K, the same op log on a CPU node (plain
+    regime, K = 0) to an equal state; then the bench.measure_ingest legs
+    timed."""
+    import functools
+
+    import torch
+
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.utils.checkpoint import CheckpointStore
+    from go_crdt_playground_tpu_torch.utils.wal import DeltaWal
+
+    class TeeWal(DeltaWal):
+        """A DeltaWal that also keeps every appended body."""
+
+        def __init__(self, path, **kw):
+            super().__init__(path, **kw)
+            self.bodies = []
+
+        def append(self, body):
+            self.bodies.append(body)
+            super().append(body)
+
+    E, A, B, n_batches = SERVE_E, SERVE_A, SERVE_B, 200
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        ops = serve_op_log(11, E, B, n_batches)
+        peer = Node(1, E, A, device="cuda")
+        peer.add(*range(100, 140))
+        peer.delete(*range(100, 105))
+        body = full_payload_body(peer)
+        durable = f"{tmp}/durable"
+        tally = Tally()
+        node = Node(0, E, A, recorder=tally, device="cuda",
+                    wal=TeeWal(f"{durable}/wal", recorder=tally))
+        store = CheckpointStore(durable, recorder=tally)
+        torch.cuda.synchronize()
+        counters.reset()
+        t0 = time.perf_counter()
+        drive_node(node, ops, body, store)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counters.read("serve write path",
+                      exact={"ingest_rows_delta_fused": n_batches})
+        live = node.state_slice()
+        node.wal.close()
+        back = Node.restore_durable(durable, device="cuda")
+        for name, x, y in zip(live._fields, live, back.state_slice()):
+            if not torch.equal(x, y):
+                raise AssertionError(f"serve: restore_durable differs from "
+                                     f"the live node in {name}")
+        back.wal.close()
+
+        plain = Node(0, E, A, device="cuda", wal=TeeWal(
+            f"{tmp}/plain", fsync=False))
+        plain._fused_regime = (functools.partial(
+            ci.ingest_rows_delta_fused, kernel="torch"), min(128, E))
+        drive_node(plain, ops, body)
+        if plain.wal.bodies != node.wal.bodies:
+            raise AssertionError("serve: WAL records differ from the plain "
+                                 "K10's")
+        plain.wal.close()
+        cpu = Node(0, E, A, device="cpu", wal=TeeWal(f"{tmp}/cpu",
+                                                     fsync=False))
+        drive_node(cpu, ops, body)
+        for name, x, y in zip(live._fields, live, cpu.state_slice()):
+            if not torch.equal(x.cpu(), y):
+                raise AssertionError(f"serve: the CPU node's {name} differs")
+        cpu.wal.close()
+        log(f"serve: {n_batches} batches of {B} (E={E}, A={A}) + adds, "
+            f"deletes, a peer's FULL body, {n_batches // 50} checkpoints in "
+            f"{wall:.3f} s ({wall * 1e3 / n_batches:.3f} ms/batch incl. "
+            f"fsync); restore_durable bitwise equal to the live node; "
+            f"{len(node.wal.bodies)} WAL records byte-identical to the "
+            f"plain K10's ({tally.counts.get('wal.compact_records', 0)} "
+            f"compact, {tally.counts.get('wal.dense_records', 0)} dense, "
+            f"{tally.counts['wal.appended_bytes']} bytes); the CPU node's "
+            f"state equal [{smi}]")
+
+        legs = [time_k10(INGEST_E, INGEST_A, b, keys, tmp, smi)
+                for b, keys in INGEST_LEGS]
+        main = time_k10(E, A, B, 1, tmp, smi)
+        timings["K10"] = {"ms": main["k10_ms"], "plain_ms": main["plain_ms"],
+                          "bound_ms": main["bound_ms"],
+                          "bound_by": main["bound_by"]}
+        log("serve legs: " + json.dumps(legs + [main]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 KERNELS = [
     ("K1", "ring_round_rows", "csrc/merge.cu", "pallas_merge.py:832",
      ("ring_round_rows",)),
@@ -869,6 +1256,8 @@ KERNELS = [
      ("delta_ring_round_packed",)),
     ("K9", "delta_ring_round_dotpacked", "csrc/delta.cu",
      "pallas_delta.py:460", ("delta_ring_round_dotpacked",)),
+    ("K10", "ingest_rows_delta_fused", "csrc/ingest.cu",
+     "pallas_ingest.py:165", ("ingest_rows_delta_fused",)),
 ]
 
 
@@ -886,6 +1275,7 @@ def main() -> int:
     counters = Counters()
     errs, timings = {}, {}
     phase_kernels(errs)
+    phase_ingest_kernel(errs)
     phase_packed_kernels(errs)
     phase_entry(counters, errs)
     final = phase_fleet("merge", counters, errs, timings, smi)
@@ -896,6 +1286,7 @@ def main() -> int:
     del final
     phase_k3(counters, errs, timings, smi)
     phase_cli(counters)
+    phase_serve(counters, errs, timings, smi)
 
     kernels = []
     for key, name, src, replaces, wrappers in KERNELS:

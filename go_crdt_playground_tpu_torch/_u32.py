@@ -36,10 +36,42 @@ def mul32(a: torch.Tensor, b) -> torch.Tensor:
 
 def from_numpy_u32(a, device) -> torch.Tensor:
     """numpy uint32 array -> int32 tensor with the same bits."""
-    a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    a = np.array(a, dtype=np.uint32, order="C")  # a copy; keeps 0-d
+    return torch.from_numpy(a.view(np.int32)).to(device)
 
 
 def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
     """int32 tensor -> numpy uint32 array (a copy) with the same bits."""
     return t.detach().cpu().numpy().view(np.uint32).copy()
+
+
+def host(x) -> np.ndarray:
+    """A tensor (int32 bits or bool) or an array -> numpy: uint32 for an
+    integer tensor, bool for a bool one, ``np.asarray`` otherwise."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bool:
+            return x.detach().cpu().numpy().copy()
+        return to_numpy_u32(x)
+    return np.asarray(x)
+
+
+def to_host(tup):
+    """A NamedTuple of tensors (int32 bits or bool, any shapes, on one
+    device) -> the same NamedTuple of numpy arrays (uint32 or bool),
+    through ONE device->host copy of all its tensors together; fields
+    that are not tensors pass through."""
+    tensors = [x for x in tup if isinstance(x, torch.Tensor)]
+    if not tensors:
+        return tup
+    flat = torch.cat([x.reshape(-1).to(torch.int32) for x in tensors])
+    flat = flat.cpu().numpy()
+    out, pos = [], 0
+    for x in tup:
+        if not isinstance(x, torch.Tensor):
+            out.append(x)
+            continue
+        a = flat[pos:pos + x.numel()].reshape(tuple(x.shape))
+        pos += x.numel()
+        out.append(a.astype(bool) if x.dtype == torch.bool
+                   else a.view(np.uint32).copy())
+    return type(tup)(*out)

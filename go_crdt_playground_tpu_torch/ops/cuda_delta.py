@@ -17,8 +17,8 @@ Kernels and the Pallas kernels they replace
 All take the three δ semantics of the JAX package: v2, reference
 (strict: the empty-δ vv skip) and reference_loose.  Dispatch, checks and
 launch counting follow ops/cuda_merge.py; the plain version is
-``_delta_algebra`` below on whole [R, E] tensors (the packed entries
-unpack, run it and pack).
+``delta_round_plain`` below on whole [R, E] tensors, built from
+ops/delta.py (the packed entries unpack, run it and pack).
 """
 
 from __future__ import annotations
@@ -28,15 +28,15 @@ import functools
 
 import torch
 
-from go_crdt_playground_tpu_torch._u32 import narrow, widen
 from go_crdt_playground_tpu_torch.models import packed
 from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
 from go_crdt_playground_tpu_torch.ops import _build
+from go_crdt_playground_tpu_torch.ops import delta as delta_ops
 from go_crdt_playground_tpu_torch.ops.cuda_merge import (
     LAYOUT_BITS, LAYOUT_DOTWORD, PARTNER_GATHER, PARTNER_RING, as_index,
     check_ring_rows, check_state, layout_of, out_like, ptr, ring_index,
     stream_of, use_kernel)
-from go_crdt_playground_tpu_torch.ops.vv import clock_at, has_dot, vv_join
+from go_crdt_playground_tpu_torch.ops.vv import clock_at
 
 MODES = {"v2": 0, "reference": 1, "reference_loose": 2}
 
@@ -55,100 +55,25 @@ def kernel_mode(delta_semantics: str,
     raise ValueError(f"unknown delta_semantics {delta_semantics!r}")
 
 
-def _delta_algebra(dst: AWSetDeltaState, src: AWSetDeltaState,
-                   s_actor: torch.Tensor, mode: str = "v2"):
-    """The fused δ exchange on whole tensors: src rows aligned with dst
-    rows, s_actor int32[R] the sender's actor per row.  Returns the 8
-    output tensors in state order (vv, processed, present, dot_actor,
-    dot_counter, deleted, del_dot_actor, del_dot_counter)."""
-    dvv, svv = dst.vv, src.vv
-    dp, sp = dst.present, src.present
-    dda, sda = dst.dot_actor, src.dot_actor
-    ddc, sdc = dst.dot_counter, src.dot_counter
-    dd, sd = dst.deleted, src.deleted
-    ddda, sdda = dst.del_dot_actor, src.del_dot_actor
-    dddc, sddc = dst.del_dot_counter, src.del_dot_counter
-
-    # first contact: the receiver's counter for the sender's actor is 0
-    fc = clock_at(dvv, s_actor[:, None]) == 0            # bool[R, 1]
-
-    seen_s_by_d = has_dot(dvv, sda, sdc)   # receiver covers src dot
-    seen_d_by_s = has_dot(svv, dda, ddc)   # sender covers dst dot
-
-    # ---- FULL branch (first contact) ----
-    take_f = sp & (dp | ~seen_s_by_d)
-    present_f = take_f | (dp & ~sp & ~seen_d_by_s)
-    da_f = torch.where(present_f, torch.where(take_f, sda, dda), 0)
-    dc_f = torch.where(present_f, torch.where(take_f, sdc, ddc), 0)
-
-    # ---- δ branch, phase 1 ----
-    changed = sp & ~seen_s_by_d
-    resurrected = sp & ((sda != sdda) | (widen(sdc) > widen(sddc)))
-    deleted_p = sd & ~resurrected
-    present1 = dp | changed
-    da1 = torch.where(changed, sda, dda)
-    dc1 = torch.where(changed, sdc, ddc)
-    joined_vv = vv_join(dvv, svv)
-
-    if mode == "v2":
-        # deletion-record absorb: a (counter, actor) lexicographic join
-        sxc, dxc = widen(sddc), widen(dddc)
-        rec_newer = (sxc > dxc) | ((sxc == dxc)
-                                   & (widen(sdda) > widen(ddda)))
-        rec_f = sd & (~dd | rec_newer)
-        deleted_f = dd | sd
-        del_da_f = torch.where(rec_f, sdda, ddda)
-        del_dc_f = torch.where(rec_f, sddc, dddc)
-        # remove iff the SENDER's clock covers the post-phase-1 dot
-        remove = deleted_p & present1 & has_dot(svv, da1, dc1)
-        present_d = present1 & ~remove
-        rec_d = deleted_p & (~dd | rec_newer)
-        deleted_d = dd | deleted_p
-        del_da_d = torch.where(rec_d, sdda, ddda)
-        del_dc_d = torch.where(rec_d, sddc, dddc)
-        proc = torch.maximum(widen(dst.processed), widen(src.processed))
-        svv_w = widen(svv)
-        # the sender's own slot advances to its clock
-        onehot = (torch.arange(dvv.shape[1], device=dvv.device)[None, :]
-                  == widen(s_actor)[:, None])
-        out_proc = narrow(torch.where(onehot & (proc < svv_w), svv_w, proc))
-        out_p = torch.where(fc, present_f, present_d)
-        return (joined_vv, out_proc, out_p,
-                torch.where(fc, da_f, torch.where(present_d, da1, 0)),
-                torch.where(fc, dc_f, torch.where(present_d, dc1, 0)),
-                torch.where(fc, deleted_f, deleted_d),
-                torch.where(fc, del_da_f, del_da_d),
-                torch.where(fc, del_dc_f, del_dc_d))
-
-    # reference arbitration: keep iff OUR clock covers the deletion dot;
-    # deletion log, deletion dots and processed stay untouched
-    remove = deleted_p & present1 & ~has_dot(dvv, sdda, sddc)
-    present_d = present1 & ~remove
-    out_p = torch.where(fc, present_f, present_d)
-    out_da = torch.where(fc, da_f, torch.where(present_d, da1, 0))
-    out_dc = torch.where(fc, dc_f, torch.where(present_d, dc1, 0))
-    if mode == "reference_loose":
-        vv = joined_vv
-    else:
-        # strict: an empty δ (and no first contact) skips the vv join
-        nonempty = (changed | deleted_p).any(dim=1, keepdim=True)
-        vv = torch.where(fc | nonempty, joined_vv, dvv)
-    return (vv, dst.processed, out_p, out_da, out_dc, dd, ddda, dddc)
-
-
-def _rebuild(state: AWSetDeltaState, outs) -> AWSetDeltaState:
-    vv, proc, p, da, dc, d, dda, ddc = outs
-    return AWSetDeltaState(
-        vv=vv, present=p, dot_actor=da, dot_counter=dc, actor=state.actor,
-        deleted=d, del_dot_actor=dda, del_dot_counter=ddc, processed=proc)
+# kernel mode -> (delta_semantics, strict_reference_semantics)
+_SEMANTICS = {"v2": ("v2", True), "reference": ("reference", True),
+              "reference_loose": ("reference", False)}
 
 
 def delta_round_plain(state: AWSetDeltaState, index: torch.Tensor,
                       mode: str) -> AWSetDeltaState:
-    """The plain version of both entries: replica r absorbs the δ of
-    row index[r]."""
+    """The plain version of every entry: replica r absorbs the δ of row
+    index[r], by the first-contact full merge where r's clock for the
+    sender's actor is 0, else by extract + apply (ops/delta.py)."""
     src = AWSetDeltaState(*(x[index] for x in state))
-    return _rebuild(state, _delta_algebra(state, src, src.actor, mode))
+    sem, strict = _SEMANTICS[mode]
+    first_contact = clock_at(state.vv, src.actor[:, None]) == 0   # [R, 1]
+    full = delta_ops.full_merge_delta(state, src, sem)
+    delt = delta_ops.delta_apply(
+        state, delta_ops.delta_extract(src, state.vv), sem, strict)
+    return AWSetDeltaState(*(
+        f if name == "actor" else torch.where(first_contact, f, d)
+        for name, f, d in zip(state._fields, full, delt)))
 
 
 def _delta_lanes(state):

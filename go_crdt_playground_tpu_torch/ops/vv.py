@@ -35,3 +35,12 @@ def has_dot(vv: torch.Tensor, dot_actor: torch.Tensor,
 def vv_join(vv_dst: torch.Tensor, vv_src: torch.Tensor) -> torch.Tensor:
     """Elementwise unsigned max (``VersionVector.Merge``)."""
     return narrow(torch.maximum(widen(vv_dst), widen(vv_src)))
+
+
+def set_clock(vv: torch.Tensor, actor: torch.Tensor,
+              value: torch.Tensor) -> torch.Tensor:
+    """``vv.at[actor].set(value)`` on one vv[A]: ``value`` (any integer,
+    reduced mod 2^32) in the actor's slot; an id outside [0, A) sets
+    nothing, as the JAX scatter drops it."""
+    own = torch.arange(vv.shape[-1], device=vv.device) == widen(actor)
+    return torch.where(own, narrow(value), vv)

@@ -149,3 +149,89 @@ def test_packed_delta_kernels_match_plain(gpu_ring_state, layout, sem,
     for off in (0, 1, 63, 64, 65, 133):
         assert _equal(fn(st, off, kernel="cuda", **kw),
                       fn(st, off, kernel="torch", **kw)), off
+
+
+def _slice(seed, E, A, base):
+    """One replica slice with history, its own clock at ``base`` so a
+    batch's counters cross 2^31 or wrap at 2^32."""
+    st = random_state(seed, 1, E, A)
+    row = type(st)(*(x[0] for x in st))
+    vv = row.vv.clone()
+    vv[int(row.actor)] = base - (1 << 32 if base >= 1 << 31 else 0)
+    return row._replace(vv=vv)
+
+
+def _batch(seed, B, E, density, live):
+    rng = np.random.default_rng(seed)
+    add = torch.from_numpy(rng.random((B, E)) < density)
+    dl = torch.from_numpy(rng.random((B, E)) < density / 2)
+    mask = {"all": np.ones(B, bool), "none": np.zeros(B, bool),
+            "holes": np.arange(B) % 3 != 1}[live]
+    return add, dl, torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("E,A", [(1, 5), (72, 5), (1000, 16), (4100, 2048)])
+def test_ingest_kernel_matches_plain(E, A):
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    for i, (B, density, live) in enumerate(
+            [(0, 0.0, "all"), (1, 0.15, "all"), (8, 0.9, "holes"),
+             (32, 0.15, "all"), (8, 0.15, "none")]):
+        base = (0, 0x7FFFFFF0, 0xFFFFFFF0)[i % 3]
+        row = _on_gpu(_slice(70 + i, E, A, base))
+        add, dl, live_m = (x.cuda() for x in _batch(80 + i, B, E, density,
+                                                    live))
+        for k in (min(128, E), 0):
+            got = ci.ingest_rows_delta_fused(row, add, dl, live_m,
+                                             k_changed=k, k_deleted=k,
+                                             kernel="cuda")
+            want = ci.ingest_rows_delta_fused(row, add, dl, live_m,
+                                              k_changed=k, k_deleted=k,
+                                              kernel="torch")
+            assert (got[2] is None) == (want[2] is None) == (k == 0)
+            for g, w in zip(got, want):
+                if g is not None:
+                    assert _equal(g, w), (E, A, B, k)
+
+
+def test_ingest_kernel_rejects_a_wide_actor_axis():
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    row = _on_gpu(_slice(90, 64, 2049, 0))
+    add = torch.zeros((2, 64), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="shared-memory cap"):
+        ci.ingest_rows_delta_fused(row, add, add, add[:, 0], k_changed=8,
+                                   k_deleted=8)
+
+
+def test_node_on_the_card_matches_the_plain_regime(tmp_path):
+    """The same op log through a CUDA node (K10) and a CPU node running
+    K10's plain version with the same K: byte-identical WAL records and
+    equal states."""
+    import os
+
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.utils.wal import DeltaWal
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    E, A = 256, 16
+    gpu = Node(0, E, A, wal=DeltaWal(os.path.join(tmp_path, "g")),
+               device="cuda")
+    cpu = Node(0, E, A, wal=DeltaWal(os.path.join(tmp_path, "c")),
+               device="cpu")
+    cpu._fused_regime = (ci.ingest_rows_delta_fused, min(128, E))
+    before = ci.ingest_rows_delta_fused.launches
+    for i in range(12):
+        add, dl, live = _batch(100 + i, 16, E, 0.02 * (1 + i % 4), "holes")
+        for n in (gpu, cpu):
+            n.ingest_batch(add.numpy(), dl.numpy(), live.numpy())
+            n.add(i, 3 * i)
+            n.delete(2 * i)
+    assert ci.ingest_rows_delta_fused.launches == before + 12
+    assert list(gpu.wal.records()) == list(cpu.wal.records())
+    assert _equal(tuple(x.cpu() for x in gpu.state_slice()),
+                  cpu.state_slice())
+    for n in (gpu, cpu):
+        n.wal.close()

@@ -91,11 +91,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 f"{path.relative_to(REPO)} imports {mod}"
 
 
-def test_default_device_is_cuda_and_never_falls_back():
+def test_default_device_is_cuda_and_never_falls_back(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device runs")
     from go_crdt_playground_tpu_torch.__main__ import main
     from go_crdt_playground_tpu_torch.models import awset, awset_delta
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops.cuda_ingest import \
+        ingest_rows_delta_fused
+    from go_crdt_playground_tpu_torch.utils.checkpoint import (
+        CheckpointStore, restore_checkpoint, save_checkpoint)
 
     calls = [
         lambda: awset.init(2, 4, 2),
@@ -110,10 +115,30 @@ def test_default_device_is_cuda_and_never_falls_back():
         lambda: entry(),
         lambda: Config(num_replicas=2, num_actors=2).init_awset(),
         lambda: main(["gossip", "--replicas", "4"]),
+        lambda: Node(0, 16, 2),
+        lambda: Node.restore_durable(str(tmp_path)),
+        lambda: CheckpointStore(str(tmp_path)).restore(),
+        lambda: restore_checkpoint(str(tmp_path / "ck")),
     ]
+    CheckpointStore(str(tmp_path)).save(
+        Node(0, 4, 2, device="cpu").state_slice(), metadata={"actor": 0})
+    save_checkpoint(str(tmp_path / "ck"),
+                    awset_delta.init(1, 4, 2, device="cpu"))
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()
+    # the K10 wrapper follows its tensors: CPU tensors run the plain
+    # version and never count a launch; insisting on the kernel raises
+    row = awset_delta.init(1, 4, 2, device="cpu")
+    row = type(row)(*(x[0] for x in row))
+    rows = torch.zeros((1, 4), dtype=torch.bool)
+    before = ingest_rows_delta_fused.launches
+    ingest_rows_delta_fused(row, rows, rows, rows[:, 0], k_changed=4,
+                            k_deleted=4)
+    assert ingest_rows_delta_fused.launches == before
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ingest_rows_delta_fused(row, rows, rows, rows[:, 0], k_changed=4,
+                                k_deleted=4, kernel="cuda")
 
 
 def test_config_validates():
@@ -138,5 +163,5 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "13 skipped" in out.stdout or "13 passed" in out.stdout, \
+    assert "19 skipped" in out.stdout or "19 passed" in out.stdout, \
         out.stdout
