@@ -37,9 +37,22 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      the same op log on a CPU node to an equal state, K10 launched once
      per batch; then K10 and ``ingest_batch`` timed on the legs of the
      JAX package's ``bench.measure_ingest``;
+ 11. digest anti-entropy between nodes serving on 127.0.0.1: (a) the
+     sync curve's fleet of tools/chaos_soak.py (5 nodes, E = 512, one
+     ``SyncSupervisor`` each, lockstep rounds, 2 and 8 ops a round) in
+     both sync modes, converged, no state lanes and no δ fallback in the
+     digest regime's quiescent rounds, numbers and final states equal to
+     the same legs on CPU nodes; (b) bench.measure_mesh's digest-read
+     shape (E = 8,192, A = 8): ``node_summary`` and K11 timed on a
+     quiescent pair; (c) one node's universe (E = 2^20, A = 16, 100,000
+     members a node): digest rounds after 1, 16 and 1,024 changed lanes
+     and at quiescence timed beside the δ ladder's bytes, K11 and
+     ``digest_diff_payload`` timed, final states equal to a CPU replay;
 and, after phase 2, phase 2b: the ingest kernel (K10) against its plain
 version over E x A x B, densities, padding patterns, states with
-history and own clocks whose prefix sums cross 2^31 and wrap at 2^32;
+history and own clocks whose prefix sums cross 2^31 and wrap at 2^32,
+and phase 2c: the digest kernel (K11), both entries, against its plain
+version over 14 E x 9 group sizes x 6 states;
 then one JSON line with every kernel (launches on the main path, error
 against the plain version, times and bounds), and a last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
@@ -53,6 +66,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -81,6 +95,21 @@ SERVE_E, SERVE_A, SERVE_B = 1024, 16, 32
 # (B, keys per op)
 INGEST_E, INGEST_A = 1024, 8
 INGEST_LEGS = ((8, 1), (32, 1), (128, 1), (32, 16))
+# csrc/digest.cu: integer operations per lane of the fingerprint and fold
+DIGEST_OPS_PER_LANE = 48
+# K11's cases: element counts (ragged, aligned and the 2^20 universe) and
+# group sizes (the protocol's ladder 8-128 and sizes around it)
+DIGEST_CHECK_E = (1, 7, 63, 64, 65, 127, 128, 129, 512, 1000, 1024, 8192,
+                  65_537, 1 << 20)
+DIGEST_CHECK_GS = (1, 3, 8, 16, 32, 48, 64, 128, 256)
+# tools/chaos_soak.py's sync curve at full size: nodes, elements, op rates
+# per round, traffic, quiescent and settle rounds, seed
+SYNC_NODES, SYNC_E, SYNC_RATES = 5, 512, (2, 8)
+SYNC_TRAFFIC, SYNC_QUIESCENT, SYNC_SETTLE, SYNC_SEED = 8, 6, 20, 17
+# bench.measure_mesh's digest-read shape
+DIGEST_READ_E, DIGEST_READ_A = 8192, 8
+# one node's universe: elements, actors, members seeded on each node
+UNIVERSE_E, UNIVERSE_A, UNIVERSE_MEMBERS = 1 << 20, 16, 100_000
 
 
 def log(*args):
@@ -250,8 +279,8 @@ class Counters:
     """The wrappers' launch counts, reset and read around one path."""
 
     def __init__(self):
-        from go_crdt_playground_tpu_torch.ops import (cuda_delta, cuda_ingest,
-                                                      cuda_merge)
+        from go_crdt_playground_tpu_torch.ops import (cuda_delta, cuda_digest,
+                                                      cuda_ingest, cuda_merge)
 
         self.wrappers = {
             "ring_round_rows": cuda_merge.ring_round_rows,
@@ -268,6 +297,8 @@ class Counters:
             "delta_ring_round_dotpacked":
                 cuda_delta.delta_ring_round_dotpacked,
             "ingest_rows_delta_fused": cuda_ingest.ingest_rows_delta_fused,
+            "lane_fingerprints": cuda_digest.lane_fingerprints,
+            "state_group_digests": cuda_digest.state_group_digests,
         }
         self.main_path = {name: 0 for name in self.wrappers}
 
@@ -312,7 +343,7 @@ def phase_environment():
     smi = nvidia_smi_line()
     log(smi)
     t0 = time.perf_counter()
-    libs = _build.build_all(["merge", "delta", "ingest"])
+    libs = _build.build_all(["merge", "delta", "ingest", "digest"])
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"({', '.join(p.name for p in libs.values())})")
     return smi
@@ -495,6 +526,73 @@ def phase_ingest_kernel(errs: dict):
         f"shapes x 9 batch kinds bitwise equal, B = 0 launched, "
         f"{n_overflow} overflowing batches, {n_cross31} crossing 2^31, "
         f"{n_wrap32} wrapping 2^32; A = 2049 raises "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def digest_slices(rng, E: int, device):
+    """K11's cases at one E: two random slices, their deletion dots
+    straddling 2^31 and reaching 2^32 - 1, and the occupancy extremes
+    (empty, all present, all deleted, all present and deleted)."""
+    import torch
+
+    out = {}
+    for name, base in (("random near 2^31", 0x7FFFFFF8),
+                       ("random to 2^32 - 1", 0xFFFFFFF6)):
+        st = random_delta_state(rng, 1, E, 8, base, device)
+        out[name] = type(st)(*(x[0] for x in st))
+    row = out["random to 2^32 - 1"]
+    yes, no = torch.ones_like(row.present), torch.zeros_like(row.present)
+    zero = torch.zeros_like(row.del_dot_actor)
+    out["empty"] = row._replace(present=no, deleted=no, del_dot_actor=zero,
+                                del_dot_counter=zero)
+    out["all present"] = row._replace(present=yes)
+    out["all deleted"] = row._replace(deleted=yes)
+    out["all present and deleted"] = row._replace(present=yes, deleted=yes)
+    return out
+
+
+def phase_digest_kernel(errs: dict):
+    """K11 against its plain version on the card, bitwise: both entries
+    (the lane fingerprints, and the group digests at every group size)
+    over every E of ``DIGEST_CHECK_E`` and the cases of
+    ``digest_slices``; each call must launch the kernel once."""
+    import torch
+
+    from go_crdt_playground_tpu_torch._u32 import widen
+    from go_crdt_playground_tpu_torch.ops import cuda_digest as cg
+
+    rng = np.random.default_rng(2027)
+    n_checks = 0
+
+    def check(fn, row, what, *args):
+        nonlocal n_checks
+        before = fn.launches
+        got = fn(row, *args, kernel="cuda")
+        if fn.launches != before + 1:
+            raise AssertionError(f"{what}: no launch")
+        want = fn(row, *args, kernel="torch")
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs "
+                                 f"{want.dtype}{tuple(want.shape)}")
+        err = int((widen(got) - widen(want)).abs().max()) if got.numel() \
+            else 0
+        errs["K11"] = max(errs.get("K11", 0), err)
+        if err:
+            raise AssertionError(f"{what}: differs from the plain version "
+                                 f"(max abs err {err})")
+        n_checks += 1
+
+    t0 = time.perf_counter()
+    for E in DIGEST_CHECK_E:
+        for case, row in digest_slices(rng, E, "cuda").items():
+            check(cg.lane_fingerprints, row, f"K11 fingerprints E={E} {case}")
+            for gs in DIGEST_CHECK_GS:
+                check(cg.state_group_digests, row,
+                      f"K11 group digests E={E} gs={gs} {case}", gs)
+    torch.cuda.synchronize()
+    log(f"digest kernel: {n_checks} K11-vs-plain checks over "
+        f"{len(DIGEST_CHECK_E)} E x 6 cases (fingerprints, and group "
+        f"digests at gs in {DIGEST_CHECK_GS}) bitwise equal, 0 mismatches "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -982,13 +1080,24 @@ def phase_cli(counters: Counters):
 
 
 class Tally:
-    """A recorder for the node and its WAL (``.count``), keeping totals."""
+    """A recorder for nodes, their WAL and supervisors (``count``,
+    ``count_many``), keeping totals."""
 
     def __init__(self):
         self.counts = {}
+        self._lock = threading.Lock()  # server threads count too
 
     def count(self, name, n=1):
-        self.counts[name] = self.counts.get(name, 0) + n
+        with self._lock:
+            self.counts[name] = self.counts.get(name, 0) + n
+
+    def count_many(self, counts):
+        for name, n in counts.items():
+            self.count(name, n)
+
+    def counter(self, name):
+        with self._lock:
+            return self.counts.get(name, 0)
 
 
 def full_payload_body(node) -> bytes:
@@ -1237,6 +1346,462 @@ def phase_serve(counters: Counters, errs: dict, timings: dict, smi: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def wait_served(nodes, timeout: float = 10.0) -> None:
+    """Wait until no node is serving an exchange.  A server records its
+    counters after its last send, so a count read as soon as the client
+    returns could miss the server's half."""
+    deadline = time.monotonic() + timeout
+    while any(n._conn_slots._value < n._conn_slots._initial_value
+              for n in nodes):
+        if time.monotonic() > deadline:
+            raise AssertionError("a served exchange did not finish")
+        time.sleep(0.0005)
+
+
+def sync_traffic_leg(sync_mode: str, n_nodes: int, n_elements: int,
+                     ops_per_round: int, traffic_rounds: int, seed: int,
+                     quiescent_rounds: int = 4, settle_rounds: int = 20,
+                     device="cuda"):
+    """tools/chaos_soak.py's ``run_traffic_leg`` on the port's nodes: a
+    clean-network fleet, each node serving on 127.0.0.1 and driven by a
+    ``SyncSupervisor`` (fanout 1, no pacing) in lockstep rounds, under a
+    seeded op stream.  Phases: seed state and converge (first-contact
+    FULLs land here), ``traffic_rounds`` rounds each after
+    ``ops_per_round`` ops, settle rounds until converged, then
+    ``quiescent_rounds`` rounds of a converged fleet.  Returns the tool's
+    numbers and every node's final state (on the CPU)."""
+    from go_crdt_playground_tpu_torch.net import digestsync
+    from go_crdt_playground_tpu_torch.net.antientropy import SyncSupervisor
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.utils.backoff import BackoffPolicy
+
+    if sync_mode == "digest":
+        digestsync.warm(Node(0, n_elements, n_nodes, device=device))
+    tallies = [Tally() for _ in range(n_nodes)]
+    nodes = [Node(i, n_elements, n_nodes, recorder=tallies[i], device=device)
+             for i in range(n_nodes)]
+    supervisors = []
+    rng = np.random.default_rng(seed)
+
+    def total(*names):
+        return sum(t.counter(n) for t in tallies for n in names)
+
+    def fleet_bytes():
+        # every byte once, at its sender
+        return total("sync.bytes_sent", "digest.bytes_sent")
+
+    try:
+        addrs = [n.serve() for n in nodes]
+        policy = BackoffPolicy(base_s=0.005, cap_s=0.05, max_retries=2)
+        for i in range(n_nodes):
+            supervisors.append(SyncSupervisor(
+                nodes[i], [addrs[j] for j in range(n_nodes) if j != i],
+                policy=policy, sync_timeout_s=5.0, fanout=1, interval_s=0.0,
+                sync_mode=sync_mode, recorder=tallies[i],
+                seed=seed * 100 + i))
+
+        def lockstep():
+            for sup in supervisors:
+                sup.sync_round()
+            wait_served(nodes)
+
+        def converged():
+            m0 = set(nodes[0].members().tolist())
+            vv0 = nodes[0].vv()
+            return all(set(n.members().tolist()) == m0
+                       and np.array_equal(n.vv(), vv0) for n in nodes[1:])
+
+        def inject(n_ops):
+            for _ in range(n_ops):
+                node = nodes[int(rng.integers(n_nodes))]
+                if rng.random() < 0.35:
+                    members = node.members()
+                    if len(members):
+                        node.delete(int(rng.choice(members)))
+                        continue
+                node.add(int(rng.integers(n_elements)))
+
+        inject(2 * n_nodes)
+        for _ in range(settle_rounds):
+            lockstep()
+            if converged():
+                break
+        if not converged():
+            raise AssertionError(f"sync fleet ({sync_mode}, {device}) failed "
+                                 "to converge on its seed state")
+        b0 = fleet_bytes()
+        measured = 0
+        for _ in range(traffic_rounds):
+            inject(ops_per_round)
+            lockstep()
+            measured += 1
+        settle = 0
+        while not converged() and settle < settle_rounds:
+            lockstep()
+            measured += 1
+            settle += 1
+        conv = converged()
+        divergent_bytes = fleet_bytes() - b0
+        bq, lanes0 = fleet_bytes(), total("digest.lanes_sent")
+        q0, fb0 = total("digest.quiescent"), total("digest.fallback_delta")
+        for _ in range(quiescent_rounds):
+            lockstep()
+        stats = {
+            "sync_mode": sync_mode, "converged": conv, "rounds": measured,
+            "settle_rounds": settle, "bytes": divergent_bytes,
+            "bytes_per_round": round(divergent_bytes / max(1, measured), 1),
+            "quiescent_bytes_per_round": round(
+                (fleet_bytes() - bq) / max(1, quiescent_rounds), 1),
+            "quiescent_state_lanes": total("digest.lanes_sent") - lanes0,
+            "quiescent_exchanges": total("digest.quiescent") - q0,
+            "delta_fallbacks": total("digest.fallback_delta") - fb0,
+        }
+        states = [type(s)(*(x.cpu() for x in s))
+                  for s in (n.state_slice() for n in nodes)]
+        return stats, states
+    finally:
+        for sup in supervisors:
+            sup.stop(timeout=1.0)
+        for n in nodes:
+            n.close()
+
+
+def digest_bounds(E: int, gs: int, fingerprints: bool = False):
+    """K11's least time: bytes (two bool bytes and two uint32 words read
+    a lane; a uint32 written a group, or a lane for the fingerprints
+    entry) over the memory rate, and operations over the scalar rate;
+    the larger."""
+    num_g = -(-E // gs)
+    nbytes = 14 * E if fingerprints else 10 * E + 4 * num_g
+    ops = DIGEST_OPS_PER_LANE * (E if fingerprints else num_g * gs)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def time_k11(row, gs: int, fingerprints: bool = False) -> dict:
+    """One K11 entry on one state: ms per call by CUDA events (the
+    wrapper, its checks and allocation included), the kernel's device
+    time from torch.profiler, the plain version, the bound."""
+    import functools
+
+    from go_crdt_playground_tpu_torch.ops import cuda_digest as cg
+
+    if fingerprints:
+        fn, name = cg.lane_fingerprints, "lane_fingerprints"
+    else:
+        fn, name = functools.partial(cg.state_group_digests,
+                                     group_size=gs), "group_digests"
+    launches = (cg.lane_fingerprints.launches,
+                cg.state_group_digests.launches)
+    ms = cuda_time_ms(lambda: fn(row, kernel="cuda"), 200)
+    _, report = trace_run(lambda: [fn(row, kernel="cuda") for _ in range(50)],
+                          (name,))
+    plain_ms = cuda_time_ms(lambda: fn(row, kernel="torch"), 10)
+    # timing launches are not the main path's
+    cg.lane_fingerprints.launches, cg.state_group_digests.launches = launches
+    E = int(row.present.shape[-1])
+    bound_ms, bound_by, nbytes = digest_bounds(E, gs, fingerprints)
+    return {"ms": ms, "device_ms": (None if report is None
+                                    else report["kernel_ms"] / 50),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes}
+
+
+def fmt_device(t: dict) -> str:
+    return ("not measured" if t["device_ms"] is None
+            else f"{t['device_ms'] * 1e3:.3f} us")
+
+
+def seed_members(node, rng, n_members: int, n_deletes: int) -> None:
+    """``n_members`` adds in one client micro-batch row, then one row
+    deleting ``n_deletes`` of them."""
+    E = node.num_elements
+    add = np.zeros((1, E), bool)
+    ids = rng.choice(E, size=n_members, replace=False)
+    add[0, ids] = True
+    node.ingest_batch(add, np.zeros_like(add))
+    dl = np.zeros_like(add)
+    dl[0, rng.choice(ids, size=n_deletes, replace=False)] = True
+    node.ingest_batch(np.zeros_like(add), dl)
+
+
+def states_equal(a, b) -> bool:
+    """Every field equal, dtype included."""
+    import torch
+
+    return all(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(a, b))
+
+
+def pair_converged(a, b) -> bool:
+    """Two replicas agree on membership, clocks and the deletion log
+    (live dots may differ between converged replicas, ops/digest.py)."""
+    import torch
+
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in ("vv", "present", "deleted", "del_dot_actor",
+                         "del_dot_counter"))
+
+
+def phase_sync_fleet(counters: Counters, smi: str):
+    """Phase 11a: the sync curve's fleet (tools/chaos_soak.py, full
+    size) on CUDA nodes in both sync modes at both op rates, and the same
+    legs on CPU nodes: converged, no state lanes and no δ fallback in the
+    quiescent rounds of the digest regime, the same numbers and final
+    states as the CPU fleet."""
+    legs = []
+    for rate in SYNC_RATES:
+        pair = {}
+        for mode in ("digest", "delta"):
+            args = (mode, SYNC_NODES, SYNC_E, rate, SYNC_TRAFFIC, SYNC_SEED,
+                    SYNC_QUIESCENT, SYNC_SETTLE)
+            counters.reset()
+            t0 = time.perf_counter()
+            gpu, gpu_states = sync_traffic_leg(*args, device="cuda")
+            wall = time.perf_counter() - t0
+            counters.read(f"sync fleet {mode} {rate} ops/round",
+                          at_least={"state_group_digests": 1}
+                          if mode == "digest" else None)
+            cpu, cpu_states = sync_traffic_leg(*args, device="cpu")
+            if not gpu["converged"]:
+                raise AssertionError(f"sync fleet {mode} {rate}: not "
+                                     "converged")
+            if mode == "digest" and (gpu["quiescent_state_lanes"]
+                                     or gpu["delta_fallbacks"]
+                                     or not gpu["quiescent_exchanges"]):
+                raise AssertionError(f"sync fleet digest {rate}: quiescent "
+                                     f"rounds not quiescent: {gpu}")
+            if gpu != cpu:
+                raise AssertionError(f"sync fleet {mode} {rate}: CUDA "
+                                     f"{gpu} vs CPU {cpu}")
+            for i, (g, c) in enumerate(zip(gpu_states, cpu_states)):
+                if not states_equal(g, c):
+                    raise AssertionError(f"sync fleet {mode} {rate}: node "
+                                         f"{i} differs from the CPU fleet")
+            pair[mode] = {**gpu, "wall_s": wall}
+        legs.append({"ops_per_round": rate, **pair})
+        log(f"sync fleet {SYNC_NODES} nodes x E={SYNC_E}, {rate} ops/round: "
+            f"digest {pair['digest']['bytes_per_round']} B/round, "
+            f"{pair['digest']['quiescent_bytes_per_round']} B/quiescent "
+            f"round ({pair['digest']['quiescent_state_lanes']} state lanes, "
+            f"{pair['digest']['quiescent_exchanges']} quiescent exchanges, "
+            f"{pair['digest']['delta_fallbacks']} δ fallbacks, "
+            f"{pair['digest']['rounds']} rounds, "
+            f"{pair['digest']['wall_s']:.2f} s); δ "
+            f"{pair['delta']['bytes_per_round']} B/round, "
+            f"{pair['delta']['quiescent_bytes_per_round']} B/quiescent "
+            f"round ({pair['delta']['rounds']} rounds, "
+            f"{pair['delta']['wall_s']:.2f} s); converged, equal to the CPU "
+            f"fleet's numbers and final states [{smi}]")
+    log("sync fleet legs: " + json.dumps(legs))
+    return legs
+
+
+def converge_digest(node, addr, what: str, rounds: int = 4):
+    from go_crdt_playground_tpu_torch.net import digestsync
+
+    for _ in range(rounds):
+        if digestsync.sync_digest(node, addr, timeout=120.0).quiescent:
+            return
+    raise AssertionError(f"{what}: no quiescent digest round")
+
+
+def phase_digest_read(counters: Counters, timings: dict, smi: str):
+    """Phase 11b: bench.measure_mesh's digest-read shape (E = 8,192,
+    A = 8): a node pair converged to quiescence over sockets, then the
+    summary read (``node_summary``) and K11 timed."""
+    from go_crdt_playground_tpu_torch.net import digestsync
+    from go_crdt_playground_tpu_torch.net.peer import Node
+
+    E, A = DIGEST_READ_E, DIGEST_READ_A
+    rng = np.random.default_rng(8192)
+    a = Node(0, E, A, device="cuda")
+    b = Node(1, E, A, device="cuda")
+    counters.reset()
+    try:
+        seed_members(a, rng, 2000, 200)
+        seed_members(b, rng, 2000, 200)
+        addr = b.serve()
+        a.sync_with(addr)
+        converge_digest(a, addr, "digest read pair")
+        counters.read("digest read pair", at_least={"state_group_digests": 2})
+        digestsync.node_summary(a)
+        reps = 30
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            body = digestsync.node_summary(a)
+        summary_ms = (time.perf_counter() - t0) * 1e3 / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            st = digestsync.sync_digest(a, addr)
+        round_ms = (time.perf_counter() - t0) * 1e3 / reps
+        if not st.quiescent:
+            raise AssertionError("digest read pair: not quiescent")
+        k11 = time_k11(a.state_slice(), 64)
+    finally:
+        b.close()
+    timings["K11 read"] = k11
+    log(f"digest read E={E} A={A}: node_summary {summary_ms:.4f} ms "
+        f"({len(body)} B), quiescent digest round {round_ms:.4f} ms; K11 "
+        f"{k11['ms']:.4f} ms/call, device {fmt_device(k11)}, plain "
+        f"{k11['plain_ms']:.4f} ms, bound {k11['bound_ms'] * 1e3:.4f} us "
+        f"({k11['bound_by']}, {k11['bound_bytes']} B) [{smi}]")
+    return {"E": E, "A": A, "summary_ms": summary_ms,
+            "summary_bytes": len(body), "quiescent_round_ms": round_ms,
+            "k11": k11}
+
+
+def universe_leg(device, timed: bool):
+    """Phase 11c's op and exchange sequence at E = 2^20, A = 16: two
+    nodes seeded with ``UNIVERSE_MEMBERS`` members each (a tenth of them
+    deleted), converged by first contact (untimed), then digest rounds
+    after 1, 16 and 1,024 lanes changed on one side, quiescent digest
+    rounds, and a δ-ladder exchange at the same state.  With ``timed``
+    the rounds are measured and K11 and ``digest_diff_payload`` are
+    timed on the state.  Returns (rows, final states)."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.net import digestsync
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import digest as digest_ops
+
+    E, A = UNIVERSE_E, UNIVERSE_A
+    rng = np.random.default_rng(1 << 20)
+    a = Node(0, E, A, device=device)
+    b = Node(1, E, A, device=device)
+    rows = {}
+    try:
+        for n in (a, b):
+            seed_members(n, rng, UNIVERSE_MEMBERS, UNIVERSE_MEMBERS // 10)
+        addr = b.serve()
+        t0 = time.perf_counter()
+        first = a.sync_with(addr, timeout=300.0)
+        rows["first_contact"] = {
+            "s": time.perf_counter() - t0,
+            "bytes": first.bytes_sent + first.bytes_received}
+        converge_digest(a, addr, "universe pair")
+        for k in (1, 16, 1024, 0):
+            members = set(a.members().tolist())
+            fresh = [int(x) for x in rng.permutation(E)[:4 * k + 8]
+                     if int(x) not in members][:k]
+            if k:
+                a.add(*fresh)
+            if timed:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = digestsync.sync_digest(a, addr, timeout=120.0)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            row = {"round_ms": wall_ms, "bytes": st.bytes_sent
+                   + st.bytes_received, "lanes_sent": st.lanes_sent,
+                   "groups_mismatched": st.groups_mismatched,
+                   "quiescent": st.quiescent}
+            if k:
+                # the pair's next round is quiescent
+                if not digestsync.sync_digest(a, addr).quiescent:
+                    raise AssertionError(f"universe: {k} lanes left the "
+                                         "pair unconverged")
+            elif not st.quiescent:
+                raise AssertionError("universe: quiescent round shipped")
+            if timed and k:
+                # the mismatched-group extraction on this state, against
+                # peer digests that differ in k groups
+                with a._lock:
+                    me = a._row()
+                own = a._digest_fn(me, 64)
+                peer = own.cpu().numpy().view(np.uint32).copy()
+                flip = np.random.default_rng(k).choice(len(peer), size=k,
+                                                       replace=False)
+                peer[flip] ^= 1
+                row["diff_payload_ms"] = cuda_time_ms(
+                    lambda: digest_ops.digest_diff_payload(me, own, peer),
+                    10)
+            rows[f"{k} lanes"] = row
+
+        def traced(fn):
+            if not timed:
+                fn()
+                return None
+            return trace_run(fn, ("group_digests",))[1]
+
+        # where a round's time goes: a round after 16 more changed lanes,
+        # then three quiescent rounds, under torch.profiler
+        members = set(a.members().tolist())
+        a.add(*[int(x) for x in rng.permutation(E)[:80]
+                if int(x) not in members][:16])
+        rows["trace_16_lanes"] = traced(
+            lambda: digestsync.sync_digest(a, addr, timeout=120.0))
+        rows["trace_3_quiescent"] = traced(
+            lambda: [digestsync.sync_digest(a, addr) for _ in range(3)])
+        t0 = time.perf_counter()
+        ladder = a.sync_with(addr, timeout=120.0)
+        rows["delta_ladder_quiescent"] = {
+            "round_ms": (time.perf_counter() - t0) * 1e3,
+            "bytes": ladder.bytes_sent + ladder.bytes_received}
+        rows["summary_bytes"] = len(digestsync.node_summary(a))
+        if timed:
+            rows["k11"] = time_k11(a.state_slice(), 64)
+            rows["k11_fingerprints"] = time_k11(a.state_slice(), 64,
+                                                fingerprints=True)
+        states = [type(s)(*(x.cpu() for x in s))
+                  for s in (a.state_slice(), b.state_slice())]
+        if not pair_converged(*states):
+            raise AssertionError("universe: the pair did not converge")
+        return rows, states
+    finally:
+        b.close()
+
+
+def phase_universe(counters: Counters, timings: dict, smi: str):
+    """Phase 11c: one node's universe at 2^20 on CUDA nodes, timed; the
+    same sequence on CPU nodes (the plain versions throughout) to equal
+    final states."""
+    counters.reset()
+    rows, states = universe_leg("cuda", timed=True)
+    counters.read("universe pair", at_least={"state_group_digests": 10})
+    _, cpu_states = universe_leg("cpu", timed=False)
+    for g, c in zip(states, cpu_states):
+        if not states_equal(g, c):
+            raise AssertionError("universe: CUDA pair differs from the "
+                                 "plain-version replay")
+    k11 = rows["k11"]
+    timings["K11"] = {key: k11[key] for key in
+                      ("ms", "plain_ms", "bound_ms", "bound_by")}
+    log(f"universe E={UNIVERSE_E} A={UNIVERSE_A}: first contact "
+        f"{rows['first_contact']['s']:.2f} s, "
+        f"{rows['first_contact']['bytes']} B (untimed); summary "
+        f"{rows['summary_bytes']} B")
+    for k in (1, 16, 1024, 0):
+        r = rows[f"{k} lanes"]
+        diff = (f"digest_diff_payload {r['diff_payload_ms']:.4f} ms" if k
+                else "quiescent, no extraction")
+        log(f"  digest round, {k} lanes changed: {r['round_ms']:.3f} ms, "
+            f"{r['bytes']} B, {r['lanes_sent']} lanes shipped, "
+            f"{r['groups_mismatched']} groups mismatched, {diff} [{smi}]")
+    for key, what in (("trace_16_lanes", "a 16-lane round"),
+                      ("trace_3_quiescent", "3 quiescent rounds")):
+        t = rows[key]
+        log(f"  traced {what}: " + ("no device activity recorded"
+                                    if t is None else
+                                    f"wall {t['wall_ms']:.3f} ms, device "
+                                    f"busy {t['device_busy_ms']:.3f} ms in "
+                                    f"{t['device_ops']} device ops (K11 "
+                                    f"{t['kernel_ms']:.4f} ms), idle share "
+                                    f"{t['idle_share']:.4f} [{smi}]"))
+    lad = rows["delta_ladder_quiescent"]
+    log(f"  δ ladder at quiescence: {lad['bytes']} B, "
+        f"{lad['round_ms']:.3f} ms; K11 group digests {k11['ms']:.4f} "
+        f"ms/call, device {fmt_device(k11)} vs bound "
+        f"{k11['bound_ms'] * 1e3:.3f} us ({k11['bound_bytes']} B), plain "
+        f"{k11['plain_ms']:.4f} ms; fingerprints entry device "
+        f"{fmt_device(rows['k11_fingerprints'])} vs bound "
+        f"{rows['k11_fingerprints']['bound_ms'] * 1e3:.3f} us; converged, "
+        f"bitwise equal to the CPU replay [{smi}]")
+    log("universe: " + json.dumps(rows))
+    return rows
+
+
 KERNELS = [
     ("K1", "ring_round_rows", "csrc/merge.cu", "pallas_merge.py:832",
      ("ring_round_rows",)),
@@ -1258,6 +1823,8 @@ KERNELS = [
      "pallas_delta.py:460", ("delta_ring_round_dotpacked",)),
     ("K10", "ingest_rows_delta_fused", "csrc/ingest.cu",
      "pallas_ingest.py:165", ("ingest_rows_delta_fused",)),
+    ("K11", "lane_fingerprints + state_group_digests", "csrc/digest.cu",
+     "pallas_digest.py:64", ("lane_fingerprints", "state_group_digests")),
 ]
 
 
@@ -1276,6 +1843,7 @@ def main() -> int:
     errs, timings = {}, {}
     phase_kernels(errs)
     phase_ingest_kernel(errs)
+    phase_digest_kernel(errs)
     phase_packed_kernels(errs)
     phase_entry(counters, errs)
     final = phase_fleet("merge", counters, errs, timings, smi)
@@ -1287,6 +1855,9 @@ def main() -> int:
     phase_k3(counters, errs, timings, smi)
     phase_cli(counters)
     phase_serve(counters, errs, timings, smi)
+    phase_sync_fleet(counters, smi)
+    phase_digest_read(counters, timings, smi)
+    phase_universe(counters, timings, smi)
 
     kernels = []
     for key, name, src, replaces, wrappers in KERNELS:

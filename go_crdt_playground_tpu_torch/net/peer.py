@@ -1,12 +1,35 @@
-"""A δ-AWSet replica node: the serving write path and durable recovery.
+"""A networked δ-AWSet replica node: the serving write path, durable
+recovery and anti-entropy with peers over TCP.
 
-The counterpart of the JAX package's ``net/peer.Node``, without its
-socket half (``serve``, ``sync_with`` and the digest summaries come with
-the digest-sync slice).  One ``Node`` owns a single-replica packed
-``AWSetDeltaState`` (R = 1) on its device, mutates it with client ops
-and applied payloads, and, with a ``utils/wal.DeltaWal`` attached, logs
-every mutation's δ durably BEFORE the call returns: the group-commit
-point a serving frontend acks against.
+The counterpart of the JAX package's ``net/peer.Node``.  One ``Node``
+owns a single-replica packed ``AWSetDeltaState`` (R = 1) on its device,
+mutates it with client ops and applied payloads, and, with a
+``utils/wal.DeltaWal`` attached, logs every mutation's δ durably BEFORE
+the call returns: the group-commit point a serving frontend acks
+against.
+
+Anti-entropy (``serve`` answers, ``sync_with`` dials) is one push-pull
+exchange per call:
+
+    client                                server
+      HELLO(actor, E, vv)  ------------->
+                           <-------------  HELLO(actor, E, vv)
+      PAYLOAD(δ vs server vv)  --------->  apply
+                           <-------------  PAYLOAD(δ vs client vv)
+      apply
+
+FULL state on first contact (the receiver's advertised clock has never
+seen the sender), δ against the advertised vv after.  The same listener
+answers the digest exchange (net/digestsync.py), which opens with
+MSG_DIGEST instead of HELLO and reads the node's lane digests through
+``digest_summary_arrays`` (K11, ops/cuda_digest.py, on a CUDA node).
+The server gives the HELLO frame a short whole-frame deadline
+(``hello_timeout_s``), so idle or trickling dials release their slot in
+seconds, and the PAYLOAD frame the longer ``conn_timeout_s``; at
+``max_conns`` open connections new dials are shed (a lost gossip round,
+which anti-entropy heals).  ``sync_with`` raises only the typed
+``SyncError`` hierarchy below, plus ``framing.RemoteError`` for a
+failure the server reported.
 
 The write path of one client micro-batch (``ingest_batch``): the rows
 cross to the device in one copy, K10 (ops/cuda_ingest.py) folds them into
@@ -36,15 +59,17 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from go_crdt_playground_tpu_torch._u32 import from_numpy_u32, host
+from go_crdt_playground_tpu_torch._u32 import from_numpy_u32, host, to_host
 from go_crdt_playground_tpu_torch.device import resolve_device
 from go_crdt_playground_tpu_torch.models import awset_delta
 from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
 from go_crdt_playground_tpu_torch.net import framing
 from go_crdt_playground_tpu_torch.net.framing import (MODE_DELTA, MODE_FULL,
-                                                      MODE_SLICE,
+                                                      MODE_SLICE, MSG_HELLO,
+                                                      MSG_PAYLOAD,
                                                       ProtocolError)
 from go_crdt_playground_tpu_torch.ops import delta as delta_ops
+from go_crdt_playground_tpu_torch.ops import digest as digest_ops
 from go_crdt_playground_tpu_torch.ops import ingest as ingest_ops
 from go_crdt_playground_tpu_torch.utils import wire
 from go_crdt_playground_tpu_torch.utils.checkpoint import (
@@ -88,6 +113,14 @@ class SyncStats(NamedTuple):
     mode_received: int
 
 
+class DigestSummary(NamedTuple):
+    """The arrays of a digest summary (net/digestsync.py)."""
+
+    vv: object
+    processed: object
+    digests: object
+
+
 def _payload_to(p: delta_ops.DeltaPayload, device) -> delta_ops.DeltaPayload:
     """A decoded payload (numpy uint32 / bool) -> tensors on ``device``."""
     return delta_ops.DeltaPayload(*(
@@ -97,15 +130,33 @@ def _payload_to(p: delta_ops.DeltaPayload, device) -> delta_ops.DeltaPayload:
 
 
 class Node:
-    """A single replica.  Thread-safe: one lock serializes local
-    mutations, payload extraction and payload application."""
+    """A single networked replica.  Thread-safe: one lock serializes
+    local mutations, payload extraction and payload application."""
+
+    # server bounds: a whole-frame deadline for the PAYLOAD frame, a much
+    # shorter one for the opening HELLO (a real client sends it at once),
+    # and a cap on connection threads (at capacity new dials are shed)
+    CONN_TIMEOUT_S = 30.0
+    HELLO_TIMEOUT_S = 2.0
+    MAX_CONNS = 64
 
     def __init__(self, actor: int, num_elements: int, num_actors: int,
                  delta_semantics: str = "v2",
                  strict_reference_semantics: bool = True,
-                 recorder=None, wal=None, wal_compact_records: bool = True,
-                 device="cuda"):
-        """recorder: optional metrics sink with ``.count(name, n)``.
+                 recorder=None, conn_timeout_s: Optional[float] = None,
+                 hello_timeout_s: Optional[float] = None,
+                 max_conns: Optional[int] = None, wal=None,
+                 wal_compact_records: bool = True, device="cuda"):
+        """recorder: optional metrics sink with ``.count(name, n)`` and
+        ``.count_many(dict)``; every exchange counts sync.exchanges,
+        sync.bytes_sent, sync.bytes_received and sync.full_payloads
+        (served and initiated alike), digest exchanges their digest.*
+        names.
+
+        conn_timeout_s / hello_timeout_s / max_conns: the server's
+        PAYLOAD and HELLO frame deadlines (the HELLO one clamped to the
+        PAYLOAD one) and its connection cap; defaults the class
+        constants.
 
         wal: optional utils/wal.DeltaWal.  When attached (here or by plain
         assignment later), every applied PAYLOAD body and every local
@@ -117,15 +168,17 @@ class Node:
         replay).
 
         device: where the replica state lives ("cuda" by default, which
-        raises without a GPU); the ingest regime follows it."""
+        raises without a GPU); the ingest and digest regimes follow it."""
         if not 0 <= actor < num_actors:
             raise ValueError(f"actor {actor} outside actor axis {num_actors}")
         self.device = resolve_device(device)
         self.recorder = recorder
         self.wal = wal  # guarded-by: _lock
-        # read-only after __init__: the device and E fix the regime
+        # read-only after __init__: the device and E fix the regimes
         self._fused_regime = ingest_ops.ingest_delta_regime(num_elements,
                                                             self.device)
+        self._digest_regime = digest_ops.digest_regime(num_elements,
+                                                       self.device)
         self.wal_compact_records = wal_compact_records
         # freshest causal-stability vector each peer actor advertised in
         # an applied payload: the peer half of deletion_frontier
@@ -145,6 +198,20 @@ class Node:
         self._state = awset_delta.init(  # guarded-by: _lock
             1, num_elements, num_actors,
             actors=np.asarray([actor], np.uint32), device=self.device)
+        # serve()/close() owner thread; _accept_loop snapshots it
+        self._server_sock: Optional[socket.socket] = None
+        self._server_thread: Optional[threading.Thread] = None
+        self._closing = False  # monotonic stop flag
+        self.conn_timeout_s = (self.CONN_TIMEOUT_S if conn_timeout_s is None
+                               else conn_timeout_s)
+        self.hello_timeout_s = min(
+            self.HELLO_TIMEOUT_S if hello_timeout_s is None
+            else hello_timeout_s, self.conn_timeout_s)
+        # the body cap of every peer-dialect read: a hostile length
+        # header cannot commit a reader past the largest legal FULL body
+        self._frame_cap = framing.peer_frame_cap(num_elements, num_actors)
+        self._conn_slots = threading.BoundedSemaphore(
+            self.MAX_CONNS if max_conns is None else max_conns)
 
     # -- the state as one row ------------------------------------------------
 
@@ -262,6 +329,32 @@ class Node:
             return self._row()
 
     # -- payload plumbing ----------------------------------------------------
+
+    # requires-lock: _lock
+    def _extract_payload(self, peer_vv: np.ndarray):
+        """The FULL/DELTA ladder's payload for a peer that advertised
+        ``peer_vv``, before encoding: ``(mode, processed, payload)``, FULL
+        (our whole state) when the peer's clock has never seen us, else
+        the δ against its clock.  Split from ``_extract_msg`` so the
+        digest tier's δ-fallback rung can count the lanes it ships."""
+        me = self._row()
+        if int(peer_vv[self.actor]) == 0:
+            payload = delta_ops.DeltaPayload(
+                src_vv=me.vv, changed=me.present, ch_da=me.dot_actor,
+                ch_dc=me.dot_counter, deleted=me.deleted,
+                del_da=me.del_dot_actor, del_dc=me.del_dot_counter,
+                src_actor=me.actor, src_processed=me.processed)
+            return MODE_FULL, me.processed, payload
+        payload = delta_ops.delta_extract(
+            me, from_numpy_u32(np.asarray(peer_vv, np.uint32), self.device))
+        return MODE_DELTA, me.processed, payload
+
+    # requires-lock: _lock
+    def _extract_msg(self, peer_vv: np.ndarray) -> Tuple[int, bytes]:
+        """The PAYLOAD frame body for a peer that advertised peer_vv."""
+        mode, processed, payload = self._extract_payload(peer_vv)
+        return mode, framing.encode_payload_msg(mode, self.actor,
+                                                processed, payload)
 
     # requires-lock: _lock
     def _apply_msg(self, body: bytes) -> int:
@@ -390,9 +483,29 @@ class Node:
             self._apply_payload(mode, payload)
         return "applied"
 
+    # -- digest-driven anti-entropy (net/digestsync.py) ---------------------
+
+    def _digest_fn(self, state_slice: AWSetDeltaState,
+                   group_size: int) -> torch.Tensor:
+        """Group digests of a state slice on this node's regime (K11 on
+        CUDA, the plain pass on the CPU; ops/digest.digest_regime)."""
+        return self._digest_regime(state_slice, group_size)
+
+    def digest_summary_arrays(self, group_size: int) -> DigestSummary:
+        """``(vv, processed, digests)`` of a digest summary as numpy
+        uint32: the state reference is snapshotted under the lock (states
+        are replaced, never written in place), the digests are computed
+        outside it, and the three reach the host in one copy."""
+        with self._lock:
+            me = self._row()
+        return to_host(DigestSummary(me.vv, me.processed,
+                                     self._digest_fn(me, group_size)))
+
     def note_peer_processed(self, src_actor: int, processed) -> None:
         """Record a peer's advertised causal-stability vector without a
-        payload (the ``_apply_payload`` bookkeeping).  Monotone join."""
+        payload (the ``_apply_payload`` bookkeeping): a quiescent digest
+        exchange ships no state yet proves what the peer processed, and
+        the deletion-GC frontier keeps moving.  Monotone join."""
         src_actor = int(src_actor)
         if src_actor == self.actor:
             return
@@ -642,10 +755,129 @@ class Node:
             node.full_resync_pending = pending
         return node
 
+    # -- server ------------------------------------------------------------
+
+    def serve(self, host: str = "127.0.0.1",
+              port: int = 0) -> Tuple[str, int]:
+        """Start answering sync requests; returns the bound (host, port)."""
+        if self._server_sock is not None:
+            raise RuntimeError("already serving")
+        sock = socket.create_server((host, port))
+        self._server_sock = sock
+        self._closing = False
+        self._server_thread = threading.Thread(
+            target=self._accept_loop, name=f"crdt-node-{self.actor}",
+            daemon=True)
+        self._server_thread.start()
+        return sock.getsockname()[:2]
+
+    def _accept_loop(self) -> None:
+        sock = self._server_sock  # snapshot: close() may null the field
+        assert sock is not None
+        while not self._closing:
+            try:
+                conn, _ = sock.accept()
+            except OSError:
+                return  # socket closed
+            if not self._conn_slots.acquire(blocking=False):
+                conn.close()  # at capacity: shed the dial, do not queue
+                continue
+            # any failure to start the handler sheds the dial and returns
+            # the slot, else capacity decays one leak at a time
+            handed_off = False
+            try:
+                threading.Thread(target=self._handle, args=(conn,),
+                                 daemon=True).start()
+                handed_off = True
+            except RuntimeError:
+                pass  # OS thread exhaustion: shed the dial, keep serving
+            finally:
+                if not handed_off:
+                    conn.close()
+                    self._conn_slots.release()
+
+    def _handle(self, conn: socket.socket) -> None:
+        try:
+            self._serve_conn(conn)
+        finally:
+            self._conn_slots.release()
+
+    def _serve_conn(self, conn: socket.socket) -> None:
+        try:
+            with conn:
+                # the base timeout covers the sends; each recv_frame sets
+                # a whole-frame deadline and restores this afterwards
+                conn.settimeout(self.conn_timeout_s)
+                msg_type, body = framing.recv_frame(
+                    conn, timeout=self.hello_timeout_s,
+                    max_body=self._frame_cap)
+                if msg_type == framing.MSG_DIGEST:
+                    # the digest exchange answers on the same listener
+                    from go_crdt_playground_tpu_torch.net import digestsync
+
+                    digestsync.serve_digest_exchange(self, conn, body)
+                    return
+                if msg_type != MSG_HELLO:
+                    framing.send_frame(conn, framing.MSG_ERROR,
+                                       f"expected HELLO, got {msg_type}"
+                                       .encode())
+                    return
+                recv = framing.frame_size(len(body))
+                try:
+                    _, peer_vv = framing.decode_hello(
+                        body, self.num_elements, self.num_actors)
+                except ProtocolError as e:
+                    framing.send_frame(conn, framing.MSG_ERROR,
+                                       str(e).encode())
+                    return
+                sent = framing.send_frame(
+                    conn, MSG_HELLO, framing.encode_hello(
+                        self.actor, self.num_elements, self.vv()))
+                msg_type, body = framing.recv_frame(
+                    conn, timeout=self.conn_timeout_s,
+                    max_body=self._frame_cap)
+                if msg_type != MSG_PAYLOAD:
+                    framing.send_frame(conn, framing.MSG_ERROR,
+                                       f"expected PAYLOAD, got {msg_type}"
+                                       .encode())
+                    return
+                try:
+                    with self._lock:
+                        self._apply_msg(body)
+                        # extract after absorbing the client's payload so
+                        # transitively learned entries ride along
+                        reply_mode, reply = self._extract_msg(peer_vv)
+                except (ProtocolError, ValueError) as e:
+                    # ValueError: the apply hit a closed WAL (a teardown
+                    # race); the peer gets an error frame and retries
+                    framing.send_frame(conn, framing.MSG_ERROR,
+                                       str(e).encode())
+                    return
+                sent += framing.send_frame(conn, MSG_PAYLOAD, reply)
+                recv += framing.frame_size(len(body))
+                self._record(reply_mode, bytes_sent=sent,
+                             bytes_received=recv)
+        except (ProtocolError, framing.RemoteError, OSError):
+            pass  # connection-scoped failure; anti-entropy self-heals
+
     def close(self) -> None:
-        """Release the node.  It holds no socket or thread yet (the
-        server half comes with the digest-sync slice) and does not own
-        its WAL, which the caller closes."""
+        """Stop serving (the listener and its accept thread).  The node
+        does not own its WAL, which the caller closes."""
+        self._closing = True
+        sock = self._server_sock
+        if sock is not None:
+            try:
+                # wakes the accept thread (close alone leaves it blocked)
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                sock.close()
+            finally:
+                self._server_sock = None
+        if self._server_thread is not None:
+            self._server_thread.join(timeout=5.0)
+            self._server_thread = None
 
     def __enter__(self) -> "Node":
         return self
@@ -653,6 +885,93 @@ class Node:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    # -- client ------------------------------------------------------------
+
+    def sync_with(self, addr: Tuple[str, int], timeout: float = 30.0, *,
+                  connect_timeout_s: Optional[float] = None,
+                  hello_timeout_s: Optional[float] = None) -> SyncStats:
+        """One push-pull anti-entropy exchange with the peer at addr.
+
+        ``timeout`` bounds the PAYLOAD reply (the server extracts it after
+        applying ours), ``connect_timeout_s`` the dial (default
+        ``timeout``) and ``hello_timeout_s`` the HELLO reply (default this
+        node's own, clamped to ``timeout``).  While a regressed restore's
+        healing epoch is pending, the first exchange with each peer
+        advertises a zero vv so the peer ships FULL state."""
+        connect_t = timeout if connect_timeout_s is None else \
+            connect_timeout_s
+        hello_t = min(self.hello_timeout_s if hello_timeout_s is None
+                      else hello_timeout_s, timeout)
+        try:
+            sock = socket.create_connection(addr, timeout=connect_t)
+        except socket.timeout as e:
+            raise PeerTimeout(f"connect to {addr}: {e}",
+                              phase="connect") from e
+        except OSError as e:
+            raise ConnectFailed(f"connect to {addr}: {e}") from e
+        # sends ride the payload budget, not the dial's
+        sock.settimeout(timeout)
+        addr_key = (addr[0], int(addr[1]))
+        with self._lock:
+            forcing_full = (self.full_resync_pending
+                            and addr_key not in self._full_resync_done)
+            adv_vv = (np.zeros(self.num_actors, np.uint32) if forcing_full
+                      else self._host_vv())
+        with sock:
+            phase = "hello"
+            try:
+                sent = framing.send_frame(
+                    sock, MSG_HELLO, framing.encode_hello(
+                        self.actor, self.num_elements, adv_vv))
+                msg_type, body = framing.recv_frame(
+                    sock, timeout=hello_t, max_body=self._frame_cap)
+                if msg_type != MSG_HELLO:
+                    raise ProtocolError(f"expected HELLO, got {msg_type}")
+                _, peer_vv = framing.decode_hello(
+                    body, self.num_elements, self.num_actors)
+                recv = framing.frame_size(len(body))
+                with self._lock:
+                    mode_sent, out = self._extract_msg(peer_vv)
+                phase = "payload"
+                sent += framing.send_frame(sock, MSG_PAYLOAD, out)
+                msg_type, body = framing.recv_frame(
+                    sock, timeout=timeout, max_body=self._frame_cap)
+                if msg_type != MSG_PAYLOAD:
+                    raise ProtocolError(f"expected PAYLOAD, got {msg_type}")
+                recv += framing.frame_size(len(body))
+                with self._lock:
+                    mode_recv = self._apply_msg(body)
+            except SyncError:
+                raise
+            except framing.RemoteError:
+                raise  # already typed; carries the server's message
+            except socket.timeout as e:
+                raise PeerTimeout(f"{phase} exchange with {addr}: {e}",
+                                  phase=phase) from e
+            except framing.TruncatedFrame as e:
+                # a torn frame is transport loss: the retryable class
+                raise PeerReset(f"{phase} exchange with {addr}: {e}") from e
+            except ProtocolError as e:
+                raise PeerProtocolError(str(e)) from e
+            except OSError as e:
+                raise PeerReset(f"{phase} exchange with {addr}: {e}") from e
+        if forcing_full:
+            with self._lock:
+                self._full_resync_done.add(addr_key)
+        self._record(mode_sent, bytes_sent=sent, bytes_received=recv)
+        return SyncStats(bytes_sent=sent, bytes_received=recv,
+                         mode_sent=mode_sent, mode_received=mode_recv)
+
     def _count(self, name: str, n: int = 1) -> None:
         if self.recorder is not None:
             self.recorder.count(name, n)
+
+    def _record(self, mode_sent: int, bytes_sent: int,
+                bytes_received: int) -> None:
+        if self.recorder is None:
+            return
+        counts = {"sync.exchanges": 1, "sync.bytes_sent": bytes_sent,
+                  "sync.bytes_received": bytes_received}
+        if mode_sent == MODE_FULL:
+            counts["sync.full_payloads"] = 1
+        self.recorder.count_many(counts)

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from go_crdt_playground_tpu_torch.device import resolve_device
 from go_crdt_playground_tpu_torch.models.awset import AWSetState
 from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
 from go_crdt_playground_tpu_torch.ops import cuda_delta, cuda_merge
@@ -37,13 +38,14 @@ from go_crdt_playground_tpu_torch.parallel import collectives
 
 
 def ring_perm(num_replicas: int, offset: int = 1,
-              device="cpu") -> torch.Tensor:
+              device="cuda") -> torch.Tensor:
     """Partner of r is (r + offset) mod R."""
-    return cuda_merge.ring_index(num_replicas, offset, device)
+    return cuda_merge.ring_index(num_replicas, offset,
+                                 resolve_device(device))
 
 
 def butterfly_perm(num_replicas: int, stage: int,
-                   device="cpu") -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     """Partner of r is r XOR 2^stage (symmetric pairs; R a power of two)."""
     if num_replicas & (num_replicas - 1):
         raise ValueError("butterfly needs a power-of-two replica count")
@@ -51,13 +53,16 @@ def butterfly_perm(num_replicas: int, stage: int,
         raise ValueError(
             f"butterfly stage {stage} out of range for R={num_replicas} "
             "(need 1 << stage < R)")
-    return (torch.arange(num_replicas, dtype=torch.int64, device=device)
-            ^ (1 << stage))
+    return (torch.arange(num_replicas, dtype=torch.int64,
+                         device=resolve_device(device)) ^ (1 << stage))
 
 
 def random_perm(generator: torch.Generator, num_replicas: int,
-                device="cpu") -> torch.Tensor:
-    return torch.randperm(num_replicas, generator=generator).to(device)
+                device="cuda") -> torch.Tensor:
+    """A uniform pairing drawn from ``generator`` (a CPU generator, so a
+    seed gives the same pairing on every device)."""
+    return torch.randperm(num_replicas, generator=generator).to(
+        resolve_device(device))
 
 
 def dissemination_offsets(num_replicas: int):

@@ -235,3 +235,70 @@ def test_node_on_the_card_matches_the_plain_regime(tmp_path):
                   cpu.state_slice())
     for n in (gpu, cpu):
         n.wal.close()
+
+
+@pytest.mark.parametrize("E", [1, 65, 1000, 8192])
+def test_digest_kernel_matches_plain(E):
+    """K11, both entries, on a random slice (deletion dots straddling
+    2^31) and the occupancy extremes, at every group size of the chip
+    check."""
+    from go_crdt_playground_tpu_torch.ops import cuda_digest as cg
+
+    st = _on_gpu(random_state(120 + E, 1, E, 8))
+    row = type(st)(*(x[0] for x in st))
+    yes, no = torch.ones_like(row.present), torch.zeros_like(row.present)
+    for r in (row, row._replace(present=yes, deleted=yes),
+              row._replace(present=no, deleted=no)):
+        assert torch.equal(cg.lane_fingerprints(r, kernel="cuda"),
+                           cg.lane_fingerprints(r, kernel="torch"))
+        for gs in (1, 3, 8, 16, 32, 48, 64, 128, 256):
+            assert torch.equal(cg.state_group_digests(r, gs, kernel="cuda"),
+                               cg.state_group_digests(r, gs, kernel="torch")
+                               ), gs
+
+
+def _digest_session(dev_a, dev_b):
+    """A node pair on the given devices over a real socket: first
+    contact on the ladder, then a digest round and its quiescent
+    follow-up at each group size of the protocol's ladder.  Returns the
+    exchanges' stats, both final states on the CPU and the K11 launches."""
+    from go_crdt_playground_tpu_torch.net.digestsync import (
+        ALLOWED_GROUP_SIZES, sync_digest)
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_digest as cg
+
+    E, A = 512, 4
+    a, b = Node(0, E, A, device=dev_a), Node(1, E, A, device=dev_b)
+    a.add(1, 2, 300)
+    a.delete(2)
+    b.add(5, 400, 511)
+    b.delete(400)
+    addr = b.serve()
+    before = cg.state_group_digests.launches
+    try:
+        stats = [tuple(a.sync_with(addr))]
+        for gs in ALLOWED_GROUP_SIZES:
+            a.add(gs)
+            b.add(gs + 200)
+            stats.append(tuple(sync_digest(a, addr, group_size=gs)))
+            stats.append(tuple(sync_digest(a, addr, group_size=gs)))
+    finally:
+        b.close()
+    states = [tuple(x.cpu() for x in n.state_slice()) for n in (a, b)]
+    return stats, states, cg.state_group_digests.launches - before
+
+
+@pytest.mark.parametrize("devices", [("cuda", "cuda"), ("cuda", "cpu"),
+                                     ("cpu", "cuda")])
+def test_node_pair_on_the_card_matches_a_cpu_pair(devices):
+    """Digest sync with CUDA nodes (K11 in every summary) reports the
+    exchanges of a CPU pair and ends in the same states."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    stats, states, launches = _digest_session(*devices)
+    want_stats, want_states, cpu_launches = _digest_session("cpu", "cpu")
+    assert stats == want_stats
+    assert all(s[-1] for s in stats[2::2])  # each follow-up is quiescent
+    for got, want in zip(states, want_states):
+        assert _equal(got, want)
+    assert cpu_launches == 0 and launches >= 10

@@ -96,9 +96,12 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path):
         pytest.skip("a GPU is present: the default device runs")
     from go_crdt_playground_tpu_torch.__main__ import main
     from go_crdt_playground_tpu_torch.models import awset, awset_delta
+    from go_crdt_playground_tpu_torch.net.antientropy import SyncSupervisor
     from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_digest, digest
     from go_crdt_playground_tpu_torch.ops.cuda_ingest import \
         ingest_rows_delta_fused
+    from go_crdt_playground_tpu_torch.parallel import gossip
     from go_crdt_playground_tpu_torch.utils.checkpoint import (
         CheckpointStore, restore_checkpoint, save_checkpoint)
 
@@ -119,6 +122,12 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path):
         lambda: Node.restore_durable(str(tmp_path)),
         lambda: CheckpointStore(str(tmp_path)).restore(),
         lambda: restore_checkpoint(str(tmp_path / "ck")),
+        lambda: digest.digest_regime(64),
+        lambda: SyncSupervisor.restore(str(tmp_path / "ck"), []),
+        lambda: SyncSupervisor.restore_durable(str(tmp_path), []),
+        lambda: gossip.ring_perm(4),
+        lambda: gossip.butterfly_perm(4, 0),
+        lambda: gossip.random_perm(torch.Generator().manual_seed(0), 4),
     ]
     CheckpointStore(str(tmp_path)).save(
         Node(0, 4, 2, device="cpu").state_slice(), metadata={"actor": 0})
@@ -139,6 +148,13 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ingest_rows_delta_fused(row, rows, rows, rows[:, 0], k_changed=4,
                                 k_deleted=4, kernel="cuda")
+    # so does K11's
+    before = cuda_digest.state_group_digests.launches
+    assert torch.equal(cuda_digest.state_group_digests(row, 2),
+                       digest.state_group_digests(row, 2))
+    assert cuda_digest.state_group_digests.launches == before
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        cuda_digest.state_group_digests(row, 2, kernel="cuda")
 
 
 def test_config_validates():
@@ -163,5 +179,5 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "19 skipped" in out.stdout or "19 passed" in out.stdout, \
+    assert "26 skipped" in out.stdout or "26 passed" in out.stdout, \
         out.stdout

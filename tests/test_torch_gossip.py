@@ -56,17 +56,18 @@ def test_schedules_match():
         assert gossip.dissemination_offsets(R) == \
             jax_gossip.dissemination_offsets(R)
         for off in (0, 1, 5, 3 * R + 1):
-            assert np.array_equal(gossip.ring_perm(R, off).numpy(),
+            assert np.array_equal(gossip.ring_perm(R, off, "cpu").numpy(),
                                   np.asarray(jax_gossip.ring_perm(R, off)))
     for stage in range(4):
-        assert np.array_equal(gossip.butterfly_perm(16, stage).numpy(),
+        assert np.array_equal(gossip.butterfly_perm(16, stage, "cpu").numpy(),
                               np.asarray(jax_gossip.butterfly_perm(16, stage)))
     with pytest.raises(ValueError):
-        gossip.butterfly_perm(12, 1)
+        gossip.butterfly_perm(12, 1, "cpu")
     with pytest.raises(ValueError):
-        gossip.butterfly_perm(16, 4)
+        gossip.butterfly_perm(16, 4, "cpu")
     g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
-    p1, p2 = gossip.random_perm(g1, 20), gossip.random_perm(g2, 20)
+    p1 = gossip.random_perm(g1, 20, device="cpu")
+    p2 = gossip.random_perm(g2, 20, device="cpu")
     assert torch.equal(p1, p2)
     assert sorted(p1.tolist()) == list(range(20))
 
