@@ -5,12 +5,15 @@
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
   1. environment: torch/CUDA versions, the card's name and power limit
-     from nvidia-smi, the kernel build (one nvcc per source, in parallel);
+     from nvidia-smi, the kernel build (one nvcc per source, in parallel)
+     and ptxas's registers and shared memory for K9's kernel;
   2. kernels: every CUDA entry against its plain PyTorch version on the
      card, bitwise, over R x E x A shapes (the gossip verb's among
      them), offsets and scenario states; the packed entries (K6-K9) over
      their own shapes, in every δ mode, with counters near 2^31 and 2^32
-     (bitpacked) or at the dot-word cap, and the R % 64 guard;
+     (bitpacked) or at the dot-word cap, and the R % 64 guard; K9 also at
+     offsets whose cycles are whole segments (1-16 rows) or whose gcd
+     with R is not a power of two (R = 192, 320);
   3. entry: ``entry()`` at 256 x 256 against the plain round, bitwise;
   4. full-state: the 1,048,576 x 256 fleet (A = 256 writers) through the
      dissemination schedule and the butterfly schedule, converged, with
@@ -24,7 +27,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      4, every round against the plain version, times beside bounds;
   6. δ north star: phase 4 for the v2 δ fleet; phases 4 and 6 also hold
      the whole schedule at R = 16,384 against the plain schedule;
-  7. packed δ north star: phase 5 for the δ fleet (K8, K9);
+  7. packed δ north star: phase 5 for the δ fleet (K8, K9); then K9
+     and the block-per-row design it replaced timed in turns at every
+     offset of the schedule;
   8. one-row merge entries (K3): the gossip verb's fleet converged by
      ``gossip_round`` over ring permutations, then ``merge_pairwise``
      with a second fleet, against the plain versions;
@@ -199,10 +204,14 @@ def checksum(state) -> int:
 
 def cuda_time_ms(fn, reps: int) -> float:
     """Mean milliseconds per call from CUDA events around ``reps`` calls,
-    after one warm call."""
+    after two warm calls whose results are alive together, as in the
+    loop: the allocator then holds both output sets before the clock
+    starts, and no device allocation falls inside the window."""
     import torch
 
-    fn()
+    keep = fn()
+    out = fn()
+    del keep
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -346,7 +355,24 @@ def phase_environment():
     libs = _build.build_all(["merge", "delta", "ingest", "digest"])
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"({', '.join(p.name for p in libs.values())})")
+    for line in ptxas_report(_build.build_log("delta"), "delta_ring_walk"):
+        log(f"  ptxas: {line}")
     return smi
+
+
+def ptxas_report(text: str, kernel: str):
+    """The lines of an ``nvcc -Xptxas -v`` log about the kernels whose
+    name holds ``kernel``: each entry's stack, spills, registers and
+    shared memory."""
+    lines, take = [], False
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            take = kernel in line
+        if take:
+            lines.append(line.replace("ptxas info    : ", "").strip())
+    if not lines:
+        raise AssertionError(f"the build log names no kernel {kernel}")
+    return lines
 
 
 def phase_kernels(errs: dict, shapes=None):
@@ -611,7 +637,7 @@ def phase_packed_kernels(errs: dict, shapes=None):
     from go_crdt_playground_tpu_torch.parallel import gossip
 
     if shapes is None:
-        shapes = [(R, E, A) for R in (128, 1024, 4096)
+        shapes = [(R, E, A) for R in (128, 192, 320, 1024, 4096)
                   for E in (16, 300, 640, 4100) for A in (5, 256, 2048)]
     modes = [("v2", True), ("reference", True), ("reference", False)]
     rng = np.random.default_rng(2025)
@@ -648,8 +674,11 @@ def phase_packed_kernels(errs: dict, shapes=None):
              packed.pack_awset_delta_dots(std)))
         if E >= 32 and int(layouts[0][2].present_bits.min()) >= 0:
             raise AssertionError("no membership word has bit 31 set")
-        for off in [0, 1, 63, 64, 65, 128, R + 5, 3 * R + 64]:
+        common = [0, 1, 63, 64, 65, 128, R + 5, 3 * R + 64]
+        for off in sorted(set(common) | set(walk_offsets(R))):
             for key, fn, state in layouts:
+                if key != "K9" and off not in common:
+                    continue
                 if key in ("K6", "K7"):
                     check(key, fn, state, off, f"{key} {tag} offset={off}")
                     continue
@@ -664,10 +693,12 @@ def phase_packed_kernels(errs: dict, shapes=None):
                 ("K9", cd.delta_ring_round_dotpacked,
                  packed.pack_awset_delta_dots(converge(std))))
         for key, fn, state in conv:
-            for sem, strict in modes:
-                check(key, fn, state, 1,
-                      f"{key} converged {tag} {sem}/{strict}",
-                      delta_semantics=sem, strict_reference_semantics=strict)
+            for off in ((1, R // 2) if key == "K9" else (1,)):
+                for sem, strict in modes:
+                    check(key, fn, state, off,
+                          f"{key} converged {tag} offset={off} "
+                          f"{sem}/{strict}", delta_semantics=sem,
+                          strict_reference_semantics=strict)
     bad = packed.pack_awset(random_delta_state(rng, 1000, 16, 5, 0,
                                                "cuda").base())
     try:
@@ -680,6 +711,16 @@ def phase_packed_kernels(errs: dict, shapes=None):
     log(f"packed kernels: {n_checks} kernel-vs-plain checks over "
         f"{len(shapes)} shapes bitwise equal; R = 1000 raises "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+def walk_offsets(R: int):
+    """Offsets for K9's cycle walk at R rows: whole cycles of one (0),
+    two, four and sixteen rows, segments cut from cycles of R rows, and
+    (at R = 192, 320) cycles whose count gcd(offset, R) is not a power of
+    two: 45, 72 and 100 give 3, 24 and 4 cycles at 192, 5, 8 and 20 at
+    320."""
+    return sorted({0, 1, 5, 45, 64, 72, 100, R // 2, R // 4, R // 16,
+                   3 * R // 16, R - 1, 3 * R + 64})
 
 
 def phase_entry(counters: Counters, errs: dict):
@@ -1012,8 +1053,60 @@ def phase_packed_fleet(kind: str, final, counters: Counters, errs: dict,
         log(f"{what} {key}: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.4f} ms (bytes, {nbytes / 1e9:.3f} GB) -> "
             f"{bound_ms / ms:.1%} of bound [{smi}]")
+        if key == "K9":
+            timings[key].update(compare_k9_designs(state, offsets, bound_ms,
+                                                   smi))
         del state
         torch.cuda.empty_cache()
+
+
+def compare_k9_designs(state, offsets, bound_ms: float, smi: str,
+                       reps: int = 5) -> dict:
+    """K9's cycle walk and the block-per-row design it replaced, at
+    every offset of the schedule: first a check that both give the same
+    round at each offset, then each offset timed in turns on this card
+    (walk, rows, rows, walk; ``reps`` launches each).  Not counted as
+    main path."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+
+    for off in offsets:
+        walk = cd.delta_ring_round_dotpacked(state, off)
+        rows = cd._delta_ring_round_dotpacked_rowwise(state, off)
+        for field, w, r in zip(walk._fields, walk, rows):
+            if not torch.equal(w, r):
+                raise AssertionError(f"K9 offset {off}: field {field} of "
+                                     "the two designs differs")
+        del walk, rows
+    walk_ms, rows_ms = [], []
+    for off in offsets:
+        t = {"walk": [], "rows": []}
+        for which in ("walk", "rows", "rows", "walk"):
+            fn = (cd.delta_ring_round_dotpacked if which == "walk" else
+                  cd._delta_ring_round_dotpacked_rowwise)
+            t[which].append(cuda_time_ms(lambda: fn(state, off), reps))
+        walk_ms.append(sum(t["walk"]) / 2)
+        rows_ms.append(sum(t["rows"]) / 2)
+    torch.cuda.empty_cache()
+
+    def mean(xs, keep):
+        picked = [x for x, off in zip(xs, offsets) if keep(off)]
+        return sum(picked) / len(picked)
+
+    out = {}
+    for name, keep in (("all", lambda o: True),
+                       ("small", lambda o: o <= 1 << 13),
+                       ("large", lambda o: o > 1 << 13)):
+        w, r = mean(walk_ms, keep), mean(rows_ms, keep)
+        out[f"walk_ms_{name}"], out[f"rows_ms_{name}"] = w, r
+        log(f"  K9 designs, offsets {name} "
+            f"({sum(map(keep, offsets))}): cycle walk {w:.4f} ms "
+            f"({bound_ms / w:.1%} of bound), block per row {r:.4f} ms "
+            f"({bound_ms / r:.1%}) [{smi}]")
+    log("  K9 designs per offset: " + json.dumps(
+        {"offsets": offsets, "walk_ms": walk_ms, "rows_ms": rows_ms}))
+    return {"row_per_block_ms": out["rows_ms_all"]}
 
 
 def phase_k3(counters: Counters, errs: dict, timings: dict, smi: str):

@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and becomes
 ``build/lib<name>-<hash>.so`` inside the package; the hash covers the
 source, the shared headers and the flags, so an edited source is never
 served from a stale build.  ``build_all`` starts one ``nvcc`` per source,
-all at once, and waits for them together.
+all at once, and waits for them together.  The compiler's report
+(``-Xptxas -v``: registers, shared memory and spills of every kernel) is
+kept beside the library as ``lib<name>-<hash>.log`` (``build_log``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -78,6 +80,7 @@ def _finish(name: str, started) -> None:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(rc={proc.returncode}):\n{out}")
+    target.with_suffix(".log").write_text(out)
     os.replace(tmp, target)
 
 
@@ -88,6 +91,11 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     for name in names:
         _finish(name, started[name])
     return {name: _library_path(name) for name in names}
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for the built ``csrc/<name>.cu``."""
+    return _library_path(name).with_suffix(".log").read_text()
 
 
 @functools.lru_cache(maxsize=None)

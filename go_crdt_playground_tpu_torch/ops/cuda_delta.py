@@ -12,7 +12,9 @@ Kernels and the Pallas kernels they replace
                                        K4 on the bitpacked layout;
   K9 ``delta_ring_round_dotpacked`` <- ``pallas_delta_ring_round_dotpacked``:
                                        K4 on the dot-word layout
-                                       (models/packed.py).
+                                       (models/packed.py), on its own
+                                       kernel: warps walk segments of the
+                                       ring's cycles (``ring_segments``).
 
 All take the three δ semantics of the JAX package: v2, reference
 (strict: the empty-δ vv skip) and reference_loose.  Dispatch, checks and
@@ -25,6 +27,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import List, NamedTuple
 
 import torch
 
@@ -39,6 +43,10 @@ from go_crdt_playground_tpu_torch.ops.cuda_merge import (
 from go_crdt_playground_tpu_torch.ops.vv import clock_at
 
 MODES = {"v2": 0, "reference": 1, "reference_loose": 2}
+# K9's segment length L: a segment reads L + 1 rows for L outputs, so a
+# round reads (1 + 1/L) x the state; 16 keeps that within 7% of one read
+# and still gives 65,536 segments (warps) at R = 2^20, offset 1.
+SEGMENT_ROWS = 16
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -76,6 +84,49 @@ def delta_round_plain(state: AWSetDeltaState, index: torch.Tensor,
         for name, f, d in zip(state._fields, full, delt)))
 
 
+class RingSegments(NamedTuple):
+    """How K9 walks a ring round.  Under r -> (r + offset) mod R the rows
+    form ``cycles`` = gcd(offset, R) cycles of ``cycle_len`` = R / cycles
+    rows; position j of cycle k is row (k + j offset) mod R.  Each cycle
+    is cut into ``per_cycle`` segments of at most ``seg_len`` positions."""
+    num_r: int
+    offset: int      # offset mod R
+    cycles: int
+    cycle_len: int
+    per_cycle: int
+    seg_len: int
+
+    @property
+    def count(self) -> int:
+        return self.cycles * self.per_cycle
+
+
+def ring_segments(num_r: int, offset, seg_len: int = SEGMENT_ROWS
+                  ) -> RingSegments:
+    """The geometry of a ring round's cycles, cut into segments of at
+    most ``seg_len`` rows (offset 0: R cycles of one row)."""
+    if num_r < 1 or seg_len < 1:
+        raise ValueError(f"need R >= 1 and seg_len >= 1, got R={num_r}, "
+                         f"seg_len={seg_len}")
+    o = int(offset) % num_r
+    g = math.gcd(o, num_r)
+    n = num_r // g
+    return RingSegments(num_r, o, g, n, -(-n // seg_len), seg_len)
+
+
+def segment_rows(geom: RingSegments, q: int) -> List[int]:
+    """Rows c_0 .. c_len of segment q, as the kernel computes them: step
+    i writes row c_i from c_i and its partner c_{i+1}, so the last entry
+    is the last step's partner (c_0 again when the segment is its whole
+    cycle)."""
+    k, t = divmod(q, geom.per_cycle)
+    j0 = t * geom.seg_len
+    length = min(geom.seg_len, geom.cycle_len - j0)
+    start = (k + j0 * geom.offset) % geom.num_r
+    return [(start + m * geom.offset) % geom.num_r
+            for m in range(length + 1)]
+
+
 def _delta_lanes(state):
     """The six E-shaped lane pointers' tensors in the kernel's order;
     the dot-word layout fills the counter slots with None."""
@@ -98,6 +149,9 @@ def _lib() -> ctypes.CDLL:
         [_P] * 10 + [_I64, _I32, _I32] + [_P] * 8
         + [_I64, _I64, _I32, _I32, _P])
     lib.crdt_delta_round.restype = ctypes.c_int
+    lib.crdt_delta_ring_dotword.argtypes = (
+        [_P] * 13 + [_I64] * 4 + [_I32, _I32, _I64, _I64, _I32, _P])
+    lib.crdt_delta_ring_dotword.restype = ctypes.c_int
     return lib
 
 
@@ -116,6 +170,27 @@ def _launch(state, perm, offset: int, partner_mode: int, mode: str):
             num_r, packed.num_elements(state), num_a, layout_of(state),
             stream_of(state.vv))
     _build.check(lib, rc, "crdt_delta_round")
+    return outs
+
+
+_DOT_FIELDS = ("vv", "processed", "present_bits", "dots", "deleted_bits",
+               "del_dots")
+
+
+def _launch_walk(state: packed.DotPackedAWSetDeltaState, geom: RingSegments,
+                 mode: str) -> packed.DotPackedAWSetDeltaState:
+    check_state(state)
+    num_r, num_a = state.vv.shape
+    outs = out_like(state)
+    lib = _lib()
+    with torch.cuda.device(state.vv.device):
+        rc = lib.crdt_delta_ring_dotword(
+            *(ptr(getattr(state, f)) for f in _DOT_FIELDS), ptr(state.actor),
+            *(ptr(getattr(outs, f)) for f in _DOT_FIELDS),
+            geom.offset, geom.cycle_len, geom.per_cycle, geom.count,
+            geom.seg_len, MODES[mode], num_r, packed.num_elements(state),
+            num_a, stream_of(state.vv))
+    _build.check(lib, rc, "crdt_delta_ring_dotword")
     return outs
 
 
@@ -173,8 +248,9 @@ def delta_ring_round_dotpacked(state: packed.DotPackedAWSetDeltaState,
                                strict_reference_semantics: bool = True,
                                kernel: str = "auto"
                                ) -> packed.DotPackedAWSetDeltaState:
-    """K9: K4 on the dot-word layout.  The plain version unpacks, runs
-    the δ round against the ring partner and packs."""
+    """K9: K4 on the dot-word layout, on the cycle-walking kernel.  The
+    plain version unpacks, runs the δ round against the ring partner and
+    packs."""
     mode = kernel_mode(delta_semantics, strict_reference_semantics)
     num_r = state.vv.shape[0]
     check_ring_rows(num_r)
@@ -183,9 +259,21 @@ def delta_ring_round_dotpacked(state: packed.DotPackedAWSetDeltaState,
                                               packed.num_elements(state))
         return packed.pack_awset_delta_dots(delta_round_plain(
             full, ring_index(num_r, offset, state.vv.device), mode))
-    out = _launch(state, None, int(offset) % num_r, PARTNER_RING, mode)
+    out = _launch_walk(state, ring_segments(num_r, offset), mode)
     delta_ring_round_dotpacked.launches += 1
     return out
+
+
+def _delta_ring_round_dotpacked_rowwise(
+        state: packed.DotPackedAWSetDeltaState, offset, *,
+        delta_semantics: str = "v2", strict_reference_semantics: bool = True
+        ) -> packed.DotPackedAWSetDeltaState:
+    """K9's function on K8's block-per-row kernel (a block per row, the
+    partner row read apart).  No entry point calls it: chip_smoke.py times
+    it beside K9 on the same card."""
+    mode = kernel_mode(delta_semantics, strict_reference_semantics)
+    return _launch(state, None, int(offset) % state.vv.shape[0],
+                   PARTNER_RING, mode)
 
 
 delta_ring_round.launches = 0

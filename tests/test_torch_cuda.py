@@ -151,6 +151,55 @@ def test_packed_delta_kernels_match_plain(gpu_ring_state, layout, sem,
                       fn(st, off, kernel="torch", **kw)), off
 
 
+def _dot_state(seed, R, E, A):
+    """A δ state within the dot-word layout's caps: actors < 4,096 (A is
+    at most 2,048 here), counters of 20 bits."""
+    st = random_state(seed, R, E, A)
+    return st._replace(dot_counter=st.dot_counter & 0xFFFFF,
+                       del_dot_counter=st.del_dot_counter & 0xFFFFF)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+
+
+@pytest.mark.parametrize("sem,strict", MODES)
+@pytest.mark.parametrize("R,E,A", [
+    (192, 300, 8),      # staged rows, membership rows of 10 words
+    (320, 256, 256),    # the north star's row
+    (320, 33, 5),       # E and A not multiples of 4: word-wise copies
+    (128, 4100, 256),   # wide rows: lanes read from device memory
+    (192, 640, 2048)])  # the widest actor axis, staged
+def test_k9_cycle_walk_matches_plain(card, R, E, A, sem, strict):
+    """K9's cycle walk against its plain version at every kind of cycle
+    (whole cycles of 1-16 rows, segments cut from longer ones), on a
+    random fleet and on a converged one (every δ empty); the block-per-row
+    design it replaced agrees too.  One launch counted per call."""
+    from chip_smoke import walk_offsets
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.parallel import gossip
+
+    kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+    full = _dot_state(130 + R + E, R, E, A)
+    conv = full
+    for off in gossip.dissemination_offsets(R):
+        conv = cd.delta_ring_round(conv, off)
+    fn = cd.delta_ring_round_dotpacked
+    for st, offs in ((full, walk_offsets(R)), (conv, (1, R // 2, R // 4))):
+        st = _on_gpu(packed.pack_awset_delta_dots(st))
+        for off in offs:
+            before = fn.launches
+            got = fn(st, off, kernel="cuda", **kw)
+            assert fn.launches == before + 1
+            want = fn(st, off, kernel="torch", **kw)
+            assert _equal(got, want), off
+            assert _equal(cd._delta_ring_round_dotpacked_rowwise(
+                st, off, **kw), want), off
+
+
 def _slice(seed, E, A, base):
     """One replica slice with history, its own clock at ``base`` so a
     batch's counters cross 2^31 or wrap at 2^32."""

@@ -179,5 +179,5 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "26 skipped" in out.stdout or "26 passed" in out.stdout, \
+    assert "41 skipped" in out.stdout or "41 passed" in out.stdout, \
         out.stdout
