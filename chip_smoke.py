@@ -40,8 +40,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      checkpoints every 50 batches, ``restore_durable`` bitwise equal to
      the live node, every WAL record byte-identical to the plain K10's,
      the same op log on a CPU node to an equal state, K10 launched once
-     per batch; then K10 and ``ingest_batch`` timed on the legs of the
-     JAX package's ``bench.measure_ingest``;
+     per batch; then the K10 entry and ``ingest_batch`` timed on the
+     legs of the JAX package's ``bench.measure_ingest``, each batch at
+     most 5 device operations (torch.profiler);
  11. digest anti-entropy between nodes serving on 127.0.0.1: (a) the
      sync curve's fleet of tools/chaos_soak.py (5 nodes, E = 512, one
      ``SyncSupervisor`` each, lockstep rounds, 2 and 8 ops a round) in
@@ -53,11 +54,13 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      members a node): digest rounds after 1, 16 and 1,024 changed lanes
      and at quiescence timed beside the δ ladder's bytes, K11 and
      ``digest_diff_payload`` timed, final states equal to a CPU replay;
-and, after phase 2, phase 2b: the ingest kernel (K10) against its plain
-version over E x A x B, densities, padding patterns, states with
-history and own clocks whose prefix sums cross 2^31 and wrap at 2^32,
-and phase 2c: the digest kernel (K11), both entries, against its plain
-version over 14 E x 9 group sizes x 6 states;
+and, after phase 2, phase 2b: the ingest kernel (K10, the whole entry in
+one launch) against its plain version over E x A x B x K (one block up
+to E = 4,096, the cooperative grid above), densities, padding patterns,
+states with history and own clocks whose prefix sums cross 2^31 and wrap
+at 2^32, with the one-copy WAL record read; and phase 2c: the digest
+kernel (K11), both entries, against its plain version over 17 E x 2 lane
+offsets x 11 group sizes x 6 states;
 then one JSON line with every kernel (launches on the main path, error
 against the plain version, times and bounds), and a last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
@@ -100,13 +103,23 @@ SERVE_E, SERVE_A, SERVE_B = 1024, 16, 32
 # (B, keys per op)
 INGEST_E, INGEST_A = 1024, 8
 INGEST_LEGS = ((8, 1), (32, 1), (128, 1), (32, 16))
+# K10's cases: element counts (one block up to 4,096 lanes, the
+# cooperative grid above), actor counts (1, serve's 16, the kernel's cap),
+# batch sizes and Ks
+INGEST_CHECK_E = (1, 255, 1024, 4096, 4097, 1 << 20)
+INGEST_CHECK_A = (1, 16, 2048)
+INGEST_CHECK_B = (0, 1, 32, 128)
+INGEST_CHECK_K = (128, 0)
 # csrc/digest.cu: integer operations per lane of the fingerprint and fold
 DIGEST_OPS_PER_LANE = 48
-# K11's cases: element counts (ragged, aligned and the 2^20 universe) and
-# group sizes (the protocol's ladder 8-128 and sizes around it)
-DIGEST_CHECK_E = (1, 7, 63, 64, 65, 127, 128, 129, 512, 1000, 1024, 8192,
-                  65_537, 1 << 20)
-DIGEST_CHECK_GS = (1, 3, 8, 16, 32, 48, 64, 128, 256)
+# K11's cases: element counts (ragged, aligned, quads cut by E and the
+# 2^20 universe), group sizes (the protocol's ladder 8-128, the other
+# powers of two to 256 and sizes that take the strided path) and lane
+# offsets of the slice (1: pointers off the 4- and 16-byte alignment)
+DIGEST_CHECK_E = (1, 5, 7, 63, 64, 65, 127, 128, 129, 512, 1000, 1023,
+                  1024, 8192, 65_537, 1 << 20, (1 << 20) + 3)
+DIGEST_CHECK_GS = (1, 3, 8, 16, 32, 48, 64, 100, 128, 256, 257)
+DIGEST_CHECK_OFFSETS = (0, 1)
 # tools/chaos_soak.py's sync curve at full size: nodes, elements, op rates
 # per round, traffic, quiescent and settle rounds, seed
 SYNC_NODES, SYNC_E, SYNC_RATES = 5, 512, (2, 8)
@@ -355,8 +368,10 @@ def phase_environment():
     libs = _build.build_all(["merge", "delta", "ingest", "digest"])
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"({', '.join(p.name for p in libs.values())})")
-    for line in ptxas_report(_build.build_log("delta"), "delta_ring_walk"):
-        log(f"  ptxas: {line}")
+    for name, kernel in (("delta", "delta_ring_walk"), ("ingest", "ingest_"),
+                         ("digest", "group_digests")):
+        for line in ptxas_report(_build.build_log(name), kernel):
+            log(f"  ptxas: {line}")
     return smi
 
 
@@ -472,12 +487,14 @@ def ingest_slice(rng, E, A, dot_base, own_clock, wild_actors, device):
 
 def phase_ingest_kernel(errs: dict):
     """K10 against its plain version on the card, bitwise: the 12 lanes,
-    vv, processed and the compact form, over E x A x B, densities,
-    padding patterns, states with history, own clocks whose prefix sums
-    cross 2^31 or wrap at 2^32, K = min(128, E) and K = 0 (no compact
-    form).  B = 0 launches the kernel; A = 2049 raises."""
+    vv, processed and the compact form, over E x A x B (one block up to
+    E = 4,096, the cooperative grid above), densities, padding patterns,
+    states with history, own clocks whose prefix sums cross 2^31 or wrap
+    at 2^32, K = 128 and K = 0 (no compact form), and the compact form's
+    one-copy host read.  B = 0 launches the kernel; A = 2049 raises."""
     import torch
 
+    from go_crdt_playground_tpu_torch._u32 import host, to_host
     from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
 
     rng = np.random.default_rng(2026)
@@ -491,13 +508,12 @@ def phase_ingest_kernel(errs: dict):
         n_checks += 1
 
     t0 = time.perf_counter()
-    for i, E in enumerate((1, 72, 1000, 1024, 4100, 65536)):
-        for j, A in enumerate((5, 16, 2048)):
+    for i, E in enumerate(INGEST_CHECK_E):
+        for j, A in enumerate(INGEST_CHECK_A):
             dot_base = (0x7FFFFFFB, 0, 0xFFFFFFF0 - 10)[(i + j) % 3]
-            k = min(128, E)
-            for bi, B in enumerate((0, 1, 8, 32, 128)):
+            for bi, B in enumerate(INGEST_CHECK_B):
                 clock = (0x7FFFFFF0, 0xFFFFFFF0, 0)[(i + j + bi) % 3]
-                row = ingest_slice(rng, E, A, dot_base, clock, E == 1000,
+                row = ingest_slice(rng, E, A, dot_base, clock, E == 1024,
                                    "cuda")
                 for density in (0.0, 0.15, 0.9):
                     for pattern in ("all", "holes", "none"):
@@ -511,10 +527,10 @@ def phase_ingest_kernel(errs: dict):
                                 }[pattern].cuda()
                         tag = (f"K10 E={E} A={A} B={B} density={density} "
                                f"live={pattern} clock={clock:#x}")
-                        want = ci.ingest_rows_delta_fused(
-                            row, add, dl, live, k_changed=k, k_deleted=k,
-                            kernel="torch")
-                        for kk in (k, 0):
+                        for kk in INGEST_CHECK_K:
+                            want = ci.ingest_rows_delta_fused(
+                                row, add, dl, live, k_changed=kk,
+                                k_deleted=kk, kernel="torch")
                             before = ci.ingest_rows_delta_fused.launches
                             got = ci.ingest_rows_delta_fused(
                                 row, add, dl, live, k_changed=kk,
@@ -524,12 +540,28 @@ def phase_ingest_kernel(errs: dict):
                                 raise AssertionError(f"{tag}: no launch")
                             check(got[0], want[0], f"{tag} k={kk} state")
                             check(got[1], want[1], f"{tag} k={kk} payload")
-                            if kk:
-                                check(got[2], want[2], f"{tag} compact")
-                            elif got[2] is not None:
-                                raise AssertionError(f"{tag}: k=0 gave a "
-                                                     "compact form")
-                        n_overflow += bool(want[2].overflow)
+                            if not kk:
+                                if got[2] is not None:
+                                    raise AssertionError(
+                                        f"{tag}: k=0 gave a compact form")
+                                continue
+                            check(got[2], want[2], f"{tag} compact")
+                            pre, dense, rec = ci.record_to_host(
+                                row.vv, got[1], got[2])
+                            if bool(want[2].overflow):
+                                dense_ok = all(
+                                    np.array_equal(g, w) for g, w in
+                                    zip(dense, to_host(want[1])))
+                            else:
+                                dense_ok = dense is got[1]
+                            if not (dense_ok
+                                    and np.array_equal(pre, host(row.vv))
+                                    and all(np.array_equal(g, w) for g, w
+                                            in zip(rec, to_host(want[2])))):
+                                raise AssertionError(
+                                    f"{tag}: the one-copy record read "
+                                    "differs")
+                            n_overflow += bool(want[2].overflow)
                         steps = int((add & live[:, None]).sum()
                                     + (dl & live[:, None]).any(1).sum())
                         n_cross31 += clock < 1 << 31 <= clock + steps
@@ -548,27 +580,36 @@ def phase_ingest_kernel(errs: dict):
     else:
         raise AssertionError("K10 with A = 2049 did not raise")
     torch.cuda.synchronize()
-    log(f"ingest kernel: {n_checks} K10-vs-plain checks over 90 (E, A, B) "
-        f"shapes x 9 batch kinds bitwise equal, B = 0 launched, "
+    n_shapes = len(INGEST_CHECK_E) * len(INGEST_CHECK_A) * len(INGEST_CHECK_B)
+    log(f"ingest kernel: {n_checks} K10-vs-plain checks over {n_shapes} "
+        f"(E, A, B) shapes x 9 batch kinds x K in {INGEST_CHECK_K} bitwise "
+        f"equal, one-copy record reads equal, B = 0 launched, "
         f"{n_overflow} overflowing batches, {n_cross31} crossing 2^31, "
         f"{n_wrap32} wrapping 2^32; A = 2049 raises "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
-def digest_slices(rng, E: int, device):
+def digest_slices(rng, E: int, device, offset: int = 0):
     """K11's cases at one E: two random slices, their deletion dots
     straddling 2^31 and reaching 2^32 - 1, and the occupancy extremes
-    (empty, all present, all deleted, all present and deleted)."""
+    (empty, all present, all deleted, all present and deleted).  With
+    ``offset`` the lanes are views starting ``offset`` lanes into tensors
+    of E + offset lanes."""
     import torch
 
     out = {}
+    lanes = ("present", "dot_actor", "dot_counter", "deleted",
+             "del_dot_actor", "del_dot_counter")
     for name, base in (("random near 2^31", 0x7FFFFFF8),
                        ("random to 2^32 - 1", 0xFFFFFFF6)):
-        st = random_delta_state(rng, 1, E, 8, base, device)
-        out[name] = type(st)(*(x[0] for x in st))
+        st = random_delta_state(rng, 1, E + offset, 8, base, device)
+        row = type(st)(*(x[0] for x in st))
+        out[name] = row._replace(**{n: getattr(row, n)[offset:]
+                                    for n in lanes})
     row = out["random to 2^32 - 1"]
-    yes, no = torch.ones_like(row.present), torch.zeros_like(row.present)
-    zero = torch.zeros_like(row.del_dot_actor)
+    yes = torch.ones(E + offset, dtype=torch.bool, device=device)[offset:]
+    no = torch.zeros_like(yes)
+    zero = torch.zeros(E + offset, dtype=torch.int32, device=device)[offset:]
     out["empty"] = row._replace(present=no, deleted=no, del_dot_actor=zero,
                                 del_dot_counter=zero)
     out["all present"] = row._replace(present=yes)
@@ -580,8 +621,8 @@ def digest_slices(rng, E: int, device):
 def phase_digest_kernel(errs: dict):
     """K11 against its plain version on the card, bitwise: both entries
     (the lane fingerprints, and the group digests at every group size)
-    over every E of ``DIGEST_CHECK_E`` and the cases of
-    ``digest_slices``; each call must launch the kernel once."""
+    over every E of ``DIGEST_CHECK_E``, both lane offsets and the cases
+    of ``digest_slices``; each call must launch the kernel once."""
     import torch
 
     from go_crdt_playground_tpu_torch._u32 import widen
@@ -610,15 +651,18 @@ def phase_digest_kernel(errs: dict):
 
     t0 = time.perf_counter()
     for E in DIGEST_CHECK_E:
-        for case, row in digest_slices(rng, E, "cuda").items():
-            check(cg.lane_fingerprints, row, f"K11 fingerprints E={E} {case}")
-            for gs in DIGEST_CHECK_GS:
-                check(cg.state_group_digests, row,
-                      f"K11 group digests E={E} gs={gs} {case}", gs)
+        for off in DIGEST_CHECK_OFFSETS:
+            for case, row in digest_slices(rng, E, "cuda", off).items():
+                tag = f"E={E} offset={off} {case}"
+                check(cg.lane_fingerprints, row, f"K11 fingerprints {tag}")
+                for gs in DIGEST_CHECK_GS:
+                    check(cg.state_group_digests, row,
+                          f"K11 group digests {tag} gs={gs}", gs)
     torch.cuda.synchronize()
     log(f"digest kernel: {n_checks} K11-vs-plain checks over "
-        f"{len(DIGEST_CHECK_E)} E x 6 cases (fingerprints, and group "
-        f"digests at gs in {DIGEST_CHECK_GS}) bitwise equal, 0 mismatches "
+        f"{len(DIGEST_CHECK_E)} E x lane offsets {DIGEST_CHECK_OFFSETS} x 6 "
+        f"cases (fingerprints, and group digests at gs in "
+        f"{DIGEST_CHECK_GS}) bitwise equal, 0 mismatches "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1249,12 +1293,15 @@ def drive_node(node, ops, peer_body: bytes, store=None):
             node.save_durable(store)
 
 
-def ingest_bounds(E: int, A: int, B: int):
-    """K10's least time: bytes (vv and the actor, the 6 state lanes read,
-    the 12 output lanes written, the two row masks and the add counters
-    of B rows, the B deletion counters) over the memory rate, and
-    operations over the scalar rate; the larger."""
-    nbytes = 4 * A + 4 + (18 + 36) * E + 6 * B * E + 4 * B
+def ingest_bounds(E: int, A: int, B: int, K: int):
+    """K10's least time for the whole entry: bytes (vv, processed and the
+    actor, the 6 state lanes and the two row masks and live flags of B
+    rows read; the 12 output lanes, vv and processed, and the head: the
+    pre-batch vv, the compact form's clocks, actor and K slots a
+    section) over the memory rate, and operations over the scalar rate;
+    the larger."""
+    nbytes = (8 * A + 4 + 18 * E + 2 * B * E + B
+              + 36 * E + 8 * A + 12 * A + 4 + 26 * K + 1)
     ops = E * (B * INGEST_OPS_PER_ROW_LANE + INGEST_OPS_PER_LANE)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ALU_OPS_PER_S * 1e3
@@ -1262,14 +1309,22 @@ def ingest_bounds(E: int, A: int, B: int):
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
 
 
-def time_k10(E: int, A: int, B: int, keys: int, tmp: str, smi: str):
-    """One leg: K10 per launch (CUDA events; device time from the
-    profiler), the whole fused wrapper, its plain version, and
-    ``Node.ingest_batch`` wall per batch with the WAL's fsync and without,
-    with the WAL bytes per batch.  The batch is bench.measure_ingest's:
-    B ops of ``keys`` distinct keys, one delete in the middle row."""
-    import functools
+# torch.profiler's names of K10's kernels
+K10_KERNELS = ("ingest_block", "ingest_grid")
+# device operations an ``ingest_batch`` may take on the K10 path: the
+# rows' copy in, the launch, the record's copy out (and slack for two)
+INGEST_BATCH_MAX_DEVICE_OPS = 5
 
+
+def time_k10(E: int, A: int, B: int, keys: int, tmp: str, smi: str):
+    """One leg: the K10 entry per call (``ingest_rows_delta_fused``, the
+    whole entry in one launch: CUDA events, device time from the
+    profiler), its plain version, and ``Node.ingest_batch`` wall per
+    batch with the WAL's fsync and without, with the WAL bytes per batch
+    and the device operations per batch (one K10 launch and at most
+    ``INGEST_BATCH_MAX_DEVICE_OPS``, or the leg fails).  The batch is
+    bench.measure_ingest's: B ops of ``keys`` distinct keys, one delete
+    in the middle row."""
     import torch
 
     from go_crdt_playground_tpu_torch.net.peer import Node
@@ -1286,21 +1341,19 @@ def time_k10(E: int, A: int, B: int, keys: int, tmp: str, smi: str):
     k = min(128, E)
     fresh = Node(0, E, A, device="cuda").state_slice()
     add_t, dl_t, live_t = (torch.from_numpy(x).cuda() for x in (add, dl, live))
-    arow, drow, add_dc, del_ctr, final = ci.row_counters(fresh, add_t, dl_t,
-                                                         live_t)
-    vv, proc = ci.clock_outputs(fresh, final, B)
-    launch = functools.partial(ci._launch, fresh, arow, drow, add_dc,
-                               del_ctr, vv, proc)
-    ms = cuda_time_ms(launch, 200)
-    _, report = trace_run(lambda: [launch() for _ in range(50)],
-                          ("ingest_fold",))
+
+    def entry():
+        return ci.ingest_rows_delta_fused(fresh, add_t, dl_t, live_t,
+                                          k_changed=k, k_deleted=k)
+
+    ms = cuda_time_ms(entry, 200)
+    _, report = trace_run(lambda: [entry() for _ in range(50)], K10_KERNELS)
     device_ms = None if report is None else report["kernel_ms"] / 50
-    fused_ms = cuda_time_ms(lambda: ci.ingest_rows_delta_fused(
-        fresh, add_t, dl_t, live_t, k_changed=k, k_deleted=k), 100)
+    entry_ops = None if report is None else report["device_ops"] / 50
     plain_ms = cuda_time_ms(lambda: ci.ingest_rows_delta_fused(
         fresh, add_t, dl_t, live_t, k_changed=k, k_deleted=k,
         kernel="torch"), 10)
-    bound_ms, bound_by, nbytes = ingest_bounds(E, A, B)
+    bound_ms, bound_by, nbytes = ingest_bounds(E, A, B, k)
     walls, trace = {}, None
     for fsync in (True, False):
         tally = Tally()
@@ -1318,12 +1371,22 @@ def time_k10(E: int, A: int, B: int, keys: int, tmp: str, smi: str):
         compact = tally.counts.get("wal.compact_records", 0) > 0
         if fsync:
             # where a batch's time goes: device busy time and operations
+            launched = ci.ingest_rows_delta_fused.launches
             _, trace = trace_run(lambda: [node.ingest_batch(add, dl, live)
-                                          for _ in range(20)],
-                                 ("ingest_fold",))
+                                          for _ in range(20)], K10_KERNELS)
+            launched = ci.ingest_rows_delta_fused.launches - launched
+            if launched != 20:
+                raise AssertionError(f"serve leg B={B}: {launched} K10 "
+                                     "launches in 20 ingest_batch calls")
+            if trace is not None and (trace["device_ops"] / 20
+                                      > INGEST_BATCH_MAX_DEVICE_OPS):
+                raise AssertionError(
+                    f"serve leg B={B}: {trace['device_ops'] / 20} device "
+                    f"operations a batch (at most "
+                    f"{INGEST_BATCH_MAX_DEVICE_OPS})")
         node.wal.close()
     leg = {"E": E, "A": A, "B": B, "keys_per_op": keys, "k10_ms": ms,
-           "k10_device_ms": device_ms, "fused_wrapper_ms": fused_ms,
+           "k10_device_ms": device_ms, "k10_device_ops": entry_ops,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_bytes": nbytes, "ingest_batch_ms": walls[True],
            "ingest_batch_ms_no_fsync": walls[False],
@@ -1333,13 +1396,16 @@ def time_k10(E: int, A: int, B: int, keys: int, tmp: str, smi: str):
                "device_ops_per_batch": trace["device_ops"] / 20,
                "idle_share": trace["idle_share"]}}
     device = ("not measured" if device_ms is None
-              else f"{device_ms:.6f} ms")
-    log(f"serve leg B={B} keys/op={keys} (E={E}, A={A}): K10 {ms:.4f} "
-        f"ms/launch (device time {device}), "
-        f"fused wrapper {fused_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.6f} ms ({bound_by}, {nbytes} B); ingest_batch "
-        f"{walls[True]:.4f} ms/batch with fsync, {walls[False]:.4f} "
-        f"without; WAL {wal_bytes:.1f} B/batch "
+              else f"{device_ms:.6f} ms in {entry_ops:g} device ops")
+    ops = ("not measured" if trace is None else
+           f"{trace['device_ops'] / 20:g} device ops and "
+           f"{trace['device_busy_ms'] / 20:.6f} ms device busy a batch, "
+           f"idle share {trace['idle_share']:.4f}")
+    log(f"serve leg B={B} keys/op={keys} (E={E}, A={A}): K10 entry "
+        f"{ms:.4f} ms/call (device time {device}), plain {plain_ms:.3f} "
+        f"ms, bound {bound_ms:.6f} ms ({bound_by}, {nbytes} B); "
+        f"ingest_batch {walls[True]:.4f} ms/batch with fsync, "
+        f"{walls[False]:.4f} without ({ops}); WAL {wal_bytes:.1f} B/batch "
         f"({'compact' if compact else 'dense'}) [{smi}]")
     return leg
 
@@ -1431,7 +1497,9 @@ def phase_serve(counters: Counters, errs: dict, timings: dict, smi: str):
         legs = [time_k10(INGEST_E, INGEST_A, b, keys, tmp, smi)
                 for b, keys in INGEST_LEGS]
         main = time_k10(E, A, B, 1, tmp, smi)
-        timings["K10"] = {"ms": main["k10_ms"], "plain_ms": main["plain_ms"],
+        timings["K10"] = {"ms": main["k10_ms"],
+                          "device_ms": main["k10_device_ms"],
+                          "plain_ms": main["plain_ms"],
                           "bound_ms": main["bound_ms"],
                           "bound_by": main["bound_by"]}
         log("serve legs: " + json.dumps(legs + [main]))
@@ -1582,15 +1650,14 @@ def time_k11(row, gs: int, fingerprints: bool = False) -> dict:
     from go_crdt_playground_tpu_torch.ops import cuda_digest as cg
 
     if fingerprints:
-        fn, name = cg.lane_fingerprints, "lane_fingerprints"
+        fn = cg.lane_fingerprints
     else:
-        fn, name = functools.partial(cg.state_group_digests,
-                                     group_size=gs), "group_digests"
+        fn = functools.partial(cg.state_group_digests, group_size=gs)
     launches = (cg.lane_fingerprints.launches,
                 cg.state_group_digests.launches)
     ms = cuda_time_ms(lambda: fn(row, kernel="cuda"), 200)
     _, report = trace_run(lambda: [fn(row, kernel="cuda") for _ in range(50)],
-                          (name,))
+                          ("group_digests",))
     plain_ms = cuda_time_ms(lambda: fn(row, kernel="torch"), 10)
     # timing launches are not the main path's
     cg.lane_fingerprints.launches, cg.state_group_digests.launches = launches
@@ -1860,7 +1927,8 @@ def phase_universe(counters: Counters, timings: dict, smi: str):
                                  "plain-version replay")
     k11 = rows["k11"]
     timings["K11"] = {key: k11[key] for key in
-                      ("ms", "plain_ms", "bound_ms", "bound_by")}
+                      ("ms", "device_ms", "plain_ms", "bound_ms",
+                       "bound_by")}
     log(f"universe E={UNIVERSE_E} A={UNIVERSE_A}: first contact "
         f"{rows['first_contact']['s']:.2f} s, "
         f"{rows['first_contact']['bytes']} B (untimed); summary "

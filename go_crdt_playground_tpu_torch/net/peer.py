@@ -33,10 +33,10 @@ failure the server reported.
 
 The write path of one client micro-batch (``ingest_batch``): the rows
 cross to the device in one copy, K10 (ops/cuda_ingest.py) folds them into
-the state and extracts the batch's δ in one launch, the δ is compacted
-to K = min(128, E) index lanes on the device, ONE device->host copy
-brings the compact form back, and the WAL record (net/framing.py's
-record policy) is appended with an fsync.  On the CPU the plain regime
+the state, extracts the batch's δ and compacts it to K = min(128, E)
+index lanes in one launch, ONE device->host copy brings the compact form
+back with the record's guard (the pre-batch vv), and the WAL record
+(net/framing.py's record policy) is appended with an fsync.  On the CPU the plain regime
 runs (ops/ingest.py, host-side compaction), as the JAX package's CPU
 backend does; the WAL records of the two packages are byte-identical for
 the same op log and regime, and either restores the other's durable
@@ -68,6 +68,7 @@ from go_crdt_playground_tpu_torch.net.framing import (MODE_DELTA, MODE_FULL,
                                                       MODE_SLICE, MSG_HELLO,
                                                       MSG_PAYLOAD,
                                                       ProtocolError)
+from go_crdt_playground_tpu_torch.ops import cuda_ingest
 from go_crdt_playground_tpu_torch.ops import delta as delta_ops
 from go_crdt_playground_tpu_torch.ops import digest as digest_ops
 from go_crdt_playground_tpu_torch.ops import ingest as ingest_ops
@@ -279,32 +280,35 @@ class Node:
             raise ValueError(f"live mask shape {live.shape} does not "
                              f"match batch axis {add_rows.shape[0]}")
         with self._lock:
-            pre_vv = self._host_vv() if self.wal is not None else None
-            self._apply_batch_locked(add_rows, del_rows, live, pre_vv)
+            self._apply_batch_locked(add_rows, del_rows, live)
 
     # requires-lock: _lock
     def _apply_batch_locked(self, add_rows: np.ndarray, del_rows: np.ndarray,
-                            live: np.ndarray,
-                            pre_vv: Optional[np.ndarray]) -> None:
+                            live: np.ndarray) -> None:
         """The apply+log half of ``ingest_batch``: the rows reach the
         device in one copy, the node's regime applies them and returns
         the δ (compacted on the device when there is a record to write),
-        and the record is appended.  ``pre_vv`` is None iff no WAL is
-        attached."""
+        and the record is appended.  On the K10 path the record's guard
+        (the pre-batch vv) comes back with the compact form in one
+        device->host copy, and the dense payload in one more only when
+        the compact form overflowed (cuda_ingest.record_to_host)."""
         num_b, num_e = add_rows.shape
         rows = torch.from_numpy(np.concatenate(
             [add_rows.reshape(-1), del_rows.reshape(-1), live])).to(
                 self.device)
         fused_fn, k = self._fused_regime
-        if pre_vv is None:
+        if self.wal is None:
             k = 0  # no record to write: skip the compaction
+        pre = self._row()
         merged, payload, compact = fused_fn(
-            self._row(), rows[:num_b * num_e].view(num_b, num_e),
+            pre, rows[:num_b * num_e].view(num_b, num_e),
             rows[num_b * num_e:2 * num_b * num_e].view(num_b, num_e),
             rows[2 * num_b * num_e:], k_changed=k, k_deleted=k)
         self._set_row(merged)
         self._count("ingest.dispatches")
-        if pre_vv is not None:
+        if self.wal is not None:
+            pre_vv, payload, compact = cuda_ingest.record_to_host(
+                pre.vv, payload, compact)
             self._append_delta_record(pre_vv, payload, compact)
 
     def members(self) -> np.ndarray:

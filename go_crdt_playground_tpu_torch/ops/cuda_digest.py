@@ -19,7 +19,11 @@ asks for the plain version.  Outputs are new tensors; no state tensor is
 written.  The launch goes on the calling thread's current stream, so
 server threads, a supervisor thread and client calls may digest the same
 node concurrently.  Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches`` (under a lock, so the counts stay exact under
+concurrent launches).  The host side is kept lean, since a launch at
+the serving shapes takes a few microseconds on the card: one check pass
+over the four lanes, one allocation, and no device context when the
+lanes are on the current device.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import torch
 from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
 from go_crdt_playground_tpu_torch.ops import _build
 from go_crdt_playground_tpu_torch.ops import digest as digest_ops
-from go_crdt_playground_tpu_torch.ops.cuda_merge import (ptr, stream_of,
+from go_crdt_playground_tpu_torch.ops.cuda_merge import (device_guard,
+                                                         stream_of,
                                                          use_kernel)
 
 _P = ctypes.c_void_p
@@ -41,56 +46,57 @@ _I64 = ctypes.c_longlong
 # server threads and clients launch concurrently: the counts are
 # read-modify-writes
 _count_lock = threading.Lock()
-# the lanes the fingerprint reads, and their storage
-_LANES = (("present", torch.bool), ("deleted", torch.bool),
-          ("del_dot_actor", torch.int32), ("del_dot_counter", torch.int32))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("digest")
-    lib.crdt_lane_fingerprints.argtypes = [_P] * 5 + [_I64, _P]
-    lib.crdt_lane_fingerprints.restype = ctypes.c_int
     lib.crdt_group_digests.argtypes = [_P] * 5 + [_I64, _I64, _P]
     lib.crdt_group_digests.restype = ctypes.c_int
     return lib
 
 
-def _lanes(state: AWSetDeltaState):
-    """The four read lanes, checked: one device, [E], their storage
-    dtype, contiguous."""
-    lanes = [getattr(state, name) for name, _ in _LANES]
-    (num_e,) = lanes[0].shape
-    for (name, dtype), t in zip(_LANES, lanes):
-        if t.dtype != dtype or tuple(t.shape) != (num_e,):
-            raise ValueError(f"{name}: expected {dtype}({num_e},), got "
-                             f"{t.dtype}{tuple(t.shape)}")
-        if t.device != lanes[0].device:
-            raise ValueError(f"{name} lies on {t.device}, present on "
-                             f"{lanes[0].device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return lanes, num_e
-
-
-def _launch(fn_name: str, state: AWSetDeltaState, out_len, *extra):
-    lanes, num_e = _lanes(state)
-    out = torch.empty(out_len(num_e), dtype=torch.int32,
-                      device=lanes[0].device)
-    lib = _lib()
-    with torch.cuda.device(out.device):
-        rc = getattr(lib, fn_name)(*map(ptr, lanes), ptr(out), num_e,
-                                   *extra, stream_of(out))
-    _build.check(lib, rc, fn_name)
+def _launch(state: AWSetDeltaState, group_size: int,
+            lib=None) -> torch.Tensor:
+    """One pass over the four read lanes (one CUDA device, [E], their
+    storage dtype, contiguous), one allocation, one launch; the device
+    context is entered only when the lanes are not on the current
+    device.  ``lib``: another build of csrc/digest.cu with the same
+    interface, for same-card comparisons."""
+    p, d = state.present, state.deleted
+    xa, xc = state.del_dot_actor, state.del_dot_counter
+    dev = p.device
+    num_e = p.shape[0] if p.dim() == 1 else -1
+    for name, t, dtype in (("present", p, torch.bool),
+                           ("deleted", d, torch.bool),
+                           ("del_dot_actor", xa, torch.int32),
+                           ("del_dot_counter", xc, torch.int32)):
+        if (t.dtype != dtype or t.dim() != 1 or t.shape[0] != num_e
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: expected a contiguous {dtype}({num_e},) on "
+                f"{dev}, got {t.dtype}{tuple(t.shape)} on {t.device}"
+                f"{'' if t.is_contiguous() else ', not contiguous'}")
+    out = torch.empty(digest_ops.num_groups(num_e, group_size),
+                      dtype=torch.int32, device=dev)
+    lib = lib or _lib()
+    with device_guard(dev):
+        rc = lib.crdt_group_digests(p.data_ptr(), d.data_ptr(),
+                                    xa.data_ptr(), xc.data_ptr(),
+                                    out.data_ptr(), num_e, group_size,
+                                    stream_of(out))
+    if rc:
+        _build.check(lib, rc, "crdt_group_digests")
     return out
 
 
 def lane_fingerprints(state: AWSetDeltaState,
                       kernel: str = "auto") -> torch.Tensor:
-    """K11: int32-bits [E] lane fingerprints of one replica slice."""
+    """K11: int32-bits [E] lane fingerprints of one replica slice (the
+    kernel at group size 1)."""
     if not use_kernel(kernel, state.present):
         return digest_ops.lane_fingerprints(state)
-    out = _launch("crdt_lane_fingerprints", state, lambda e: e)
+    out = _launch(state, 1)
     with _count_lock:
         lane_fingerprints.launches += 1
     return out
@@ -106,8 +112,7 @@ def state_group_digests(state: AWSetDeltaState,
         raise ValueError(f"group size must be >= 1, got {group_size}")
     if not use_kernel(kernel, state.present):
         return digest_ops.state_group_digests(state, group_size)
-    out = _launch("crdt_group_digests", state,
-                  lambda e: digest_ops.num_groups(e, group_size), group_size)
+    out = _launch(state, group_size)
     with _count_lock:
         state_group_digests.launches += 1
     return out

@@ -31,6 +31,7 @@ its launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -159,7 +160,18 @@ def ring_index(num_r: int, offset, device) -> torch.Tensor:
 
 
 def stream_of(tensor: torch.Tensor) -> int:
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    """The calling thread's current stream on the tensor's device, as the
+    raw handle (torch's own C accessor: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(tensor.device.index)
+
+
+def device_guard(device: torch.device):
+    """``torch.cuda.device(device)``, or nothing to enter when ``device``
+    is already the current one (the common case: entering and leaving
+    the context costs microseconds on a launch that takes a few)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def out_like(state):

@@ -13,10 +13,12 @@ Schedules:
   * random pairing         -- uniform gossip for fault-injection studies.
 
 Fault injection: a dropped exchange is a masked lane; the replica keeps
-its old state for the round.  Drop masks and random pairings draw from
-seeded ``torch.Generator``s, so their bits differ from ``jax.random``'s;
-callers that compare with the JAX package pass the same masks and
-permutations to both.
+its old state for the round.  Drop masks and random pairings are drawn
+on the host from threefry keys (utils/prng.py), bit for bit the draws of
+``jax.random``: round ``rnd`` of a run seeded with S drops
+``bernoulli(fold_in(key(S), 2 rnd + 1), rate, (R,))`` and pairs by
+``permutation(fold_in(key(S), 2 rnd), R)``, as the JAX package's loop
+does, so a seed gives the JAX package's rounds and states.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from go_crdt_playground_tpu_torch.models.awset import AWSetState
 from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
 from go_crdt_playground_tpu_torch.ops import cuda_delta, cuda_merge
 from go_crdt_playground_tpu_torch.parallel import collectives
+from go_crdt_playground_tpu_torch.utils import prng
 
 # ---------------------------------------------------------------------------
 # Pairing schedules (permutations of the replica axis)
@@ -57,11 +60,11 @@ def butterfly_perm(num_replicas: int, stage: int,
                          device=resolve_device(device)) ^ (1 << stage))
 
 
-def random_perm(generator: torch.Generator, num_replicas: int,
+def random_perm(key: np.ndarray, num_replicas: int,
                 device="cuda") -> torch.Tensor:
-    """A uniform pairing drawn from ``generator`` (a CPU generator, so a
-    seed gives the same pairing on every device)."""
-    return torch.randperm(num_replicas, generator=generator).to(
+    """A uniform pairing drawn on the host from a threefry ``key``
+    (utils/prng.py), equal to ``jax.random.permutation(key, R)``."""
+    return torch.from_numpy(prng.permutation(key, num_replicas)).to(
         resolve_device(device))
 
 
@@ -165,15 +168,6 @@ def all_pairs_converge(state, delta: bool = False,
     return state
 
 
-def _round_generator(seed: int, stream: int, rnd: int) -> torch.Generator:
-    """The generator of one round's randomness (stream 0: pairing, 1:
-    drops).  Derived from the round index, so every round's draw is
-    reproducible on its own."""
-    g = torch.Generator()
-    g.manual_seed((seed * 0x9E3779B1 + 2 * rnd + stream) & (2**63 - 1))
-    return g
-
-
 def rounds_to_convergence(
     state,
     seed: Optional[int] = None,
@@ -189,8 +183,9 @@ def rounds_to_convergence(
 
     With drop_rate > 0 each replica's exchange is lost independently per
     round, and the random schedule draws its pairings; both need
-    ``seed``.  The draws come from CPU generators, so a seed gives the
-    same rounds on every device.
+    ``seed``.  The draws are ``jax.random``'s for ``key(seed)``, made
+    on the host, so a seed gives the JAX package's rounds and states on
+    every device.
 
     check_every: rounds between convergence digests.  A digest reads
     the whole fleet and syncs the host, so it is read once per chunk of
@@ -215,16 +210,17 @@ def rounds_to_convergence(
     if drop_rate > 0.0 and seed is None:
         raise ValueError("drop_rate requires a seed")
     kw = {"delta_semantics": delta_semantics} if delta else {}
+    key = None if seed is None else prng.key(seed)
     round_fn = delta_gossip_round if delta else gossip_round
     ring_fn = delta_ring_gossip_round if delta else ring_gossip_round
 
     def one_round(s, rnd: int):
         drop = None
         if drop_rate > 0.0:
-            drop = (torch.rand(R, generator=_round_generator(seed, 1, rnd))
-                    < drop_rate)
+            drop = prng.bernoulli(prng.fold_in(key, 2 * rnd + 1),
+                                  drop_rate, R)
         if schedule == "random":
-            perm = random_perm(_round_generator(seed, 0, rnd), R, dev)
+            perm = random_perm(prng.fold_in(key, 2 * rnd), R, dev)
             return round_fn(s, perm, drop, **kw)
         if schedule == "butterfly":
             stage = rnd % (R.bit_length() - 1)

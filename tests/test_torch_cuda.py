@@ -351,3 +351,116 @@ def test_node_pair_on_the_card_matches_a_cpu_pair(devices):
     for got, want in zip(states, want_states):
         assert _equal(got, want)
     assert cpu_launches == 0 and launches >= 10
+
+
+# -- K10 and K11 redesigned: every path against the plain versions ----------
+
+K10_SHAPES = [1, 255, 1024, 4096, 4097, 1 << 20]
+
+
+def _k10_check(row, add, dl, live, k):
+    """The kernel's whole entry against the plain entry, bitwise; with a
+    compact form, the one-copy record read against the plain one."""
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch._u32 import host, to_host
+
+    before = ci.ingest_rows_delta_fused.launches
+    got = ci.ingest_rows_delta_fused(row, add, dl, live, k_changed=k,
+                                     k_deleted=k, kernel="cuda")
+    assert ci.ingest_rows_delta_fused.launches == before + 1
+    want = ci.ingest_rows_delta_fused(row, add, dl, live, k_changed=k,
+                                      k_deleted=k, kernel="torch")
+    assert (got[2] is None) == (want[2] is None) == (k == 0)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert all(x.dtype == y.dtype and x.shape == y.shape
+                       for x, y in zip(g, w))
+            assert _equal(g, w)
+    if k:
+        pre, payload, rec = ci.record_to_host(row.vv, got[1], got[2])
+        assert np.array_equal(pre, host(row.vv))
+        for g, w in zip(rec, to_host(want[2])):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+        if bool(want[2].overflow):
+            for g, w in zip(payload, to_host(want[1])):
+                assert g.dtype == w.dtype and np.array_equal(g, w)
+        else:
+            assert payload is got[1]
+    return want
+
+
+@pytest.mark.parametrize("A", [1, 16, 2048])
+@pytest.mark.parametrize("E", K10_SHAPES)
+def test_k10_whole_entry_matches_plain(E, A):
+    """One block (E <= 4,096) and the cooperative grid (E > 4,096), at B
+    in {0, 1, 32, 128} and K in {0, 128}, sparse and dense batches, own
+    clocks whose counters cross 2^31 and wrap 2^32."""
+    from go_crdt_playground_tpu_torch.ops.cuda_merge import MAX_FUSED_ACTORS
+
+    assert A in (1, 16, MAX_FUSED_ACTORS)
+    for i, B in enumerate((0, 1, 32, 128)):
+        base = (0x7FFFFFF0, 0xFFFFFFF0, 0)[(i + A) % 3]
+        row = _on_gpu(_slice(200 + i, E, A, base))
+        for density in (min(0.15, 8 / E), 0.15):
+            add, dl, live = (x.cuda() for x in _batch(
+                300 + i, B, E, density, "holes"))
+            for k in (0, 128):
+                _k10_check(row, add, dl, live, k)
+
+
+@pytest.mark.parametrize("E", [4096, 1 << 20])
+def test_k10_delta_overflowing_k(E):
+    """A δ of more lanes than K: the first K of each section, overflow
+    set, src_vv and src_processed zeroed, as the plain compaction."""
+    row = _on_gpu(_slice(400, E, 16, 0xFFFFFFF0))
+    add, dl, live = (x.cuda() for x in _batch(401, 4, E, 0.5, "all"))
+    want = _k10_check(row, add, dl, live, 128)
+    assert bool(want[2].overflow)
+
+
+def test_k10_misaligned_lanes_and_rows():
+    """A slice and a batch that start one byte or one lane into their
+    tensors take the word loads."""
+    E, A, B = 1023, 16, 8
+    st = _on_gpu(_slice(410, E + 1, A, 0x7FFFFFF8))
+    row = st._replace(**{n: getattr(st, n)[1:] for n in (
+        "present", "dot_actor", "dot_counter", "deleted", "del_dot_actor",
+        "del_dot_counter")})
+    add, dl, live = _batch(411, B, E, 0.2, "holes")
+    flat = torch.zeros(2 * B * E + 1, dtype=torch.bool)
+    flat[1:1 + B * E] = add.reshape(-1)
+    flat[1 + B * E:] = dl.reshape(-1)
+    flat = flat.cuda()
+    _k10_check(row, flat[1:1 + B * E].view(B, E), flat[1 + B * E:].view(B, E),
+               live.cuda(), 128)
+    for E in (4101, 8192 + 3):
+        st = _on_gpu(_slice(412, E, A, 5))
+        add, dl, live = (x.cuda() for x in _batch(413, 5, E, 0.01, "all"))
+        _k10_check(st, add, dl, live, 128)
+
+
+@pytest.mark.parametrize("E", [1, 5, 1023, 8192, 1 << 20, (1 << 20) + 3])
+def test_k11_vector_paths_match_plain(E):
+    """Both K11 entries at every path's group sizes (powers of two to 256,
+    others strided), on a slice whose lanes start at lane 0 and one lane
+    in (unaligned pointers, word loads), occupancy extremes included."""
+    from go_crdt_playground_tpu_torch.ops import cuda_digest as cg
+
+    st = _on_gpu(random_state(500 + E % 89, 1, E + 1, 8))
+    lanes = ("present", "dot_actor", "dot_counter", "deleted",
+             "del_dot_actor", "del_dot_counter")
+    full = type(st)(*(x[0] for x in st))
+    yes = torch.ones(E, dtype=torch.bool, device="cuda")
+    for off in (0, 1):
+        row = full._replace(**{n: getattr(full, n)[off:off + E]
+                               for n in lanes})
+        for r in (row, row._replace(present=yes, deleted=yes)):
+            assert torch.equal(cg.lane_fingerprints(r, kernel="cuda"),
+                               cg.lane_fingerprints(r, kernel="torch"))
+            for gs in (1, 3, 8, 64, 100, 128, 256, 257):
+                before = cg.state_group_digests.launches
+                got = cg.state_group_digests(r, gs, kernel="cuda")
+                assert cg.state_group_digests.launches == before + 1
+                assert torch.equal(
+                    got, cg.state_group_digests(r, gs, kernel="torch")), \
+                    (E, off, gs)

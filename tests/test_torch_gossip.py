@@ -2,6 +2,7 @@
 digests, schedules, whole convergence runs and their round counts, drop
 masks, and R not a multiple of 64.  Bitwise."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -11,6 +12,7 @@ from go_crdt_playground_tpu.parallel import collectives as jax_coll
 from go_crdt_playground_tpu.parallel import gossip as jax_gossip
 from go_crdt_playground_tpu_torch._u32 import from_numpy_u32, to_numpy_u32
 from go_crdt_playground_tpu_torch.parallel import collectives, gossip
+from go_crdt_playground_tpu_torch.utils import prng
 from tests.test_torch_models import assert_same, scenario, to_torch
 
 
@@ -65,11 +67,12 @@ def test_schedules_match():
         gossip.butterfly_perm(12, 1, "cpu")
     with pytest.raises(ValueError):
         gossip.butterfly_perm(16, 4, "cpu")
-    g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
-    p1 = gossip.random_perm(g1, 20, device="cpu")
-    p2 = gossip.random_perm(g2, 20, device="cpu")
+    p1 = gossip.random_perm(prng.key(5), 20, device="cpu")
+    p2 = gossip.random_perm(prng.key(5), 20, device="cpu")
     assert torch.equal(p1, p2)
     assert sorted(p1.tolist()) == list(range(20))
+    want = jax_gossip.random_perm(jax.random.key(5), 20)
+    assert np.array_equal(p1.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("delta", [False, True])
@@ -124,6 +127,26 @@ def test_rounds_to_convergence_chunking_with_drops_reproduces():
     assert len({n for n, _ in runs}) == 1
     for _, s in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0][1], s))
+
+
+@pytest.mark.parametrize("check_every", [1, 8])
+@pytest.mark.parametrize("schedule,drop_rate", [
+    ("dissemination", 0.3), ("random", 0.0), ("random", 0.4)])
+@pytest.mark.parametrize("delta", [False, True])
+def test_seeded_rounds_match_jax(delta, schedule, drop_rate, check_every):
+    """Drop masks and random pairings are jax.random's draws: a seed
+    gives the JAX loop's round count and final state."""
+    st = scenario(73, 16, 24, 16)
+    if not delta:
+        st = st.base()
+    n_j, s_j = jax_gossip.rounds_to_convergence(
+        st, key=jax.random.key(11), drop_rate=drop_rate, delta=delta,
+        schedule=schedule, check_every=check_every)
+    n_t, s_t = gossip.rounds_to_convergence(
+        to_torch(st), seed=11, drop_rate=drop_rate, delta=delta,
+        schedule=schedule, check_every=check_every)
+    assert n_t == n_j > 1
+    assert_same(s_j, s_t, f"{schedule} drop={drop_rate} k={check_every}")
 
 
 def test_out_of_range_perm_raises():
