@@ -30,9 +30,13 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
   7. packed δ north star: phase 5 for the δ fleet (K8, K9); then K9
      and the block-per-row design it replaced timed in turns at every
      offset of the schedule;
-  8. one-row merge entries (K3): the gossip verb's fleet converged by
+  8. one-row merge entries (K3, on no path of the port: this phase is
+     their only caller): the gossip verb's fleet converged by
      ``gossip_round`` over ring permutations, then ``merge_pairwise``
-     with a second fleet, against the plain versions;
+     with a second fleet, against the plain versions; both kernels
+     (a block a row while the rows fit the card, thread groups past
+     that) at the edge shapes; an out-of-range device perm failing the launch in a child
+     process; the calls timed (ms, kernel µs, device operations);
   9. the gossip CLI verb on the card;
  10. the serve write path on one node (``serve --ingest`` defaults:
      E = 1,024, A = 16, batches of 32): 200 client micro-batches, adds,
@@ -43,6 +47,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      per batch; then the K10 entry and ``ingest_batch`` timed on the
      legs of the JAX package's ``bench.measure_ingest``, each batch at
      most 5 device operations (torch.profiler);
+ 10b. the serve tier on the card: a torch ``ServeFrontend`` at the
+     ``serve --ingest`` defaults with a durable dir, 4 client sessions
+     (adds and deletes, the serve soak's key mix), members and vv equal
+     to the acked ops' set algebra, every WAL record equal to the plain
+     K10's, one K10 launch and at most 5 device operations a batch, the
+     durable dir restored bitwise on the card and on the CPU; the CLI
+     verb spawned once (banner, a round trip, SIGTERM, ``drained:``);
+     then tools/torch_serve_soak.py --quick against CUDA workers;
  11. digest anti-entropy between nodes serving on 127.0.0.1: (a) the
      sync curve's fleet of tools/chaos_soak.py (5 nodes, E = 512, one
      ``SyncSupervisor`` each, lockstep rounds, 2 and 8 ops a round) in
@@ -70,6 +82,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -1153,11 +1166,45 @@ def compare_k9_designs(state, offsets, bound_ms: float, smi: str,
     return {"row_per_block_ms": out["rows_ms_all"]}
 
 
+K3_EDGE_E = (1, 31, 32, 128, 200, 1000)
+K3_EDGE_R = (1, 63, 64, 1000, 4096)
+K3_EDGE_A = (1, 16, 2048)
+# torch.profiler's name of K3's kernel
+K3_KERNELS = ("merge_rows",)
+# a K3 call in a child process with one perm entry out of range: the
+# launch must fail and the next synchronizing call raise
+K3_BAD_PERM = """
+import numpy as np, torch
+from go_crdt_playground_tpu_torch.models import awset
+from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+st = awset.init({R}, {E}, 16, actors=np.arange({R}) % 16, device="cuda")
+perm = torch.arange({R}, device="cuda")
+perm[40] = {R}
+cm.gossip_round(st, perm)
+torch.cuda.synchronize()
+print("no error")
+"""
+
+
+def k3_call_report(fn, reps: int = 200) -> dict:
+    """ms a call (CUDA events), kernel µs and device operations a call
+    (torch.profiler over 50 calls)."""
+    ms = cuda_time_ms(fn, reps)
+    _, rep = trace_run(lambda: [fn() for _ in range(50)], K3_KERNELS)
+    return {"ms": ms,
+            "device_ms": None if rep is None else rep["kernel_ms"] / 50,
+            "device_ops": None if rep is None else rep["device_ops"] / 50}
+
+
 def phase_k3(counters: Counters, errs: dict, timings: dict, smi: str):
-    """The one-row merge entries (K3) on the gossip verb's fleet: the
-    fleet converged by ``gossip_round`` over the ring permutations of
-    the dissemination schedule, then ``merge_pairwise`` with a second
-    fleet; both against the plain versions, and timed."""
+    """The one-row merge entries (K3).  No path of the port calls them:
+    this phase drives them as a user would, on the gossip verb's fleet
+    (``gossip_round`` over the ring permutations of the dissemination
+    schedule, then ``merge_pairwise`` with a second fleet), both against
+    the plain versions; then both kernels at the edge shapes (E in
+    K3_EDGE_E x R in K3_EDGE_R, A up to 2,048; int64 and int32 device
+    perms, a host perm, pairwise); an out-of-range device perm in a
+    child process; the calls timed (ms, kernel µs, device operations)."""
     import torch
 
     from go_crdt_playground_tpu_torch import fleet as fleet_mod
@@ -1175,7 +1222,7 @@ def phase_k3(counters: Counters, errs: dict, timings: dict, smi: str):
         out = cm.gossip_round(out, perm)
     merged = cm.merge_pairwise(out, other)
     torch.cuda.synchronize()
-    counters.read("one-row merge entries",
+    counters.read("one-row merge entries (the smoke's own K3 path)",
                   exact={"gossip_round": len(perms), "merge_pairwise": 1})
     if not bool(collectives.converged(out.present, out.vv)):
         raise AssertionError("K3: the gossip verb's fleet not converged")
@@ -1187,17 +1234,63 @@ def phase_k3(counters: Counters, errs: dict, timings: dict, smi: str):
     errs["K3"] = max(errs["K3"], max_abs_err(
         merged, cm.merge_pairwise(want, other, kernel="torch"),
         "K3 merge_pairwise"))
-    ms = cuda_time_ms(lambda: cm.gossip_round(state, perms[0]), 20)
-    plain_ms = cuda_time_ms(
-        lambda: cm.gossip_round(state, perms[0], kernel="torch"), 2)
-    bound_ms, bound_by, nbytes = bounds("merge", R, E, W, True)
-    timings["K3"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
+
+    rng = np.random.default_rng(77)
+    n_checks = 0
+    for i, e in enumerate(K3_EDGE_E):
+        for j, r in enumerate(K3_EDGE_R):
+            a = K3_EDGE_A[(i + j) % 3]
+            dst = random_delta_state(rng, r, e, a, 0x7FFFFFFB, "cuda").base()
+            src = random_delta_state(rng, r, e, a, 0xFFFFFFF0, "cuda").base()
+            for perm in (torch.from_numpy(rng.permutation(r)).cuda(),
+                         torch.from_numpy(rng.integers(0, r, r)).to(
+                             torch.int32).cuda(),
+                         rng.permutation(r)):
+                errs["K3"] = max(errs["K3"], max_abs_err(
+                    cm.gossip_round(dst, perm, kernel="cuda"),
+                    cm.gossip_round(dst, perm, kernel="torch"),
+                    f"K3 gossip_round R={r} E={e} A={a}"))
+                n_checks += 1
+            errs["K3"] = max(errs["K3"], max_abs_err(
+                cm.merge_pairwise(dst, src, kernel="cuda"),
+                cm.merge_pairwise(dst, src, kernel="torch"),
+                f"K3 merge_pairwise R={r} E={e} A={a}"))
+            n_checks += 1
+    for r, e in ((4096, 128), (64, 1000)):  # many rows, few wide rows
+        child = subprocess.run(
+            [sys.executable, "-c", K3_BAD_PERM.format(R=r, E=e)],
+            capture_output=True, text=True, timeout=300)
+        if (child.returncode == 0 or "no error" in child.stdout
+                or "device-side assert" not in child.stderr):
+            raise AssertionError(f"K3: an out-of-range device perm (R={r},"
+                                 f" E={e}) did not fail the launch: {child}")
     log(f"K3: {R} x {E} fleet converged in {len(perms)} gossip_round "
-        f"launches, merge_pairwise with a second fleet, both bitwise "
-        f"equal to the plain versions; {ms:.4f} ms/launch, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
-        f"{nbytes} B) [{smi}]")
+        f"launches and merge_pairwise with a second fleet, bitwise equal "
+        f"to the plain versions; {n_checks} edge checks bitwise (E in "
+        f"{K3_EDGE_E}, R in {K3_EDGE_R}, A in {K3_EDGE_A}); an "
+        f"out-of-range device perm fails the launch (4,096 x 128 and "
+        f"64 x 1,000)")
+
+    bound_ms, bound_by, nbytes = bounds("merge", R, E, W, True)
+    gather = k3_call_report(lambda: cm.gossip_round(state, perms[0]))
+    pairwise = k3_call_report(lambda: cm.merge_pairwise(state, other))
+    plain_ms = cuda_time_ms(
+        lambda: cm.gossip_round(state, perms[0], kernel="torch"), 20)
+    timings["K3"] = {"ms": gather["ms"], "device_ms": gather["device_ms"],
+                     "device_ops": gather["device_ops"],
+                     "pairwise": pairwise, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+
+    def fmt(t):
+        dev = ("device not measured" if t["device_ms"] is None else
+               f"kernel {t['device_ms'] * 1e3:.3f} us in "
+               f"{t['device_ops']:g} device ops")
+        return f"{t['ms']:.4f} ms a call ({dev})"
+
+    log(f"K3 calls at {R} x {E}, A = {W}: "
+        f"gossip_round {fmt(gather)}, "
+        f"merge_pairwise {fmt(pairwise)}, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}, {nbytes} B) [{smi}]")
 
 
 def phase_cli(counters: Counters):
@@ -1505,6 +1598,363 @@ def phase_serve(counters: Counters, errs: dict, timings: dict, smi: str):
         log("serve legs: " + json.dumps(legs + [main]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the serve-frontend cell: client sessions, ops a session, pipelined ops
+# a session, every DEL_EVERY-th op a delete (tools/serve_soak.py's
+# open-loop mix: keys cycle through the universe, here each session on
+# its own residue class mod FRONTEND_SESSIONS)
+FRONTEND_SESSIONS, FRONTEND_OPS, FRONTEND_WINDOW, DEL_EVERY = 4, 600, 16, 10
+# the device operations a batch may take on the K10 path
+FRONTEND_MAX_DEVICE_OPS = INGEST_BATCH_MAX_DEVICE_OPS
+
+
+def frontend_session_ops(session: int, n_ops: int, num_e: int):
+    """Session ``session``'s op stream: (kind, key) with kind 0 = add,
+    1 = delete."""
+    ops = []
+    for i in range(n_ops):
+        kind = 1 if i % DEL_EVERY == DEL_EVERY - 1 else 0
+        ops.append((kind, (FRONTEND_SESSIONS * i + session) % num_e))
+    return ops
+
+
+def drive_frontend_sessions(addr, n_ops: int, num_e: int):
+    """FRONTEND_SESSIONS client sessions, each pipelining
+    FRONTEND_WINDOW ops of its stream.  Returns (per-session lists of
+    (kind, key, acked), ack latencies in seconds, wall seconds, typed
+    rejects by class name).  An op that ends in anything but an ack or
+    a typed reject (a timeout, a lost connection) fails the run."""
+    from go_crdt_playground_tpu_torch.serve import protocol
+    from go_crdt_playground_tpu_torch.serve.client import ServeClient
+
+    results = [[] for _ in range(FRONTEND_SESSIONS)]
+    latencies = [[] for _ in range(FRONTEND_SESSIONS)]
+    rejects = {}
+    errors = []
+    lock = threading.Lock()
+
+    def run(s):
+        try:
+            with ServeClient(addr, timeout=60.0) as c:
+                inflight = []
+                for kind, key in frontend_session_ops(s, n_ops, num_e):
+                    inflight.append((kind, key,
+                                     c.submit_async(kind, [key])))
+                    if len(inflight) >= FRONTEND_WINDOW:
+                        settle(s, inflight.pop(0))
+                for op in inflight:
+                    settle(s, op)
+        except Exception as e:  # noqa: BLE001 — reported below
+            with lock:
+                errors.append(e)
+
+    def settle(s, item):
+        kind, key, op = item
+        try:
+            latencies[s].append(op.wait(60.0))
+            results[s].append((kind, key, True))
+        except protocol.ServeError as e:  # a typed reject: not applied
+            results[s].append((kind, key, False))
+            with lock:
+                name = type(e).__name__
+                rejects[name] = rejects.get(name, 0) + 1
+
+    threads = [threading.Thread(target=run, args=(s,))
+               for s in range(FRONTEND_SESSIONS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300.0)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"frontend sessions failed: {errors}")
+    return results, [x for lat in latencies for x in lat], wall, rejects
+
+
+def drive_frontend_child(addr, n_ops: int, num_e: int):
+    """``drive_frontend_sessions`` in a child process, as remote clients
+    would drive the frontend (the client threads do not share the
+    server's interpreter lock).  Returns what it returns."""
+    from pathlib import Path
+
+    src = ("import json, sys\n"
+           f"sys.path.insert(0, {str(Path(__file__).resolve().parent)!r})\n"
+           "import chip_smoke\n"
+           f"out = chip_smoke.drive_frontend_sessions("
+           f"({addr[0]!r}, {addr[1]}), {n_ops}, {num_e})\n"
+           "print(json.dumps(out))\n")
+    run = subprocess.run([sys.executable, "-c", src], capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"frontend client process failed: "
+                             f"{run.stderr[-3000:]}")
+    res, lat, wall, rejects = json.loads(
+        run.stdout.strip().splitlines()[-1])
+    return [[tuple(op) for op in ops] for ops in res], lat, wall, rejects
+
+
+def expected_members(results) -> set:
+    """The set algebra of the acked ops: each session's keys are its
+    own, and a session's ops apply in the order it sent them."""
+    members = set()
+    for ops in results:
+        for kind, key, acked in ops:
+            if acked:
+                (members.discard if kind else members.add)(key)
+    return members
+
+
+def phase_frontend(counters: Counters, smi: str):
+    """The serve tier on the card: a torch ``ServeFrontend`` at the
+    ``serve --ingest`` defaults (E = 1,024, A = 16, batches of up to 32,
+    2 ms flush, queue 256) with a durable dir, FRONTEND_SESSIONS client
+    sessions over 127.0.0.1; members and vv equal to the acked ops' set
+    algebra; every WAL record equal to the plain K10's for the same
+    batch; K10 launched once a batch; device operations a batch traced
+    (the sessions run in a child process, as remote clients do);
+    the durable dir restored bitwise on the card and on the CPU; then
+    the CLI verb spawned once (banner, a round trip, SIGTERM, the
+    ``drained:`` line).  Prints ops/s, ack p50/p99, mean batch and the
+    WAL append's share of batch apply time."""
+    import functools
+
+    import torch
+
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.serve import ServeFrontend
+    from go_crdt_playground_tpu_torch.serve.client import ServeClient
+    from go_crdt_playground_tpu_torch.utils.wal import DeltaWal
+
+    E, A, B = SERVE_E, SERVE_A, SERVE_B
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_frontend_")
+    try:
+        durable = f"{tmp}/durable"
+        fe = ServeFrontend(E, A, durable_dir=durable, max_batch=B,
+                           flush_ms=2.0, queue_depth=256, device="cuda")
+        node = fe.node
+        batches, bodies, append_s = [], [], [0.0]
+        ingest, append = node.ingest_batch, node.wal.append
+
+        def recording_ingest(add, dl, live=None):
+            batches.append((add.copy(), dl.copy(), live.copy()))
+            return ingest(add, dl, live)
+
+        def timed_append(body):
+            t = time.perf_counter()
+            append(body)
+            append_s[0] += time.perf_counter() - t
+            bodies.append(body)
+
+        node.ingest_batch = recording_ingest
+        node.wal.append = timed_append
+        addr = fe.serve()
+        torch.cuda.synchronize()
+        counters.reset()
+        results, lat, wall, rejects = drive_frontend_child(
+            addr, FRONTEND_OPS, E)
+        launched = ci.ingest_rows_delta_fused.launches
+        snap = fe.recorder.snapshot()
+        counters.read("serve frontend",
+                      exact={"ingest_rows_delta_fused": len(batches)})
+        if snap["counters"]["serve.batches"] != len(batches) or launched \
+                != len(batches):
+            raise AssertionError(
+                f"frontend: {launched} K10 launches, {len(batches)} "
+                f"batches, serve.batches {snap['counters']['serve.batches']}")
+        acked = sum(ok for ops in results for _, _, ok in ops)
+        if acked != snap["counters"]["serve.ops.acked"] or acked < 2000:
+            raise AssertionError(f"frontend: {acked} acked ops, the "
+                                 f"server counted "
+                                 f"{snap['counters']['serve.ops.acked']}"
+                                 f", typed rejects {rejects}")
+        if snap["counters"].get("serve.batch_errors", 0):
+            raise AssertionError(
+                f"frontend: {snap['counters']['serve.batch_errors']} "
+                f"batch errors")
+        with ServeClient(addr) as c:
+            members, vv = c.members()
+        want = expected_members(results)
+        if set(members) != want:
+            raise AssertionError(
+                f"frontend: members differ from the acked ops' set "
+                f"algebra ({len(set(members) ^ want)} keys)")
+        want_vv = np.zeros(A, np.uint32)
+        want_vv[0] = acked  # one key an op: each op ticks once
+        if not np.array_equal(vv, want_vv):
+            raise AssertionError(f"frontend: vv {vv} != {want_vv}")
+        apply_s = snap["observations"]["serve.batch.apply_s"]
+        fsync_share = append_s[0] / apply_s["sum"]
+        server_lat = snap["observations"]["serve.ingest_latency_s"]
+        occupancy = snap["observations"]["serve.batch.occupancy"]["mean"]
+
+        # device operations a batch, traced over one more burst
+        before = fe.recorder.snapshot()["counters"]["serve.batches"]
+        _, trace = trace_run(lambda: drive_frontend_child(addr, 100, E),
+                             K10_KERNELS)
+        traced_batches = (fe.recorder.snapshot()["counters"]
+                          ["serve.batches"] - before)
+        ops_a_batch = (None if trace is None
+                       else trace["device_ops"] / traced_batches)
+        if ops_a_batch is not None and ops_a_batch > FRONTEND_MAX_DEVICE_OPS:
+            raise AssertionError(f"frontend: {ops_a_batch} device "
+                                 f"operations a batch")
+        live = node.state_slice()
+        fe.close()
+
+        # every WAL record against the plain K10's for the same batch
+        plain = Node(0, E, A, device="cuda",
+                     wal=DeltaWal(f"{tmp}/plain", fsync=False))
+        plain._fused_regime = (functools.partial(
+            ci.ingest_rows_delta_fused, kernel="torch"), min(128, E))
+        plain_bodies = []
+        plain_append = plain.wal.append
+        plain.wal.append = lambda b: (plain_bodies.append(b),
+                                      plain_append(b))
+        for add, dl, lv in batches:
+            plain.ingest_batch(add, dl, lv)
+        if plain_bodies != bodies:
+            raise AssertionError("frontend: WAL records differ from the "
+                                 "plain K10's")
+        plain.wal.close()
+        for name, x, y in zip(live._fields, live, plain.state_slice()):
+            if not torch.equal(x, y):
+                raise AssertionError(f"frontend: {name} differs from the "
+                                     "plain K10's replay")
+        for dev in ("cuda", "cpu"):
+            back = Node.restore_durable(durable, device=dev)
+            for name, x, y in zip(live._fields, live, back.state_slice()):
+                if not torch.equal(x.to(dev), y):
+                    raise AssertionError(f"frontend: restore on {dev} "
+                                         f"differs in {name}")
+            back.wal.close()
+        p50 = float(np.percentile(lat, 50)) * 1e3
+        p99 = float(np.percentile(lat, 99)) * 1e3
+        trace_txt = ("not measured" if trace is None else
+                     f"{ops_a_batch:g} device ops a batch, idle share "
+                     f"{trace['idle_share']:.4f}")
+        log(f"serve frontend (E={E}, A={A}, batch<={B}, flush 2 ms, queue "
+            f"256, durable, {FRONTEND_SESSIONS} sessions x {FRONTEND_OPS} "
+            f"ops, {FRONTEND_WINDOW} in flight a session, clients in a "
+            f"child process): {acked} acked (typed rejects "
+            f"{rejects or 'none'}, 0 batch errors) in "
+            f"{wall:.3f} s = {acked / wall:.1f} ops/s, ack p50 {p50:.3f} "
+            f"ms p99 {p99:.3f} ms, {len(batches)} batches of "
+            f"{occupancy:.2f} ops, batch apply {apply_s['mean'] * 1e3:.3f} "
+            f"ms, WAL append (write + fsync) {fsync_share:.4f} of it, "
+            f"server-side ingest p50 {server_lat['p50'] * 1e3:.3f} ms p99 "
+            f"{server_lat['p99'] * 1e3:.3f} ms, {trace_txt}; members "
+            f"and vv equal to the acked ops' set algebra; {len(bodies)} WAL "
+            f"records equal to the plain K10's; restored bitwise on the "
+            f"card and on the CPU [{smi}]")
+        log("serve frontend: " + json.dumps({
+            "ops_per_s": acked / wall, "acked": acked, "wall_s": wall,
+            "rejects": rejects,
+            "ack_p50_ms": p50, "ack_p99_ms": p99, "batches": len(batches),
+            "batch_mean": occupancy, "batch_apply_ms": apply_s["mean"] * 1e3,
+            "server_ingest_p50_ms": server_lat["p50"] * 1e3,
+            "server_ingest_p99_ms": server_lat["p99"] * 1e3,
+            "wal_append_share": fsync_share,
+            "device_ops_per_batch": ops_a_batch,
+            "idle_share": None if trace is None else trace["idle_share"],
+            "card": smi}))
+        cli_round_trip(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cli_round_trip(tmp: str):
+    """``python -m go_crdt_playground_tpu_torch serve --ingest`` as a
+    user starts it (the card is its default device): the banner, one
+    client round trip, SIGTERM, the ``drained:`` line."""
+    import re
+    import signal
+
+    from go_crdt_playground_tpu_torch.serve.client import ServeClient
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "go_crdt_playground_tpu_torch", "serve",
+         "--ingest", "--durable-dir", f"{tmp}/cli"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        banner = proc.stdout.readline()
+        m = re.search(r"listening on (\S+):(\d+) \(E=1024 A=16 actor=0 "
+                      r"batch<=32 flush=2.0ms queue=256 durable=yes "
+                      r"fused=yes sync=delta mesh=off", banner)
+        if m is None:
+            raise AssertionError(f"serve CLI banner: {banner!r}")
+        with ServeClient((m.group(1), int(m.group(2)))) as c:
+            c.add(7, 9)
+            c.delete(9)
+            members, _ = c.members()
+        if list(members) != [7]:
+            raise AssertionError(f"serve CLI members {members}")
+        up = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or "drained: 2 ops acked" not in out:
+        raise AssertionError(f"serve CLI drain: rc={proc.returncode} "
+                             f"{out!r} {err[-2000:]!r}")
+    log(f"serve CLI: banner after {up:.1f} s, a round trip, SIGTERM -> "
+        f"{out.strip().splitlines()[-1]!r}")
+
+
+def phase_serve_soak(smi: str):
+    """tools/torch_serve_soak.py --quick on the card: its legs (open and
+    closed loop, fused against seed ingest, compaction, the two crash
+    kills) against ``serve --ingest --device cuda`` workers.  The phase
+    fails unless every guarantee holds (zero lost acked ops, zero
+    phantom members, drains, every op resolved, both kills, compact
+    records replayed, every element acked); the checks of
+    tools/serve_soak.py's load shape that the card does not meet fail
+    the tool (exit 1) and are printed here, each with its readings."""
+    from pathlib import Path
+
+    tool = Path(__file__).resolve().parent / "tools" / "torch_serve_soak.py"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_soak_")
+    try:
+        out = f"{tmp}/soak.json"
+        run = subprocess.run([sys.executable, str(tool), "--quick",
+                              "--device", "cuda", "--out", out],
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode not in (0, 1) or not os.path.exists(out):
+            raise AssertionError(f"serve soak failed (rc {run.returncode}):"
+                                 f" {run.stdout[-3000:]} {run.stderr[-3000:]}")
+        with open(out) as f:
+            res = json.load(f)
+        if res["guarantee_failures"] or (run.returncode == 0) != (
+                not res["failures"]):
+            raise AssertionError(f"serve soak: {res['guarantee_failures']}"
+                                 f" (rc {run.returncode})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    load, ic = res["load"], res["ingest_compare"]
+    curve = ", ".join(f"{leg['offered_rate']:g}/s -> {leg['goodput']:g}/s "
+                      f"p99 {leg['p99_ms']} ms shed {leg['overloaded']}"
+                      for leg in load["open_loop"])
+    log(f"serve soak (--quick, cuda workers, {res['elapsed_s']} s): open "
+        f"loop {curve}; closed loop "
+        + ", ".join(f"{leg['concurrency']} -> {leg['goodput']:g}/s p99 "
+                    f"{leg['p99_ms']} ms" for leg in load["closed_loop"])
+        + f"; ingest seed/fused {ic['seed']['dispatches_per_batch']:g}/"
+        f"{ic['fused']['dispatches_per_batch']:g} steps a batch, "
+        f"{ic['seed']['wal_bytes_per_acked_op']:g}/"
+        f"{ic['fused']['wal_bytes_per_acked_op']:g} WAL B an op; "
+        f"compaction dropped {res['compaction']['gc_dropped_lanes_under_traffic']}"
+        f" lanes, {res['compaction']['backoffs_during_heavy']} backoffs "
+        f"under load; crash kills {res['crash']['kills']}, "
+        f"{res['crash']['acked_ops']} acked; 0 lost acked ops, 0 phantom "
+        f"members in every leg; the tool exited {run.returncode}, "
+        f"tools/serve_soak.py's checks not met on this card: "
+        f"{res['failures'] or 'none'} [{smi}]")
+    log("serve soak: " + json.dumps(res))
 
 
 def wait_served(nodes, timeout: float = 10.0) -> None:
@@ -1963,6 +2413,9 @@ def phase_universe(counters: Counters, timings: dict, smi: str):
     return rows
 
 
+# kernels whose entries no path of the port calls: their launches are
+# those of the phase that drives them
+OFF_MAIN_PATH = ("K3",)
 KERNELS = [
     ("K1", "ring_round_rows", "csrc/merge.cu", "pallas_merge.py:832",
      ("ring_round_rows",)),
@@ -2016,6 +2469,8 @@ def main() -> int:
     phase_k3(counters, errs, timings, smi)
     phase_cli(counters)
     phase_serve(counters, errs, timings, smi)
+    phase_frontend(counters, smi)
+    phase_serve_soak(smi)
     phase_sync_fleet(counters, smi)
     phase_digest_read(counters, timings, smi)
     phase_universe(counters, timings, smi)
@@ -2029,8 +2484,9 @@ def main() -> int:
             "name": f"{key} {name}", "route": "cuda",
             "source": f"go_crdt_playground_tpu_torch/{src}",
             "replaces": f"go_crdt_playground_tpu/ops/{replaces}",
-            "launches": launches, "max_abs_err": errs[key],
-            "bitwise": errs[key] == 0, **timings[key],
+            "launches": launches, "on_main_path": key not in OFF_MAIN_PATH,
+            "max_abs_err": errs[key], "bitwise": errs[key] == 0,
+            **timings[key],
             "library_ms": None,
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -26,6 +26,18 @@
 // shared memory so HasDot is an indexed shared-memory load.  Bit layouts
 // read a warp's 32 lanes from one word and write them back with one
 // ballot.  Any R works.
+//
+// K3 (crdt_merge_rows_k3, bool layout): its rounds are small (the gossip
+// verb's 64 x 128 moves 181 KB: 54 ns at 3.35 TB/s), so a launch costs a
+// few memory latencies, and the wrapper's host path more.  It runs the
+// block-per-row kernel (one lane a thread, the fewest latencies in a
+// row) on its own entry, which checks every perm[r] itself: a partner
+// outside [0, R) prints the row and fails the launch with a device-side
+// assert, which the next synchronizing call raises; no range check runs
+// on the host or as extra device operations.  perm may be int32 or int64.
+#include <assert.h>
+#include <stdio.h>
+
 #include "common.cuh"
 
 namespace {
@@ -44,10 +56,39 @@ struct OutLanes {
   uint32_t* c;
 };
 
-template <int L>
+// The partner row of r: perm[r] (int32 or int64) in gather mode, else
+// crdt::partner_row.  With kCheck, a gathered row outside [0, R) sets
+// ok = false (the caller skips the row); the row's first thread
+// (speaker) prints it and fails the launch with a device-side assert.
+// Without it (K1, K2, K6, K7: their perm was checked before the launch)
+// no check is compiled in.
+template <bool kCheck>
+__device__ __forceinline__ long long partner_of(long long r, int mode,
+                                                long long offset,
+                                                const void* perm, int perm32,
+                                                long long num_r, bool speaker,
+                                                bool& ok) {
+  ok = true;
+  if (mode != crdt::PARTNER_GATHER) {
+    return crdt::partner_row(r, mode, offset, nullptr, num_r);
+  }
+  const long long p = perm32 ? static_cast<const int*>(perm)[r]
+                             : static_cast<const long long*>(perm)[r];
+  if (kCheck && (p < 0 || p >= num_r)) {
+    ok = false;
+    if (speaker) {
+      printf("crdt merge: perm[%lld] = %lld outside [0, %lld)\n", r, p,
+             num_r);
+      assert(false && "perm entries must lie in [0, R)");
+    }
+  }
+  return p;
+}
+
+template <int L, bool kCheck>
 __global__ void merge_rows(
     const uint32_t* __restrict__ dvv, Lanes d, const uint32_t* __restrict__ svv,
-    Lanes s, const long long* __restrict__ perm, long long offset,
+    Lanes s, const void* __restrict__ perm, int perm32, long long offset,
     int partner_mode, uint32_t* __restrict__ ovv, OutLanes o,
     long long num_r, long long num_e, int num_a) {
   extern __shared__ uint32_t smem[];
@@ -55,8 +96,11 @@ __global__ void merge_rows(
   uint32_t* svv_s = smem + num_a;
   const long long e_end = crdt::lane_end<L>(num_e);
   for (long long r = blockIdx.x; r < num_r; r += gridDim.x) {
-    const long long p =
-        crdt::partner_row(r, partner_mode, offset, perm, num_r);
+    bool ok;
+    const long long p = partner_of<kCheck>(r, partner_mode, offset, perm,
+                                           perm32, num_r, threadIdx.x == 0,
+                                           ok);
+    if (!ok) continue;  // uniform over the block: every thread read p
     for (int a = threadIdx.x; a < num_a; a += blockDim.x) {
       const uint32_t x = dvv[r * num_a + a];
       const uint32_t y = svv[p * num_a + a];
@@ -89,16 +133,16 @@ __global__ void merge_rows(
   }
 }
 
-template <int L>
+template <int L, bool kCheck = false>
 int launch(const void* dvv, Lanes d, const void* svv, Lanes s,
-           const void* perm, long long offset, int partner_mode, void* ovv,
-           OutLanes o, long long num_r, long long num_e, int num_a,
-           void* stream) {
+           const void* perm, int perm32, long long offset, int partner_mode,
+           void* ovv, OutLanes o, long long num_r, long long num_e,
+           int num_a, void* stream) {
   const size_t smem = 2 * static_cast<size_t>(num_a) * sizeof(uint32_t);
-  merge_rows<L><<<crdt::grid_for(num_r), crdt::kThreads, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
+  merge_rows<L, kCheck><<<crdt::grid_for(num_r), crdt::kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(dvv), d, static_cast<const uint32_t*>(svv),
-      s, static_cast<const long long*>(perm), offset, partner_mode,
+      s, perm, perm32, offset, partner_mode,
       static_cast<uint32_t*>(ovv), o, num_r, num_e, num_a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -122,18 +166,38 @@ extern "C" int crdt_merge_round(
                    static_cast<uint32_t*>(odc)};
   switch (layout) {
     case crdt::LAYOUT_BOOL:
-      return launch<crdt::LAYOUT_BOOL>(dvv, d, svv, s, perm, offset,
+      return launch<crdt::LAYOUT_BOOL>(dvv, d, svv, s, perm, 0, offset,
                                        partner_mode, ovv, o, num_r, num_e,
                                        num_a, stream);
     case crdt::LAYOUT_BITS:
-      return launch<crdt::LAYOUT_BITS>(dvv, d, svv, s, perm, offset,
+      return launch<crdt::LAYOUT_BITS>(dvv, d, svv, s, perm, 0, offset,
                                        partner_mode, ovv, o, num_r, num_e,
                                        num_a, stream);
     case crdt::LAYOUT_DOTWORD:
-      return launch<crdt::LAYOUT_DOTWORD>(dvv, d, svv, s, perm, offset,
+      return launch<crdt::LAYOUT_DOTWORD>(dvv, d, svv, s, perm, 0, offset,
                                           partner_mode, ovv, o, num_r, num_e,
                                           num_a, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K3: dst row r absorbs src row perm[r] (perm given, int32 or int64 by
+// perm32, each entry checked) or row r of src (perm null), bool layout.
+extern "C" int crdt_merge_rows_k3(
+    const void* dvv, const void* dp, const void* dda, const void* ddc,
+    const void* svv, const void* sp, const void* sda, const void* sdc,
+    const void* perm, int perm32, void* ovv, void* op, void* oda, void* odc,
+    long long num_r, long long num_e, int num_a, void* stream) {
+  if (num_r <= 0) return 0;
+  const int mode = perm ? crdt::PARTNER_GATHER : crdt::PARTNER_PAIRWISE;
+  const Lanes d{dp, static_cast<const uint32_t*>(dda),
+                static_cast<const uint32_t*>(ddc)};
+  const Lanes s{sp, static_cast<const uint32_t*>(sda),
+                static_cast<const uint32_t*>(sdc)};
+  const OutLanes o{op, static_cast<uint32_t*>(oda),
+                   static_cast<uint32_t*>(odc)};
+  return launch<crdt::LAYOUT_BOOL, true>(dvv, d, svv, s, perm, perm32, 0,
+                                         mode, ovv, o, num_r, num_e, num_a,
+                                         stream);
 }

@@ -147,6 +147,7 @@ class Node:
                  recorder=None, conn_timeout_s: Optional[float] = None,
                  hello_timeout_s: Optional[float] = None,
                  max_conns: Optional[int] = None, wal=None,
+                 ingest_fused: bool = True,
                  wal_compact_records: bool = True, device="cuda"):
         """recorder: optional metrics sink with ``.count(name, n)`` and
         ``.count_many(dict)``; every exchange counts sync.exchanges,
@@ -164,6 +165,13 @@ class Node:
         mutation's δ is durably logged BEFORE the call returns; see
         ``replay_wal`` / ``restore_durable`` for the recovery half.
 
+        ingest_fused: ``ingest_batch`` applies a micro-batch and extracts
+        its δ in one step (K10 on CUDA, one launch).  False runs the
+        seed two-step path: the rows applied (ops/ingest.ingest_rows),
+        then a separate δ extraction for the WAL record, as the
+        reference's ``ingest_fused=False`` does; kept for the serve
+        soak's fused-against-seed comparison.
+
         wal_compact_records: sparse δs are logged in the compact
         index-lane record form; False forces the dense form (both
         replay).
@@ -173,6 +181,11 @@ class Node:
         if not 0 <= actor < num_actors:
             raise ValueError(f"actor {actor} outside actor axis {num_actors}")
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # pinned at construction: server, batcher and supervisor
+            # threads copy rows to and launch on THIS card, whatever
+            # device is current on the thread that calls
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.recorder = recorder
         self.wal = wal  # guarded-by: _lock
         # read-only after __init__: the device and E fix the regimes
@@ -181,6 +194,7 @@ class Node:
         self._digest_regime = digest_ops.digest_regime(num_elements,
                                                        self.device)
         self.wal_compact_records = wal_compact_records
+        self.ingest_fused = ingest_fused
         # freshest causal-stability vector each peer actor advertised in
         # an applied payload: the peer half of deletion_frontier
         self._peer_processed: dict = {}  # guarded-by: _lock
@@ -291,19 +305,31 @@ class Node:
         and the record is appended.  On the K10 path the record's guard
         (the pre-batch vv) comes back with the compact form in one
         device->host copy, and the dense payload in one more only when
-        the compact form overflowed (cuda_ingest.record_to_host)."""
+        the compact form overflowed (cuda_ingest.record_to_host).
+        With ``ingest_fused`` off the rows are applied first and the δ
+        extracted against the pre-batch vv after (two steps)."""
         num_b, num_e = add_rows.shape
         rows = torch.from_numpy(np.concatenate(
             [add_rows.reshape(-1), del_rows.reshape(-1), live])).to(
                 self.device)
+        add_t = rows[:num_b * num_e].view(num_b, num_e)
+        del_t = rows[num_b * num_e:2 * num_b * num_e].view(num_b, num_e)
+        live_t = rows[2 * num_b * num_e:]
+        if not self.ingest_fused:
+            pre_vv = self._host_vv() if self.wal is not None else None
+            self._set_row(ingest_ops.ingest_rows(self._row(), add_t, del_t,
+                                                 live_t))
+            self._count("ingest.dispatches")
+            if pre_vv is not None:
+                self._count("ingest.dispatches")  # the δ extraction
+                self._log_local_delta(pre_vv)
+            return
         fused_fn, k = self._fused_regime
         if self.wal is None:
             k = 0  # no record to write: skip the compaction
         pre = self._row()
-        merged, payload, compact = fused_fn(
-            pre, rows[:num_b * num_e].view(num_b, num_e),
-            rows[num_b * num_e:2 * num_b * num_e].view(num_b, num_e),
-            rows[2 * num_b * num_e:], k_changed=k, k_deleted=k)
+        merged, payload, compact = fused_fn(pre, add_t, del_t, live_t,
+                                            k_changed=k, k_deleted=k)
         self._set_row(merged)
         self._count("ingest.dispatches")
         if self.wal is not None:

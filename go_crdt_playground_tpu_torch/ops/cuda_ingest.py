@@ -24,13 +24,17 @@ narrowed mod 2^32), ``clock_outputs``, ``ingest_fold_plain`` (the fold as
 a torch loop over rows, then ops/delta.delta_extract) and
 ops/compact.compact_payload.  ``kernel="cuda"`` insists on the kernel and
 ``kernel="torch"`` asks for the plain version.  The wrapper counts its
-launches in ``ingest_rows_delta_fused.launches``.
+launches in ``ingest_rows_delta_fused.launches`` (under a lock: a
+serving node launches from its batcher's thread, peers and clients
+from theirs).  The launch goes on the calling thread's current stream
+of the state's device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -48,6 +52,9 @@ from go_crdt_playground_tpu_torch.ops.vv import clock_at, set_clock
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+# nodes launch from their batcher and server threads: the count is a
+# read-modify-write
+_count_lock = threading.Lock()
 # the output buffer's regions in csrc/ingest.cu's order, by group: the
 # head's words and bools (the host-bound part), the device's words and
 # bools; the scratch follows
@@ -340,7 +347,8 @@ def ingest_rows_delta_fused(state: AWSetDeltaState, add_rows, del_rows,
     if use_kernel(kernel, state.vv):
         out = _launch(state, add_rows.contiguous(), del_rows.contiguous(),
                       live.contiguous(), k_changed, k_deleted)
-        ingest_rows_delta_fused.launches += 1
+        with _count_lock:
+            ingest_rows_delta_fused.launches += 1
         return out
     arow, drow, add_dc, del_ctr, final = row_counters(
         state, add_rows, del_rows, live)

@@ -12,8 +12,10 @@ Kernels and the Pallas kernels they replace
                                      absorbs row r of an independent batch;
   K3 ``gossip_round``             <- ``pallas_gossip_round``, and
      ``merge_pairwise``           <- ``pallas_merge_pairwise``: the entries
-                                     of the one-row Pallas kernel, the same
-                                     partner modes of this kernel;
+                                     of the one-row Pallas kernel (bool
+                                     layout): K2's block-per-row kernel
+                                     on a lean launch of its own
+                                     (``crdt_merge_rows_k3``);
   K6 ``ring_round_rows_packed``   <- ``pallas_ring_round_rows_packed``: K1
                                      on the bitpacked layout;
   K7 ``ring_round_rows_dotpacked`` <- ``pallas_ring_round_rows_dotpacked``:
@@ -27,6 +29,15 @@ insists on the kernel and ``kernel="torch"`` asks for the plain version.
 Outputs are new tensors (partner rows are read by other blocks of the
 same launch), so peak memory is state plus outputs.  Each wrapper counts
 its launches in ``<wrapper>.launches``.
+
+K3's host side is lean, since its launch at the gossip verb's shapes
+(64 x 128) takes a few microseconds on the card: one check pass over
+both batches, two allocations, no device context when the state is on
+the current device, the raw stream, and no range check of a device
+``perm`` on the host or as extra device operations: the kernel checks
+each entry and fails the launch with a device-side assert, which the
+next synchronizing call raises.  A host ``perm`` is checked on the host
+before it moves.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -60,6 +72,9 @@ _WORD_FIELDS = frozenset({"present_bits", "deleted_bits"})
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+# K3's entries may be called from several threads: their counts are
+# read-modify-writes
+_count_lock = threading.Lock()
 
 
 def use_kernel(kernel: str, tensor: torch.Tensor) -> bool:
@@ -201,6 +216,9 @@ def _lib() -> ctypes.CDLL:
     lib.crdt_merge_round.argtypes = (
         [_P] * 9 + [_I64, _I32] + [_P] * 4 + [_I64, _I64, _I32, _I32, _P])
     lib.crdt_merge_round.restype = ctypes.c_int
+    lib.crdt_merge_rows_k3.argtypes = (
+        [_P] * 9 + [_I32] + [_P] * 4 + [_I64, _I64, _I32, _P])
+    lib.crdt_merge_rows_k3.restype = ctypes.c_int
     return lib
 
 
@@ -216,7 +234,7 @@ def _launch(dst, src, perm, offset: int, partner_mode: int):
     num_r, num_a = dst.vv.shape
     outs = out_like(dst)
     lib = _lib()
-    with torch.cuda.device(dst.vv.device):
+    with device_guard(dst.vv.device):
         rc = lib.crdt_merge_round(
             ptr(dst.vv), *map(ptr, _merge_lanes(dst)),
             ptr(src.vv), *map(ptr, _merge_lanes(src)),
@@ -261,51 +279,129 @@ def ring_round_rows(state: AWSetState, offset,
     return out
 
 
-def _gather_round(state: AWSetState, perm, kernel: str,
-                  wrapper) -> AWSetState:
-    """r absorbs perm[r]; a launch counts on ``wrapper``."""
-    perm = as_index(perm, state.num_replicas, state.vv.device)
-    if not use_kernel(kernel, state.vv):
-        return merge_rows_plain(state, _rows(state, perm))
-    out = _launch(state, state, perm, 0, PARTNER_GATHER)
-    wrapper.launches += 1
-    return out
+_K3_FIELDS = (("vv", torch.int32), ("present", torch.bool),
+              ("dot_actor", torch.int32), ("dot_counter", torch.int32),
+              ("actor", torch.int32))
 
 
-def _pairwise(dst: AWSetState, src: AWSetState, kernel: str,
-              wrapper) -> AWSetState:
-    """``dst[r] <- src[r]``; a launch counts on ``wrapper``."""
-    if not use_kernel(kernel, dst.vv):
-        return merge_rows_plain(dst, src)
-    out = _launch(dst, src, None, 0, PARTNER_PAIRWISE)
-    wrapper.launches += 1
-    return out
+def _k3_check(dst: AWSetState, src: AWSetState):
+    """One pass over both batches' fields (bool-layout ``AWSetState``s,
+    one CUDA device, contiguous, [R, A] / [R, E] / [R]); returns (R, E,
+    A, device)."""
+    vv = dst.vv
+    if vv.dim() != 2 or dst.present.dim() != 2:
+        raise ValueError("K3 takes [R, A] vv and [R, E] lanes")
+    num_r, num_a = vv.shape
+    num_e = dst.present.shape[1]
+    if not 1 <= num_a <= MAX_FUSED_ACTORS:
+        raise ValueError(
+            f"actor axis A={num_a} outside the CUDA kernels' range [1, "
+            f"{MAX_FUSED_ACTORS}] (shared-memory cap); pass kernel='torch' "
+            "to run the plain version")
+    dev = vv.device
+    shapes = ((num_r, num_a), (num_r, num_e), (num_r, num_e),
+              (num_r, num_e), (num_r,))
+    for st in (dst,) if src is dst else (dst, src):
+        if type(st) is not AWSetState:
+            raise ValueError(f"K3 takes AWSetState batches, got "
+                             f"{type(st).__name__}")
+        for t, (name, dtype), shape in zip(st, _K3_FIELDS, shapes):
+            if (t.dtype != dtype or t.shape != shape or t.device != dev
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name}: expected a contiguous {dtype}{shape} on "
+                    f"{dev}, got {t.dtype}{tuple(t.shape)} on {t.device}")
+    return num_r, num_e, num_a, dev
+
+
+def _k3_perm(perm, num_r: int, device):
+    """A device ``perm`` as it is (int32 or int64, shape (R,),
+    contiguous; its entries are the kernel's to check), anything else
+    through ``as_index`` (checked on the host, then moved)."""
+    if (isinstance(perm, torch.Tensor) and perm.device == device
+            and perm.dtype in (torch.int32, torch.int64)):
+        if perm.shape != (num_r,):
+            raise ValueError(f"perm must have shape ({num_r},), got "
+                             f"{tuple(perm.shape)}")
+        return perm.contiguous()
+    return as_index(perm, num_r, device)
+
+
+def _k3_launch(dst: AWSetState, src: AWSetState, perm,
+               lib=None) -> AWSetState:
+    """One K3 launch: ``dst[r] <- src[perm[r]]`` (or ``src[r]`` with
+    ``perm`` None).  ``lib``: another build of csrc/merge.cu with the
+    same interface, for same-card comparisons."""
+    num_r, num_e, num_a, dev = _k3_check(dst, src)
+    if perm is not None:
+        perm = _k3_perm(perm, num_r, dev)
+    words = torch.empty(num_r * (num_a + 2 * num_e), dtype=torch.int32,
+                        device=dev)
+    present = torch.empty((num_r, num_e), dtype=torch.bool, device=dev)
+    vv, da, dc = words.split_with_sizes(
+        (num_r * num_a, num_r * num_e, num_r * num_e))
+    lib = lib or _lib()
+    with device_guard(dev):
+        rc = lib.crdt_merge_rows_k3(
+            dst.vv.data_ptr(), dst.present.data_ptr(),
+            dst.dot_actor.data_ptr(), dst.dot_counter.data_ptr(),
+            src.vv.data_ptr(), src.present.data_ptr(),
+            src.dot_actor.data_ptr(), src.dot_counter.data_ptr(),
+            None if perm is None else perm.data_ptr(),
+            perm is not None and perm.dtype == torch.int32,
+            vv.data_ptr(), present.data_ptr(), da.data_ptr(), dc.data_ptr(),
+            num_r, num_e, num_a, stream_of(words))
+    if rc:
+        _build.check(lib, rc, "crdt_merge_rows_k3")
+    return AWSetState(vv=vv.view(num_r, num_a), present=present,
+                      dot_actor=da.view(num_r, num_e),
+                      dot_counter=dc.view(num_r, num_e), actor=dst.actor)
 
 
 def gossip_round_rows(state: AWSetState, perm,
                       kernel: str = "auto") -> AWSetState:
     """K2: one round in which replica r absorbs replica perm[r]."""
-    return _gather_round(state, perm, kernel, gossip_round_rows)
+    perm = as_index(perm, state.num_replicas, state.vv.device)
+    if not use_kernel(kernel, state.vv):
+        return merge_rows_plain(state, _rows(state, perm))
+    out = _launch(state, state, perm, 0, PARTNER_GATHER)
+    gossip_round_rows.launches += 1
+    return out
 
 
 def merge_pairwise_rows(dst: AWSetState, src: AWSetState,
                         kernel: str = "auto") -> AWSetState:
     """K2, pairwise: ``dst[r] <- src[r]`` between two batches."""
-    return _pairwise(dst, src, kernel, merge_pairwise_rows)
+    if not use_kernel(kernel, dst.vv):
+        return merge_rows_plain(dst, src)
+    out = _launch(dst, src, None, 0, PARTNER_PAIRWISE)
+    merge_pairwise_rows.launches += 1
+    return out
 
 
 def gossip_round(state: AWSetState, perm,
                  kernel: str = "auto") -> AWSetState:
     """K3: one round in which replica r absorbs replica perm[r] (the
-    one-row Pallas kernel's entry; on the card the same kernel as K2,
-    counted apart)."""
-    return _gather_round(state, perm, kernel, gossip_round)
+    one-row Pallas kernel's entry).  A device ``perm`` (int32 or int64)
+    is read as it is and checked by the kernel."""
+    if not use_kernel(kernel, state.vv):
+        perm = as_index(perm, state.num_replicas, state.vv.device)
+        return merge_rows_plain(state, _rows(state, perm))
+    out = _k3_launch(state, state, perm)
+    with _count_lock:
+        gossip_round.launches += 1
+    return out
 
 
 def merge_pairwise(dst: AWSetState, src: AWSetState,
                    kernel: str = "auto") -> AWSetState:
     """K3, pairwise: ``dst[r] <- src[r]`` between two batches."""
-    return _pairwise(dst, src, kernel, merge_pairwise)
+    if not use_kernel(kernel, dst.vv):
+        return merge_rows_plain(dst, src)
+    out = _k3_launch(dst, src, None)
+    with _count_lock:
+        merge_pairwise.launches += 1
+    return out
 
 
 def ring_round_rows_packed(state: packed.PackedAWSetState, offset,

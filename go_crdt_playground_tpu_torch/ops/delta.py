@@ -40,6 +40,10 @@ class DeltaPayload(NamedTuple):
     src_actor: torch.Tensor      # int32[]
     src_processed: torch.Tensor  # int32[A]  (v2 bookkeeping)
 
+    def nbytes_dense(self) -> int:
+        """Bytes of the dense on-device form (every field in full)."""
+        return sum(x.numel() * x.element_size() for x in self)
+
 
 def delta_extract(src: AWSetDeltaState,
                   dst_vv: torch.Tensor) -> DeltaPayload:

@@ -129,6 +129,12 @@ def encode_payload(p: DeltaPayload) -> bytes:
             + _encode_vv_py(host(p.src_vv)))
 
 
+def payload_nbytes_wire(p: DeltaPayload) -> int:
+    """Wire size of a payload, as shipped (``nbytes_dense`` is the
+    on-device dense form's)."""
+    return len(encode_payload(p))
+
+
 def decode_payload(buf: bytes, num_elements: int, num_actors: int,
                    src_actor: int = 0) -> DeltaPayload:
     """Inverse of encode_payload.  ``src_processed`` is not shipped (v2

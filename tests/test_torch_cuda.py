@@ -464,3 +464,135 @@ def test_k11_vector_paths_match_plain(E):
                 assert torch.equal(
                     got, cg.state_group_digests(r, gs, kernel="torch")), \
                     (E, off, gs)
+
+
+# -- K3 redesigned: a lean launch, each perm entry checked by the kernel ----
+
+K3_E = [1, 31, 32, 128, 200, 1000]
+K3_R = [1, 63, 64, 1000, 4096]
+
+
+def _k3_pair(seed, R, E, A):
+    """Two full-state batches on the card: dst, and a partner batch
+    with its own history."""
+    dst = _on_gpu(random_state(seed, R, E, A).base())
+    src = _on_gpu(random_state(seed + 1, R, E, A).base())
+    return dst, src
+
+
+@pytest.mark.parametrize("R", K3_R)
+@pytest.mark.parametrize("E", K3_E)
+def test_k3_edges_match_plain(E, R):
+    """K3 at the ragged and whole edges of R and E, in gather mode
+    (int64 and int32 perms, a random permutation and a many-to-one map)
+    and pairwise; A cycles through 1, 16 and the 2,048 cap."""
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+
+    A = (1, 16, 2048)[(K3_E.index(E) + K3_R.index(R)) % 3]
+    dst, src = _k3_pair(1000 + E + R, R, E, A)
+    rng = np.random.default_rng(E * 7 + R)
+    before = cm.gossip_round.launches, cm.merge_pairwise.launches
+    for perm in (rng.permutation(R), rng.integers(0, R, R)):
+        for dtype in (torch.int64, torch.int32):
+            p = torch.from_numpy(perm).to(dtype).cuda()
+            assert _equal(cm.gossip_round(dst, p, kernel="cuda"),
+                          cm.gossip_round(dst, p, kernel="torch")), dtype
+    assert _equal(cm.gossip_round(dst, perm, kernel="cuda"),
+                  cm.gossip_round(dst, perm, kernel="torch"))  # host perm
+    assert _equal(cm.merge_pairwise(dst, src, kernel="cuda"),
+                  cm.merge_pairwise(dst, src, kernel="torch"))
+    assert (cm.gossip_round.launches - before[0],
+            cm.merge_pairwise.launches - before[1]) == (5, 1)
+
+
+def test_k3_out_of_range_device_perm_raises():
+    """A device perm with an entry outside [0, R) fails the launch (the
+    kernel's device-side assert) and the next synchronizing call raises.
+    The failure poisons the CUDA context, so it runs in a child process;
+    a host perm still raises ValueError before anything moves."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+
+    dst, _ = _k3_pair(5, 64, 128, 16)
+    with pytest.raises(ValueError, match="must lie in"):
+        cm.gossip_round(dst, np.arange(64) + 1)
+    script = (
+        "import numpy as np, torch\n"
+        "from go_crdt_playground_tpu_torch.models import awset\n"
+        "from go_crdt_playground_tpu_torch.ops import cuda_merge as cm\n"
+        "st = awset.init({R}, {E}, 16, actors=np.arange({R}) % 16,\n"
+        "                device='cuda')\n"
+        "perm = torch.arange({R}, device='cuda', dtype={dtype})\n"
+        "perm[40] = {bad}\n"
+        "cm.gossip_round(st, perm)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error')\n")
+    # many rows and an int64 perm, few wide rows and an int32 perm
+    for R, E, dtype, bad in ((4096, 128, "torch.int64", 4096),
+                             (64, 1000, "torch.int32", -1)):
+        src = script.format(R=R, E=E, dtype=dtype, bad=bad)
+        out = subprocess.run([sys.executable, "-c", src], capture_output=True,
+                             text=True, timeout=300,
+                             cwd=str(Path(__file__).resolve().parent.parent))
+        assert out.returncode != 0 and "no error" not in out.stdout, out
+        assert "device-side assert" in out.stderr, out.stderr[-2000:]
+        assert f"perm[40] = {bad} outside [0, {R})" in out.stdout, out.stdout
+
+
+def test_cuda_serve_frontend_acks_two_sessions_and_restores(tmp_path):
+    """A torch ServeFrontend on the card (every micro-batch one K10
+    launch, from the batcher's thread): a burst from two client
+    sessions acks, members equal the sessions' set algebra, one launch a
+    batch, and the durable dir restores bitwise on the card and on the
+    CPU."""
+    import threading
+
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.serve import ServeClient, ServeFrontend
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    E, A = 256, 16
+    d = str(tmp_path / "d")
+    fe = ServeFrontend(E, A, durable_dir=d, max_batch=8, flush_ms=1.0,
+                       device="cuda")
+    fe.serve()
+    before = ci.ingest_rows_delta_fused.launches
+    want = [set(), set()]
+
+    def session(s):
+        with ServeClient(fe.addr) as c:
+            ops = []
+            for i in range(60):
+                key = 2 * i + s
+                if i % 7 == 6:
+                    ops.append(c.submit_async(1, [key - 2]))
+                    want[s].discard(key - 2)
+                else:
+                    ops.append(c.submit_async(0, [key]))
+                    want[s].add(key)
+            for op in ops:
+                op.wait(60.0)
+
+    threads = [threading.Thread(target=session, args=(s,)) for s in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120.0)
+    with ServeClient(fe.addr) as c:
+        members, vv = c.members()
+    snap = fe.recorder.snapshot()["counters"]
+    live = fe.node.state_slice()
+    fe.close()
+    assert members == sorted(want[0] | want[1])
+    assert snap["serve.ops.acked"] == 120 and int(vv[0]) == 120
+    assert ci.ingest_rows_delta_fused.launches - before == \
+        snap["serve.batches"]
+    for dev in ("cuda", "cpu"):
+        back = Node.restore_durable(d, device=dev)
+        assert _equal(tuple(x.to(dev) for x in live), back.state_slice())
+        back.wal.close()

@@ -85,8 +85,13 @@ def _imported_modules(path: Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "tools").glob("torch_*.py")))
     assert len(files) > 10
+    for part in ("serve/frontend.py", "shard/replica.py", "obs/metrics.py",
+                 "utils/degrade.py"):
+        assert PORT / part in files
+    assert REPO / "tools" / "torch_serve_soak.py" in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -105,8 +110,12 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path):
     from go_crdt_playground_tpu_torch.ops.cuda_ingest import \
         ingest_rows_delta_fused
     from go_crdt_playground_tpu_torch.parallel import gossip
+    from go_crdt_playground_tpu_torch.serve import ServeFrontend
     from go_crdt_playground_tpu_torch.utils.checkpoint import (
         CheckpointStore, restore_checkpoint, save_checkpoint)
+
+    sys.path.insert(0, str(REPO / "tools"))
+    import torch_serve_soak
 
     calls = [
         lambda: awset.init(2, 4, 2),
@@ -131,6 +140,11 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path):
         lambda: gossip.ring_perm(4),
         lambda: gossip.butterfly_perm(4, 0),
         lambda: gossip.random_perm(prng.key(0), 4),
+        lambda: main(["serve", "--ingest"]),
+        lambda: ServeFrontend(16, 2),
+        lambda: torch_serve_soak.Worker(
+            str(tmp_path / "soak"), torch_serve_soak.free_port(), 16,
+            "cuda", queue_depth=8, max_batch=4, flush_ms=1.0),
     ]
     CheckpointStore(str(tmp_path)).save(
         Node(0, 4, 2, device="cpu").state_slice(), metadata={"actor": 0})
@@ -182,5 +196,5 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "68 skipped" in out.stdout or "68 passed" in out.stdout, \
+    assert "100 skipped" in out.stdout or "100 passed" in out.stdout, \
         out.stdout

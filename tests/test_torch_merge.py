@@ -4,6 +4,7 @@ as the JAX package's own tests run them on the CPU.  Bitwise."""
 
 import numpy as np
 import pytest
+import torch
 
 from go_crdt_playground_tpu.ops import merge as jax_merge
 from go_crdt_playground_tpu.ops import pallas_merge
@@ -151,3 +152,27 @@ def test_kernel_dispatch_rules():
         rand_state(np.random.default_rng(1), 4, 8, 2),
         jax_gossip.ring_perm(4, 1), kernel="xla"),
         cuda_merge.ring_round_rows(st, 1, kernel="torch"))
+
+
+def _k3_bad(st, how):
+    """One way for a K3 batch to be malformed."""
+    if how == "dtype":
+        return st._replace(dot_counter=st.dot_counter.to(torch.int64))
+    if how == "shape":
+        return st._replace(present=st.present[:, :-1])
+    return st._replace(vv=st.vv.t().contiguous().t())  # strided
+
+
+@pytest.mark.parametrize("how", ["dtype", "shape", "layout"])
+def test_k3_check_rejects_malformed_batches(how):
+    """K3's one check pass (``cuda_merge._k3_check``) over both batches:
+    the well-formed pair passes and names its shape, a malformed dst or
+    src raises ValueError before anything launches."""
+    rng = np.random.default_rng(7)
+    dst = to_torch(rand_state(rng, 4, 8, 3))
+    src = to_torch(rand_state(rng, 4, 8, 3))
+    assert cuda_merge._k3_check(dst, src)[:3] == (4, 8, 3)
+    assert cuda_merge._k3_check(dst, dst)[:3] == (4, 8, 3)
+    for pair in ((_k3_bad(dst, how), src), (dst, _k3_bad(src, how))):
+        with pytest.raises(ValueError):
+            cuda_merge._k3_check(*pair)

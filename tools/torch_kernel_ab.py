@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
-"""Time the port's digest kernel (K11, csrc/digest.cu) and ingest entry
-(K10, csrc/ingest.cu) built from two source trees, in turns on one GPU.
+"""Time the port's one-row merge entries (K3, csrc/merge.cu), digest
+kernel (K11, csrc/digest.cu) and ingest entry (K10, csrc/ingest.cu)
+built from two source trees, in turns on one GPU.
 
     git archive <commit> go_crdt_playground_tpu_torch/csrc | tar -x -C D
-    python3 tools/torch_kernel_ab.py \
+    python3 tools/torch_kernel_ab.py --legs k3 \
         --other D/go_crdt_playground_tpu_torch/csrc
 
-``--other`` is a tree whose K10 is the fold-only kernel
-(``crdt_ingest_fold``: the rows' prefix sums, the clocks and the
-compaction in torch around it) and whose K11 has the fingerprint-per-
-thread design; this tree's K10 is the whole entry in one launch
-(``crdt_ingest``).  Both K11 builds share the C interface
-``crdt_group_digests``.  Each design is timed as a whole call (host path
-included, CUDA events around back-to-back calls) with its kernel time,
-its device busy time (every device operation of the call) and device
-operations a call from torch.profiler, in the order other, this,
-this, other, and the outputs of the two designs are compared bitwise:
+``--legs`` picks the legs (default ``k3,k10,k11``); each leg wants its
+own kind of ``--other`` tree:
+
+  * k3: a tree whose K3 is K2's block-per-row kernel behind the shared
+    ``crdt_merge_round`` (before ``crdt_merge_rows_k3``), timed through
+    that wrapper's host path (``as_index``'s device range check, a check
+    pass per batch, five outputs, the device context) at the gossip
+    verb's fleet (64 x 128, A = 64: ``gossip_round`` over a ring perm
+    and ``merge_pairwise``), at a wide row (64 x 1,000, A = 16) and at
+    4,096 x 128 (A = 64);
+  * k10, k11: a tree whose K10 is the fold-only kernel
+    (``crdt_ingest_fold``: the rows' prefix sums, the clocks and the
+    compaction in torch around it) and whose K11 has the fingerprint-
+    per-thread design (before the whole-entry K10); this tree's K10 is
+    the whole entry in one launch (``crdt_ingest``).  Both K11 builds share
+    the C interface ``crdt_group_digests``.
+
+Each design is timed as a whole call (host path included, CUDA events
+around back-to-back calls) with its kernel time, its device busy time
+(every device operation of the call) and device operations a call from
+torch.profiler, in the order other, this, this, other, and the outputs
+of the two designs are compared bitwise:
 
   * K11 at E = 2^20, gs = 64 (one node's universe) and E = 8,192, gs =
     64 (bench.measure_mesh's digest read), the other design through its
@@ -61,7 +74,15 @@ def bind(path: Path, name: str, tag: str):
     lib = ctypes.CDLL(str(path))
     lib.crdt_error_string.argtypes = [I32]
     lib.crdt_error_string.restype = ctypes.c_char_p
-    if name == "digest":
+    if name == "merge":
+        lib.crdt_merge_round.argtypes = (
+            [P] * 9 + [I64, I32] + [P] * 4 + [I64, I64, I32, I32, P])
+        lib.crdt_merge_round.restype = I32
+        if tag == "this":
+            lib.crdt_merge_rows_k3.argtypes = (
+                [P] * 9 + [I32] + [P] * 4 + [I64, I64, I32, P])
+            lib.crdt_merge_rows_k3.restype = I32
+    elif name == "digest":
         lib.crdt_group_digests.argtypes = [P] * 5 + [I64, I64, P]
         lib.crdt_group_digests.restype = I32
     elif tag == "this":
@@ -112,6 +133,46 @@ def old_k11(lib, state, gs: int):
 
 
 old_k11.calls = 0
+
+
+def old_k3(lib, dst, src, perm):
+    """The other design's K3 call as its wrapper made it:
+    ``as_index`` (a device perm range-checked by five device operations
+    and an asynchronous assert), ``check_state`` over each batch, five
+    outputs, the device context, a 20-argument call to K2's kernel, an
+    unlocked count."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.ops.cuda_merge import ptr, stream_of
+
+    mode = cm.PARTNER_PAIRWISE
+    if perm is not None:
+        perm = cm.as_index(perm, dst.num_replicas, dst.vv.device)
+        mode = cm.PARTNER_GATHER
+    cm.check_state(dst)
+    if src is not dst:
+        cm.check_state(src)
+        if (type(src) is not type(dst)
+                or any(s.shape != d.shape for s, d in zip(src, dst))
+                or src.vv.device != dst.vv.device):
+            raise ValueError("dst and src batches must match")
+    num_r, num_a = dst.vv.shape
+    outs = cm.out_like(dst)
+    with torch.cuda.device(dst.vv.device):
+        rc = lib.crdt_merge_round(
+            ptr(dst.vv), *map(ptr, cm._merge_lanes(dst)),
+            ptr(src.vv), *map(ptr, cm._merge_lanes(src)),
+            ptr(perm), 0, mode, ptr(outs.vv), *map(ptr, cm._merge_lanes(outs)),
+            num_r, dst.present.shape[1], num_a, cm.LAYOUT_BOOL,
+            stream_of(dst.vv))
+    if rc:
+        raise RuntimeError(f"crdt_merge_round failed ({rc})")
+    old_k3.calls += 1
+    return outs
+
+
+old_k3.calls = 0
 
 
 def old_k10(lib, state, add, dl, live, k: int):
@@ -204,7 +265,14 @@ def main() -> int:
                     help="this tree's csrc directory (default: the "
                     "package's own)")
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--legs", default="k3,k10,k11",
+                    help="comma-separated legs: k3, k10, k11")
     args = ap.parse_args()
+    legs = set(args.legs.split(","))
+    if not legs <= {"k3", "k10", "k11"}:
+        ap.error(f"unknown legs in {args.legs!r}")
+    sources = ([n for leg, n in (("k3", "merge"), ("k11", "digest"),
+                                 ("k10", "ingest")) if leg in legs])
 
     import numpy as np
     import torch
@@ -212,6 +280,7 @@ def main() -> int:
     import chip_smoke
     from go_crdt_playground_tpu_torch.ops import cuda_digest as cg
     from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
     from go_crdt_playground_tpu_torch.ops._build import CSRC
 
     if not torch.cuda.is_available():
@@ -225,19 +294,53 @@ def main() -> int:
                  "this": (args.this or CSRC).resolve()}
         started = {(tag, name): build(csrc, name, Path(tmp), tag)
                    for tag, csrc in trees.items()
-                   for name in ("digest", "ingest")}
+                   for name in sources}
         libs = {}
         for (tag, name), (proc, path) in started.items():
             report, _ = proc.communicate()
             if proc.returncode:
                 raise RuntimeError(f"nvcc {tag} {name}:\n{report}")
-            kernel = "group_digests" if name == "digest" else "ingest"
+            kernel = {"digest": "group_digests", "ingest": "ingest",
+                      "merge": "merge_rows"}[name]
             for line in chip_smoke.ptxas_report(report, kernel):
                 print(f"  ptxas [{tag} {name}]: {line}", flush=True)
             libs[tag, name] = bind(path, name, tag)
 
         rng = np.random.default_rng(31)
-        for E, gs in ((1 << 20, 64), (8192, 64)):
+        k3_cases = ((*chip_smoke.CLI_SHAPE, True),
+                    (*chip_smoke.CLI_SHAPE, False), (64, 1000, 16, True),
+                    (4096, 128, 64, True))
+        for R, E, A, gather in (k3_cases if "k3" in legs else ()):
+            dst = chip_smoke.random_delta_state(rng, R, E, A, 0x7FFFFFF8,
+                                                "cuda").base()
+            src = dst
+            perm = None
+            if gather:
+                perm = torch.from_numpy(rng.permutation(R)).cuda()
+            else:
+                src = chip_smoke.random_delta_state(rng, R, E, A, 7,
+                                                    "cuda").base()
+            calls = {
+                "other": lambda: old_k3(libs["other", "merge"], dst, src,
+                                        perm),
+                "this": lambda: cm._k3_launch(dst, src, perm,
+                                              libs["this", "merge"]),
+            }
+            want = (cm.gossip_round(dst, perm, kernel="torch") if gather
+                    else cm.merge_pairwise(dst, src, kernel="torch"))
+            for tag in ("other", "this"):
+                if not equal(calls[tag](), want):
+                    raise AssertionError(f"K3 R={R} E={E} A={A}: the {tag} "
+                                         "design differs from plain")
+            names = {"other": ("merge_rows",), "this": ("merge_rows",)}
+            t = in_turns(calls, names, args.reps)
+            key = (f"K3 {'gossip_round' if gather else 'merge_pairwise'} "
+                   f"R={R} E={E} A={A}")
+            rows[key] = t
+            print(f"{key}: other {fmt(t['other'])}; this {fmt(t['this'])} "
+                  f"[{smi}]", flush=True)
+
+        for E, gs in ((1 << 20, 64), (8192, 64)) if "k11" in legs else ():
             st = chip_smoke.random_delta_state(rng, 1, E, 16, 0x7FFFFFF8,
                                                "cuda")
             row = type(st)(*(x[0] for x in st))
@@ -259,7 +362,7 @@ def main() -> int:
                   f"[{smi}]", flush=True)
 
         E, A = chip_smoke.INGEST_E, chip_smoke.INGEST_A
-        for B, keys in chip_smoke.INGEST_LEGS:
+        for B, keys in chip_smoke.INGEST_LEGS if "k10" in legs else ():
             k = min(128, E)
             row = chip_smoke.ingest_slice(rng, E, A, 0, 40, False, "cuda")
             add = np.zeros((B, E), bool)
