@@ -1,9 +1,37 @@
 """The networked replica node (net/peer.py), its message framing
-(net/framing.py), digest-driven anti-entropy (net/digestsync.py) and the
-sync supervisor (net/antientropy.py)."""
+(net/framing.py), digest-driven anti-entropy (net/digestsync.py), the
+sync supervisor (net/antientropy.py) and seeded fault injection
+(net/faults.py).
 
-from go_crdt_playground_tpu_torch.net.antientropy import (  # noqa: F401
-    CircuitBreaker, SyncSupervisor, classify_failure)
-from go_crdt_playground_tpu_torch.net.peer import (  # noqa: F401
-    ConnectFailed, Node, PeerProtocolError, PeerReset, PeerTimeout,
-    SyncError, SyncStats)
+The names below load on first use: the router tier imports
+``net.framing`` and ``net.breaker`` and must not load torch, which
+``net.peer`` does.
+"""
+
+import importlib
+
+_EXPORTS = {
+    "CircuitBreaker": "breaker",
+    "SyncSupervisor": "antientropy",
+    "classify_failure": "antientropy",
+    "ChaosProxy": "faults",
+    "ChaosScenario": "faults",
+    "StorageFaults": "faults",
+    "StorageScenario": "faults",
+    "ConnectFailed": "peer",
+    "Node": "peer",
+    "PeerProtocolError": "peer",
+    "PeerReset": "peer",
+    "PeerTimeout": "peer",
+    "SyncError": "peer",
+    "SyncStats": "peer",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from go_crdt_playground_tpu_torch._u32 import host, to_host
+from go_crdt_playground_tpu_torch._host import host, to_host
 from go_crdt_playground_tpu_torch.utils import wire
 
 MAGIC = b"\xc7\xd1"

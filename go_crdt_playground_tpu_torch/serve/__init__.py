@@ -13,23 +13,41 @@ The counterpart of the JAX package's ``serve/``: the same protocol,
 replies, WAL records and counters, over a torch replica (one K10 launch
 a micro-batch on CUDA).  The mesh flavors and the admission scheduler
 are not ported yet (``NotYetPorted``).
+
+The names below load on first use: the router tier imports the client,
+the protocol and the connection host and must not load torch, which the
+frontend does.
 """
 
-from go_crdt_playground_tpu_torch.serve.admission import (AdmissionQueue,  # noqa: F401
-                                                    OpRequest)
-from go_crdt_playground_tpu_torch.serve.apply import (ApplyTarget,  # noqa: F401
-                                                HandoffTarget)
-from go_crdt_playground_tpu_torch.serve.batcher import MicroBatcher  # noqa: F401
-from go_crdt_playground_tpu_torch.serve.client import (PendingOp,  # noqa: F401
-                                                 ServeClient)
-from go_crdt_playground_tpu_torch.serve.compaction import \
-    CompactionScheduler  # noqa: F401
-from go_crdt_playground_tpu_torch.serve.frontend import (  # noqa: F401
-    NotYetPorted, ServeFrontend)
-from go_crdt_playground_tpu_torch.serve.host import ConnHost  # noqa: F401
-from go_crdt_playground_tpu_torch.serve.protocol import (DeadlineExceeded,  # noqa: F401
-                                                   Draining, InvalidOp,
-                                                   KeyspaceMoving,
-                                                   Overloaded, ServeError,
-                                                   ShardUnavailable)
-from go_crdt_playground_tpu_torch.serve.session import Session  # noqa: F401
+import importlib
+
+_EXPORTS = {
+    "AdmissionQueue": "admission",
+    "OpRequest": "admission",
+    "ApplyTarget": "apply",
+    "HandoffTarget": "apply",
+    "MicroBatcher": "batcher",
+    "PendingOp": "client",
+    "ServeClient": "client",
+    "CompactionScheduler": "compaction",
+    "NotYetPorted": "frontend",
+    "ServeFrontend": "frontend",
+    "ConnHost": "host",
+    "DeadlineExceeded": "protocol",
+    "Draining": "protocol",
+    "InvalidOp": "protocol",
+    "KeyspaceMoving": "protocol",
+    "Overloaded": "protocol",
+    "ServeError": "protocol",
+    "ShardUnavailable": "protocol",
+    "Session": "session",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

@@ -60,20 +60,21 @@ router restart adopts a COMMITTED ring over its CLI flags and treats a
 staged-but-uncommitted epoch as aborted.  A router SIGKILL mid-handoff
 therefore resumes serving the old ring; donors/recipients recover
 their halves from their own WAL/checkpoints.
-
-The port holds the durable records of this module (the ring and epoch
-files, the router and shard epochs) that a serving frontend and a
-shard standby read and write.  ``HandoffCoordinator`` and
-``RouteState`` drive the router's side and come with the router tier,
-which is not ported yet.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Tuple
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
+from go_crdt_playground_tpu_torch.shard.ring import (HashRing, handoff_plan,
+                                               remap_fraction)
+from go_crdt_playground_tpu_torch.utils.backoff import Backoff, BackoffPolicy
 from go_crdt_playground_tpu_torch.utils.fsutil import fsync_dir
 
 Addr = Tuple[str, int]
@@ -104,6 +105,51 @@ SHARD_EPOCHS_FILE = "shard_epochs.json"
 class HandoffError(RuntimeError):
     """A handoff aborted (reason in the message).  The old ring is
     still the active route — callers reply failure and keep serving."""
+
+
+class RouteState:
+    """One immutable routing snapshot: the ring, its precomputed owner
+    map, a monotone swap generation, the owner-map digest, and the
+    optional handoff fence.  The hot path reads ONE of these per op
+    (``ShardRouter.route()``), so a ring swap is atomic by construction
+    — there is no half-updated routing state to observe."""
+
+    __slots__ = ("ring", "owner", "generation", "digest", "fence")
+
+    def __init__(self, ring: HashRing, owner: np.ndarray, generation: int,
+                 digest: str, fence: Optional[np.ndarray] = None):
+        # race-ok: all fields are write-once at construction; every
+        # reader got this object from a locked swap point
+        self.ring = ring
+        self.owner = owner
+        self.generation = generation
+        self.digest = digest
+        self.fence = fence  # bool[E] moved-slice mask, None = no fence
+
+    def owner_sid(self, element_id: int) -> str:
+        return self.ring.shards[self.owner[element_id]]
+
+    def fenced(self, elements: Sequence[int]) -> bool:
+        if self.fence is None:
+            return False
+        return any(self.fence[e] for e in elements)
+
+    def with_fence(self, fence: Optional[np.ndarray]) -> "RouteState":
+        return RouteState(self.ring, self.owner, self.generation,
+                          self.digest, fence)
+
+    def info(self) -> Dict[str, object]:
+        """The STATS/banner read-out: which ring this router is
+        actually serving (the observability the soak's failed-handoff
+        adjudication leans on)."""
+        return {
+            "generation": self.generation,
+            "digest": self.digest,
+            "shards": list(self.ring.shards),
+            "seed": self.ring.seed,
+            "fenced": (int(self.fence.sum())
+                       if self.fence is not None else 0),
+        }
 
 
 def _load_json(path: str) -> Optional[dict]:
@@ -197,3 +243,283 @@ def persist_router_epoch(state_dir: Optional[str], epoch: int,
     os.makedirs(state_dir, exist_ok=True)
     write_json_atomic(state_dir, ROUTER_EPOCH_FILE,
                       {"router_epoch": int(epoch), "owner": owner})
+
+
+class HandoffCoordinator:
+    """Drives one handoff epoch at a time against a ``ShardRouter``.
+
+    Single concurrent handoff by design (``_active``): overlapping
+    membership changes would need plan composition nothing requires —
+    the admin verb replies a typed failure and the operator retries.
+    """
+
+    # pull/push retry gate (seeded, jittered — utils/backoff)
+    DEFAULT_POLICY = BackoffPolicy(base_s=0.05, multiplier=2.0, cap_s=1.0,
+                                   jitter=0.1, max_retries=6)
+
+    def __init__(self, router, *, state_dir: Optional[str] = None,
+                 recorder=None, fence_timeout_s: float = 10.0,
+                 transfer_timeout_s: float = 30.0,
+                 policy: Optional[BackoffPolicy] = None, seed: int = 0):
+        self.router = router
+        self.recorder = recorder
+        self.state_dir = state_dir
+        self.fence_timeout_s = fence_timeout_s
+        self.transfer_timeout_s = transfer_timeout_s
+        self.policy = policy if policy is not None else self.DEFAULT_POLICY
+        self.seed = seed
+        self._lock = threading.Lock()
+        self._active = False  # guarded-by: _lock
+        self._epoch = 0  # guarded-by: _lock
+        if state_dir is not None:
+            os.makedirs(state_dir, exist_ok=True)
+            epoch = 0
+            for rec in (load_ring_file(state_dir),
+                        load_epoch_file(state_dir)):
+                if rec is not None:
+                    epoch = max(epoch, int(rec.get("epoch", 0)))
+            with self._lock:
+                self._epoch = epoch
+
+    @property
+    def epoch(self) -> int:
+        """The monotone HANDOFF epoch (ring-change counter) — exposed
+        so the RING_SYNC tail record can carry it and a promoting
+        standby's coordinator resumes past it."""
+        with self._lock:
+            return self._epoch
+
+    # -- the admin verb -----------------------------------------------------
+
+    def reshard(self, mode: str, sid: str,
+                addr: Optional[Addr] = None) -> dict:
+        """Run one join/leave handoff end to end; returns the commit
+        accounting.  Raises ``HandoffError`` on abort — the old ring is
+        still serving and the router replies the reason typed."""
+        with self._lock:
+            if self._active:
+                raise HandoffError("another handoff is in progress")
+            self._active = True
+            self._epoch += 1
+            epoch = self._epoch
+        try:
+            return self._run(epoch, mode, sid, addr)
+        finally:
+            with self._lock:
+                self._active = False
+
+    def _run(self, epoch: int, mode: str, sid: str,
+             addr: Optional[Addr]) -> dict:
+        router = self.router
+        t0 = time.monotonic()
+        staged_link = None
+        fenced = False
+        try:
+            rt = router.route()
+            ring_after = self._candidate_ring(rt.ring, mode, sid, addr)
+            owners_after = ring_after.owner_map(router.num_elements)
+            remap = remap_fraction(rt.owner, owners_after,
+                                   rt.ring.shards, ring_after.shards)
+            plan = handoff_plan(rt.owner, owners_after,
+                                rt.ring.shards, ring_after.shards)
+            self._persist(epoch, PHASE_STAGED, rt.info(),
+                          {"mode": mode, "sid": sid,
+                           "moved": remap["moved"]})
+            if mode == "join":
+                # the recipient link exists STAGED-only until commit:
+                # no client op can route to it, but the transfer rides
+                # the same breaker/backoff machinery as live links
+                staged_link = router.make_link(sid, addr)
+
+            # fence: moved-slice ops now reject typed-retryable; wait
+            # for handlers that pre-date the fence to finish
+            # registering, then for every donor's in-flight moved
+            # sub-ops to resolve (each resolution is a durable donor
+            # ack or a typed reject — either way the slice snapshot
+            # that follows contains everything ever acked)
+            fence = np.zeros(router.num_elements, bool)
+            for _, _, elems in plan:
+                fence[elems] = True
+            router.set_fence(fence)
+            fenced = True
+            t_fence = time.monotonic()
+            self._count("router.reshard.fences")
+            settle_deadline = t_fence + self.fence_timeout_s
+            router.await_ops_settled(settle_deadline)
+            self._await_donors_drained(plan, fence, settle_deadline)
+
+            # transfer: pull each donor slice, push to its recipient
+            transfer_deadline = time.monotonic() + self.transfer_timeout_s
+            moved_transferred = 0
+            for src_sid, dst_sid, elems in plan:
+                src_link = router.link(src_sid)
+                if src_link is None:
+                    raise HandoffError(f"donor {src_sid} not in ring")
+                if staged_link is not None and dst_sid == sid:
+                    dst_link = staged_link
+                else:
+                    dst_link = router.link(dst_sid)
+                    if dst_link is None:
+                        raise HandoffError(
+                            f"recipient {dst_sid} not in ring")
+                payload = self._with_retries(
+                    lambda: src_link.slice_pull(elems),
+                    f"pull {len(elems)} elements from {src_sid}",
+                    transfer_deadline, epoch)
+                self._with_retries(
+                    lambda: dst_link.slice_push(payload),
+                    f"push {len(elems)} elements to {dst_sid}",
+                    transfer_deadline, epoch)
+                moved_transferred += len(elems)
+
+            # commit, in two steps whose failure modes are both safe:
+            # PERSIST the committed record FIRST (a failure here
+            # funnels to the abort arm while the old ring genuinely is
+            # still the active route — persisting after the swap could
+            # report "aborted" for a ring that irreversibly swapped),
+            # THEN the atomic in-memory RouteState swap.  A process
+            # death between the two restarts onto the persisted NEW
+            # ring, whose slices are already durable on their
+            # recipients — routing-consistent either way.
+            digest = ring_after.digest(router.num_elements, owners_after)
+            generation = router.route().generation + 1  # single handoff
+            committed_shards = {
+                s: (staged_link.addr
+                    if staged_link is not None and s == sid
+                    else router.shard_roster(s))
+                for s in ring_after.shards}
+            fence_s = time.monotonic() - t_fence
+            detail = {
+                "epoch": epoch,
+                "mode": mode,
+                "sid": sid,
+                "moved": remap["moved"],
+                "moved_transferred": moved_transferred,
+                "fraction": remap["fraction"],
+                "gratuitous": len(remap["gratuitous"]),
+                "pairs": [[s, d, len(e)] for s, d, e in plan],
+                "fence_s": round(fence_s, 4),
+                "elapsed_s": round(time.monotonic() - t0, 4),
+                "generation": generation,
+                "digest": digest,
+                "shards": list(ring_after.shards),
+            }
+            new_info = {"generation": generation, "digest": digest,
+                        "shards": list(ring_after.shards),
+                        "seed": ring_after.seed, "fenced": 0}
+            self._persist(epoch, PHASE_COMMITTED, new_info, detail,
+                          shards_map=committed_shards)
+            swapped_gen = router.commit_route(
+                ring_after, owners_after, digest,
+                add_sid=sid if mode == "join" else None,
+                add_link=staged_link,
+                drop_sid=sid if mode == "leave" else None)
+            assert swapped_gen == generation, (swapped_gen, generation)
+            staged_link = None  # the router owns it now
+            fenced = False      # cleared by the swap
+            self._count("router.reshard.commits")
+            return detail
+        except Exception as e:  # noqa: BLE001 — EVERY failure funnels
+            # through the abort arm: the old ring must come back
+            # serving no matter what broke mid-handoff
+            if fenced:
+                router.clear_fence()
+            if staged_link is not None:
+                staged_link.close()
+            reason = (str(e) if isinstance(e, HandoffError)
+                      else f"{type(e).__name__}: {e}")
+            self._persist(epoch, PHASE_ABORTED, router.route().info(),
+                          {"mode": mode, "sid": sid, "reason": reason})
+            self._count("router.reshard.aborts")
+            if isinstance(e, HandoffError):
+                raise
+            raise HandoffError(f"handoff aborted: {reason}") from e
+
+    # -- helpers ------------------------------------------------------------
+
+    @staticmethod
+    def _candidate_ring(ring: HashRing, mode: str, sid: str,
+                        addr: Optional[Addr]) -> HashRing:
+        if mode == "join":
+            if addr is None:
+                raise HandoffError("join requires the shard's address")
+            if sid in ring.shards:
+                raise HandoffError(f"shard {sid!r} already in the ring")
+            return ring.with_shard(sid)
+        if mode == "leave":
+            try:
+                return ring.without_shard(sid)
+            except ValueError as e:
+                raise HandoffError(str(e)) from e
+        raise HandoffError(f"unknown reshard mode {mode!r}")
+
+    def _await_donors_drained(self, plan, fence: np.ndarray,
+                              deadline: float) -> None:
+        for src_sid in sorted({s for s, _, _ in plan}):
+            link = self.router.link(src_sid)
+            if link is None:
+                raise HandoffError(f"donor {src_sid} not in ring")
+            while link.pending_touching(fence) > 0:
+                if time.monotonic() > deadline:
+                    raise HandoffError(
+                        f"in-flight ops on donor {src_sid} did not "
+                        f"settle within {self.fence_timeout_s}s")
+                time.sleep(0.005)
+
+    def _with_retries(self, fn, what: str, deadline: float,
+                      epoch: int):
+        """Run one transfer step with jittered-backoff retries on
+        TRANSIENT failure, bounded by the transfer deadline.  A
+        deterministic reject (e.g. an incompatible payload) aborts
+        immediately — retrying the same bytes cannot help."""
+        from go_crdt_playground_tpu_torch.serve import protocol
+        from go_crdt_playground_tpu_torch.shard import router as router_mod
+
+        bo = Backoff(self.policy, seed=self.seed * 100003 + epoch)
+        while True:
+            try:
+                return fn()
+            except (router_mod._Unreachable, protocol.Overloaded,
+                    protocol.Draining, ConnectionError, OSError) as e:
+                self._count("router.reshard.transfer_retries")
+                delay = bo.next_delay()
+                if delay is None:
+                    bo.reset()
+                    delay = self.policy.cap_s
+                if time.monotonic() + delay > deadline:
+                    raise HandoffError(
+                        f"transfer step failed past deadline "
+                        f"({what}): {e}") from e
+                time.sleep(delay)
+            except protocol.ServeError as e:
+                raise HandoffError(
+                    f"transfer step refused ({what}): {e}") from e
+
+    def _persist(self, epoch: int, phase: str, route_info: dict,
+                 detail: dict,
+                 shards_map: Optional[Dict[str, Addr]] = None) -> None:
+        """fsync-then-rename atomic epoch records.  Every phase writes
+        the EPOCH breadcrumb; only COMMITTED (which must pass
+        ``shards_map``, the post-swap membership with addresses) also
+        rewrites the ring record a restart adopts — so a kill during a
+        staged/aborting handoff leaves the previously-committed ring
+        intact on disk (restart = old ring serving, the
+        abort-on-restart semantics)."""
+        if self.state_dir is None:
+            return
+        rec = {"epoch": epoch, "phase": phase, "route": route_info,
+               "detail": detail}
+        write_json_atomic(self.state_dir, EPOCH_FILE, rec)
+        if phase == PHASE_COMMITTED:
+            # a restarted router rebuilds the ring from this
+            rec = dict(rec)
+            rec["shards"] = {s: list(a) for s, a in shards_map.items()}
+            rec["seed"] = int(route_info["seed"])
+            rec["elements"] = self.router.num_elements
+            rec["generation"] = detail["generation"]
+            rec["digest"] = detail["digest"]
+            write_json_atomic(self.state_dir, RING_FILE, rec)
+
+    def _count(self, name: str, n: int = 1) -> None:
+        if self.recorder is not None:
+            self.recorder.count(name, n)

@@ -21,12 +21,14 @@ decoded arrays to its device.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import TYPE_CHECKING, Tuple
 
 import numpy as np
 
-from go_crdt_playground_tpu_torch._u32 import host
-from go_crdt_playground_tpu_torch.ops.delta import DeltaPayload
+from go_crdt_playground_tpu_torch._host import host
+
+if TYPE_CHECKING:  # the decoders import it when they build one
+    from go_crdt_playground_tpu_torch.ops.delta import DeltaPayload
 
 
 def _put_varint(out: bytearray, v: int) -> None:
@@ -112,6 +114,8 @@ def _decode_vv_py(buf: bytes, pos: int, a: int):
 
 def _payload(src_vv, changed, ch_da, ch_dc, deleted, del_da, del_dc,
              src_actor, src_processed) -> DeltaPayload:
+    from go_crdt_playground_tpu_torch.ops.delta import DeltaPayload
+
     return DeltaPayload(
         src_vv=src_vv, changed=changed, ch_da=ch_da, ch_dc=ch_dc,
         deleted=deleted, del_da=del_da, del_dc=del_dc,

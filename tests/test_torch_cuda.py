@@ -596,3 +596,103 @@ def test_cuda_serve_frontend_acks_two_sessions_and_restores(tmp_path):
         back = Node.restore_durable(d, device=dev)
         assert _equal(tuple(x.to(dev) for x in live), back.state_slice())
         back.wal.close()
+
+
+def test_cuda_router_over_cuda_frontends(tmp_path):
+    """Three torch ServeFrontends on the card behind a torch ShardRouter:
+    a spanning op acks once, the routed members and vv are the ops' set
+    algebra, each shard launched K10 once a batch, and each shard's
+    replica equals a CPU node fed the sub-stream the ring assigns it."""
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.serve import ServeClient, ServeFrontend
+    from go_crdt_playground_tpu_torch.shard.router import ShardRouter
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    E, A = 256, 4
+    fes = [ServeFrontend(E, A, actor=i, durable_dir=str(tmp_path / f"s{i}"),
+                         max_batch=8, flush_ms=1.0, device="cuda")
+           for i in range(3)]
+    router = None
+    try:
+        addrs = {f"s{i}": fe.serve() for i, fe in enumerate(fes)}
+        router = ShardRouter(addrs, E, seed=5)
+        raddr = router.serve()
+        before = ci.ingest_rows_delta_fused.launches
+        stream = [(0, list(range(0, 40))), (1, [3, 9, 27]),
+                  (0, [9, 100, 200]), (1, [100]), (0, [255, 0])]
+        with ServeClient(raddr) as c:
+            for kind, keys in stream:
+                c.submit_async(kind, keys).wait(60.0)
+            members, vv = c.members()
+        want = set()
+        for kind, keys in stream:
+            (want.difference_update if kind else want.update)(keys)
+        assert members == sorted(want)
+        batches = sum(fe.recorder.snapshot()["counters"]["serve.batches"]
+                      for fe in fes)
+        assert ci.ingest_rows_delta_fused.launches - before == batches
+        owner = router.route()
+        for i, fe in enumerate(fes):
+            ref = Node(i, E, A, device="cpu")
+            for kind, keys in stream:
+                mine = [k for k in keys if owner.owner_sid(k) == f"s{i}"]
+                if mine:
+                    (ref.delete if kind else ref.add)(*mine)
+            assert _equal(tuple(x.cpu() for x in fe.node.state_slice()),
+                          ref.state_slice())
+            assert int(vv[i]) == int(ref.vv()[i])
+    finally:
+        if router is not None:
+            router.close()
+        for fe in fes:
+            fe.close()
+
+
+def test_cuda_shard_standby_catches_up_and_promotes(tmp_path):
+    """A ShardStandby on the card: digest catch-up (K11) after the
+    primary truncated its WAL, a tail, then promotion when the primary
+    closes; its whole-universe slice equals restore_durable's."""
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_digest
+    from go_crdt_playground_tpu_torch.serve import ServeClient, ServeFrontend
+    from go_crdt_playground_tpu_torch.shard.fleet import free_port
+    from go_crdt_playground_tpu_torch.shard.replica import (POLL_CAUGHT_UP,
+                                                            POLL_PROMOTED,
+                                                            ShardStandby)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    E, A = 512, 4
+    p_dir = str(tmp_path / "p0")
+    fe = ServeFrontend(E, A, durable_dir=p_dir, max_batch=8, flush_ms=1.0,
+                       device="cuda", shard_id="s0", shard_epoch=1)
+    a0 = fe.serve()
+    with ServeClient(a0) as c:
+        c.add(*range(0, 300, 3))
+        c.delete(*range(0, 90, 9))
+    fe.supervisor.checkpoint()
+    sfe = ServeFrontend(E, A, durable_dir=str(tmp_path / "sb"), max_batch=8,
+                        flush_ms=1.0, device="cuda", shard_id="s0")
+    sb = ShardStandby(a0, sfe, sid="s0", standby_id="s0-standby",
+                      listen_addr=("127.0.0.1", free_port()),
+                      poll_interval_s=0.02, failure_threshold=2, wait_ms=20)
+    try:
+        before = cuda_digest.state_group_digests.launches
+        verdicts = [sb.poll_once(), sb.poll_once()]
+        assert POLL_CAUGHT_UP in verdicts, verdicts
+        assert cuda_digest.state_group_digests.launches > before
+        with ServeClient(a0) as c:
+            c.add(400, 401)
+        assert sb.poll_once() == "tailed"
+        fe.close()
+        assert [sb.poll_once(), sb.poll_once()][-1] == POLL_PROMOTED
+        universe = np.ones(E, bool)
+        for dev in ("cuda", "cpu"):
+            back = Node.restore_durable(p_dir, device=dev)
+            assert back.extract_slice(universe) == \
+                sfe.node.extract_slice(universe)
+            back.wal.close()
+    finally:
+        sb.close()

@@ -196,5 +196,117 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "100 skipped" in out.stdout or "100 passed" in out.stdout, \
+    assert "102 skipped" in out.stdout or "102 passed" in out.stdout, \
         out.stdout
+
+
+# -- the fleet verbs ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("args", [
+    ("--shard", "s0=127.0.0.1:1", "--shard", "s1=127.0.0.1:2",
+     "--shard", "s2=127.0.0.1:3", "--seed", "5"),
+    ("--shard", "a=h:1", "--shard", "b=h:2", "--elements", "4096"),
+    ("--shard", "s1=h:2", "--shard", "s0=h:1,h:3", "--seed", "29",
+     "--elements", "144"),
+])
+def test_router_verb_prints_what_the_jax_verb_prints(args, capsys):
+    """``router`` without ``--serve`` prints the owner-map digest line of
+    the JAX verb for the same shards, seed and elements."""
+    from go_crdt_playground_tpu_torch.__main__ import main
+
+    assert jax_main(["router", *args]) == 0
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    assert main(["router", *args]) == 0
+    got = capsys.readouterr().out.strip().splitlines()[-1]
+    assert got == want and got.startswith("owner-map digest ")
+
+
+def test_router_verb_adopts_a_committed_state_dir(tmp_path, capsys):
+    from go_crdt_playground_tpu.shard.handoff import (RING_FILE,
+                                                      write_json_atomic)
+    from go_crdt_playground_tpu.shard.ring import HashRing
+    from go_crdt_playground_tpu_torch.__main__ import main
+
+    ring = HashRing(["a", "b", "c"], seed=2)
+    write_json_atomic(str(tmp_path), RING_FILE, {
+        "phase": "committed", "epoch": 1, "generation": 1, "seed": 2,
+        "elements": 256, "digest": ring.digest(256, ring.owner_map(256)),
+        "shards": {s: ["h", i] for i, s in enumerate("abc")}})
+    args = ["router", "--shard", "z=h:9", "--seed", "2", "--elements",
+            "256", "--state-dir", str(tmp_path)]
+    assert jax_main(args) == 0
+    want = capsys.readouterr().out
+    assert main(args) == 0
+    assert capsys.readouterr().out == want
+    assert "ring from state-dir" in want
+    assert main(args[:-4] + ["--seed", "3", "--elements", "256",
+                             "--state-dir", str(tmp_path)]) == 2
+
+
+def test_serve_standby_needs_a_gpu_and_the_jax_verbs_flags(tmp_path):
+    """``serve --ingest --standby-of`` builds its replica on the card
+    unless told otherwise; without a GPU it raises.  The flags the JAX
+    verb requires exit 2 as they do there."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device runs")
+    from go_crdt_playground_tpu_torch.__main__ import main
+
+    base = ["serve", "--ingest", "--standby-of", "127.0.0.1:9"]
+    full = base + ["--port", "5999", "--durable-dir", str(tmp_path),
+                   "--shard-id", "s0"]
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        main(full)
+    assert main(base + ["--durable-dir", str(tmp_path),
+                        "--shard-id", "s0"]) == 2  # no fixed port
+    assert main(base + ["--port", "5999", "--shard-id", "s0"]) == 2
+    assert main(base + ["--port", "5999", "--durable-dir",
+                        str(tmp_path)]) == 2
+
+
+def test_fleet_spawns_shards_on_the_card_by_default(tmp_path):
+    from go_crdt_playground_tpu_torch.shard.fleet import (FleetSpec,
+                                                          ShardProc)
+
+    spec = FleetSpec(n_shards=1, elements=16)
+    assert spec.device == "cuda"
+    proc = ShardProc(str(REPO), str(tmp_path), spec, 0, 1,
+                     extra_args=("--help",))
+    try:
+        proc.proc.wait(timeout=120)
+        argv = proc.proc.args
+        assert argv[1:3] == ["-m", "go_crdt_playground_tpu_torch"]
+        assert argv[argv.index("--device") + 1] == "cuda"
+    finally:
+        proc.close()
+
+
+def test_host_tiers_load_no_torch():
+    """The router, its standby, the fleet runner, fault injection and
+    the autopilot are host-only: neither importing them nor running
+    the ``router`` dry run loads torch."""
+    code = (
+        "import sys\n"
+        "import go_crdt_playground_tpu_torch.shard.router\n"
+        "import go_crdt_playground_tpu_torch.shard.ha\n"
+        "import go_crdt_playground_tpu_torch.shard.fleet\n"
+        "import go_crdt_playground_tpu_torch.shard\n"
+        "import go_crdt_playground_tpu_torch.net.faults\n"
+        "import go_crdt_playground_tpu_torch.control\n"
+        "from go_crdt_playground_tpu_torch.__main__ import main\n"
+        "assert main(['router', '--shard', 's0=h:1']) == 0\n"
+        "assert 'torch' not in sys.modules, 'torch loaded'\n"
+        "assert 'jax' not in sys.modules, 'jax loaded'\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_fleet_modules_fall_under_the_import_scan():
+    files = set(PORT.rglob("*.py")) | set((REPO / "tools").glob("torch_*.py"))
+    for part in ("net/faults.py", "net/breaker.py", "shard/router.py",
+                 "shard/ha.py", "shard/fleet.py", "shard/handoff.py",
+                 "control/signals.py", "control/policy.py",
+                 "control/actuator.py", "control/controller.py"):
+        assert PORT / part in files
+    for tool in ("torch_fleet_serve_soak.py", "torch_chaos_soak.py"):
+        assert REPO / "tools" / tool in files

@@ -265,6 +265,59 @@ def test_standby_tails_to_a_mirror_and_promotes(tmp_path, primary_pkg):
         sb.close()
 
 
+@pytest.mark.parametrize("primary_pkg", ["torch", "jax"])
+def test_standby_catch_up_state_equals_the_reference_standby(tmp_path,
+                                                             primary_pkg):
+    """A torch standby and a JAX standby catch up by digest from the
+    same truncated primary, then tail it: their whole replica states
+    (membership, dots, deletion lanes, vv, processed) are equal field
+    by field after the catch-up and after the tail, not only their
+    universe slices."""
+    from go_crdt_playground_tpu.shard.replica import \
+        ShardStandby as JaxStandby
+    from tests.test_torch_ingest import assert_same
+
+    fe = _frontend(tmp_path / "p0", epoch=1,
+                   cls=JaxFrontend if primary_pkg == "jax" else None)
+    a0 = fe.serve(port=0)
+    client = ServeClient(a0, timeout=10.0)
+    for e in range(0, 14, 2):
+        client.add(e, e + 1)
+    client.delete(2, 7, 9)
+    fe.supervisor.checkpoint()  # the WAL under cursor 1 is gone
+    client.add(20, 2)
+    client.delete(4)
+    sfe = _frontend(tmp_path / "sb")
+    jsfe = _frontend(tmp_path / "jsb", cls=JaxFrontend)
+    sb = ShardStandby(a0, sfe, sid="s0", standby_id="torch-sb",
+                      poll_interval_s=0.02, failure_threshold=99,
+                      wait_ms=20)
+    jsb = JaxStandby(a0, jsfe, sid="s0", standby_id="jax-sb",
+                     poll_interval_s=0.02, failure_threshold=99,
+                     wait_ms=20)
+    try:
+        for standby in (sb, jsb):
+            verdicts = [standby.poll_once() for _ in range(3)]
+            assert POLL_CAUGHT_UP in verdicts, verdicts
+            assert standby.cursor == sb.cursor
+        assert_same(jsfe.node.state_slice(), sfe.node.state_slice(),
+                    "after the catch-up")
+        assert _full_slice(sfe.node) == _full_slice(fe.node)
+        client.add(31, 4, 7)
+        client.delete(0, 20)
+        for standby in (sb, jsb):
+            assert standby.poll_once() == POLL_TAILED
+        assert jsb.cursor == sb.cursor
+        assert_same(jsfe.node.state_slice(), sfe.node.state_slice(),
+                    "after the tail")
+        assert _full_slice(sfe.node) == _full_slice(fe.node)
+    finally:
+        client.close()
+        sb.close()
+        jsb.close()
+        fe.close()
+
+
 def test_standby_nonce_reset_catches_primary_restart(tmp_path):
     port = _free_port()
     p_dir = tmp_path / "p"

@@ -86,7 +86,10 @@ def _passing_results():
                        "heavy_unresolved": 0, **clean},
         "crash": {"kills": {"window_hook": 1, "parent_sigkill": 1},
                   "record_modes": {"wal.replayed_compact": 60},
-                  "unfinished": [], **clean}}
+                  "unfinished": [], **clean},
+        "chaos": {"proxy_counters": {"dropped": 3, "truncated": 4,
+                                     "delayed": 9, "refused": 1},
+                  "gave_up": [], **clean}}
 
 
 # one result each of tools/serve_soak.py's checks breaks, and the word
@@ -119,12 +122,34 @@ BROKEN = {
     "lost": (("crash", "lost_acked_ops"), [3], "lost"),
     "phantom": (("compaction", "phantom_members"), [9], "phantom"),
     "no drain": (("ingest_compare", "seed", "drained"), False, "drain"),
+    "chaos lost": (("chaos", "lost_acked_ops"), [5], "lost"),
+    "chaos gave up": (("chaos", "gave_up"), [6], "never acked"),
+    "chaos no delay": (("chaos", "proxy_counters", "delayed"), 0,
+                       "proxy counters"),
 }
 
 
 # the checks of what the serve tier guarantees on any hardware
 GUARANTEES = {"unresolved", "kills", "no replay", "unfinished", "lost",
-              "phantom", "no drain"}
+              "phantom", "no drain", "chaos lost", "chaos gave up"}
+
+# the named check each broken result fails
+NAMES = {"no scaling": "open_loop/scaling",
+         "low goodput": "open_loop/goodput_floor",
+         "unresolved": "open_loop/unresolved", "no shed": "open_loop/shed",
+         "server p99": "open_loop/server_p99",
+         "two steps": "ingest_compare/steps",
+         "wal bytes": "ingest_compare/wal_bytes",
+         "seed compact": "ingest_compare/compact_records",
+         "fused goodput": "ingest_compare/goodput",
+         "fused p99": "ingest_compare/p99", "no gc": "compaction/gc",
+         "light p99": "compaction/light_p99",
+         "no backoff": "compaction/backoff", "kills": "crash/kills",
+         "no replay": "crash/replayed", "unfinished": "crash/unfinished",
+         "lost": "crash/ledger", "phantom": "compaction/ledger",
+         "no drain": "ingest_seed/drained", "chaos lost": "chaos/ledger",
+         "chaos gave up": "chaos/gave_up",
+         "chaos no delay": "chaos/faults_fired"}
 
 
 @pytest.mark.parametrize("case", sorted(BROKEN))
@@ -147,5 +172,6 @@ def test_failures_carry_the_reference_checks(case):
     target[path[-1]] = value
     bad = soak.failures(results)
     assert len(bad) == 1 and word in bad[0], bad
+    assert soak.check_name(bad[0]) == NAMES[case], bad
     held = soak.guarantee_failures(results)
     assert held == (bad if case in GUARANTEES else []), held

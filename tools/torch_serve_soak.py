@@ -21,13 +21,16 @@ serve --ingest --device D`` workers (real subprocesses, not imports).
 * **crash** — an add-only ledgered workload across two SIGKILLs (the
   ``CRDT_SERVE_CRASH_AFTER_BATCHES`` hook between a batch's WAL fsync
   and its acks, then a parent-timed kill mid-stream) and restarts.
+* **chaos** — the same ledger under wire faults: a seeded
+  ``net/faults.ChaosProxy`` on the ingest port tears frames, delays
+  acks, drops dials and holds a partition; ambiguous outcomes resubmit.
 
 The adjudication is tools/serve_soak.py's, check for check (``failures``),
 and every leg is also held to the ledger of what was submitted and acked
 against the worker's final ``members()``: zero acked-op loss (an acked
 add no later op could have undone is a member) and zero phantom members
-(every member was submitted as an add).  The chaos leg of
-tools/serve_soak.py needs the port's ``net/faults.py`` and is not run.
+(every member was submitted as an add).  Each failure line starts
+with its check's name (``check_name``).
 
 Usage:
     python tools/torch_serve_soak.py --quick [--device cuda|cpu]
@@ -511,79 +514,195 @@ def crash_leg(root: str, cfg: dict, seed: int) -> Dict[str, object]:
             "drained": rc == 0 and "drained:" in w.output()}
 
 
+def chaos_leg(root: str, cfg: dict, seed: int,
+              reconnect_every: int = 8) -> Dict[str, object]:
+    """Durable acks under wire faults (tools/serve_soak.py's chaos leg):
+    a seeded ``net/faults.ChaosProxy`` on the ingest port tears OP
+    frames, delays acks, drops dials and holds a client-side partition
+    while a ledgered add-only workload submits through it.  A transport
+    failure is an ambiguous outcome, resolved by idempotent resubmit;
+    the final membership is read from the worker directly, not through
+    the proxy."""
+    from go_crdt_playground_tpu_torch.net.faults import (ChaosProxy,
+                                                         ChaosScenario)
+
+    rng = random.Random(seed)
+    elements = cfg["elements"]
+    w = Worker(os.path.join(root, "chaos"), free_port(), elements,
+               cfg["device"], **cfg["serve"])
+    scenario = ChaosScenario(
+        drop_rate=0.15, truncate_rate=0.2, truncate_window=(1, 48),
+        delay_rate=0.3, delay_s=0.01)
+    proxy = ChaosProxy(w.addr, seed=seed, scenario=scenario)
+    addr = ("127.0.0.1", proxy.port)
+    acked: Set[int] = set()
+    submitted: Set[int] = set()
+    transport_failures = typed_rejects = partition_refusals = 0
+    give_ups: List[int] = []
+    client: Optional[ServeClient] = None
+    ops_on_conn = 0
+    try:
+        todo = list(range(elements))
+        rng.shuffle(todo)
+        partition_at = len(todo) // 2
+        partitioned = False
+        for n, e in enumerate(todo):
+            if n == partition_at:
+                # every new dial refused until the refusal registers;
+                # closing the live client forces the stream to redial
+                proxy.partition()
+                partitioned = True
+                if client is not None:
+                    client.close()
+                    client = None
+            submitted.add(e)
+            done = False
+            for _ in range(50):
+                if partitioned and proxy.counters()["refused"] >= 1:
+                    partition_refusals = proxy.counters()["refused"]
+                    proxy.heal()
+                    partitioned = False
+                if client is None or ops_on_conn >= reconnect_every:
+                    if client is not None:
+                        client.close()
+                        client = None
+                    try:
+                        client = ServeClient(addr, timeout=10.0)
+                        ops_on_conn = 0
+                    except (OSError, ConnectionError):
+                        transport_failures += 1
+                        time.sleep(0.01)
+                        continue
+                try:
+                    client.add(e, deadline_s=5.0)
+                    acked.add(e)
+                    ops_on_conn += 1
+                    done = True
+                    break
+                except protocol.ServeError:
+                    typed_rejects += 1
+                    ops_on_conn += 1
+                    time.sleep(0.01)
+                except (OSError, ConnectionError, socket.timeout):
+                    transport_failures += 1
+                    client.close()
+                    client = None
+                    time.sleep(0.01)
+            if not done:
+                give_ups.append(e)
+        with ServeClient(w.addr, timeout=60.0) as direct:
+            members, _vv = direct.members()
+    finally:
+        if client is not None:
+            client.close()
+        proxy.close()
+        rc = w.terminate()
+        w.log.close()
+    members_set = set(int(m) for m in members)
+    return {"elements": elements,
+            "scenario": {"drop_rate": scenario.drop_rate,
+                         "truncate_rate": scenario.truncate_rate,
+                         "delay_rate": scenario.delay_rate,
+                         "delay_s": scenario.delay_s,
+                         "partition_window": True},
+            "proxy_counters": proxy.counters(),
+            "transport_failures": transport_failures,
+            "typed_rejects": typed_rejects,
+            "partition_refusals": partition_refusals,
+            "acked_ops": len(acked), "final_members": len(members_set),
+            "lost_acked_ops": sorted(acked - members_set),
+            "phantom_members": sorted(members_set - submitted),
+            "gave_up": give_ups,
+            "drained": rc == 0 and "drained:" in w.output()}
+
+
+def check_name(line: str) -> str:
+    """The named check a failure line reports (the text before its first
+    colon)."""
+    return line.split(":", 1)[0]
+
+
 def guarantee_failures(results: Dict[str, object]) -> List[str]:
     """What the serve tier guarantees, whatever the hardware: zero lost
     acked ops, zero phantom members and a drain on SIGTERM in every leg,
     every submitted op resolved (an ack or a typed reject), both crash
     kills landed, recovery replayed compact records, and every element
-    acked in the end."""
+    acked in the end.  Each line starts with its check's name."""
     bad = []
     legs = {"load": results["load"], "compaction": results["compaction"],
-            "crash": results["crash"],
-            **{f"ingest-{m}": results["ingest_compare"][m]
+            "crash": results["crash"], "chaos": results["chaos"],
+            **{f"ingest_{m}": results["ingest_compare"][m]
                for m in ("seed", "fused")}}
     for name, leg in legs.items():
         if leg["lost_acked_ops"] or leg["phantom_members"]:
-            bad.append(f"{name}: lost {leg['lost_acked_ops'][:10]} "
+            bad.append(f"{name}/ledger: lost {leg['lost_acked_ops'][:10]} "
                        f"phantom {leg['phantom_members'][:10]}")
         if not leg["drained"]:
-            bad.append(f"{name}: the worker did not drain on SIGTERM")
+            bad.append(f"{name}/drained: the worker did not drain on "
+                       f"SIGTERM")
     for leg in results["load"]["open_loop"]:
         if leg["unresolved"] or leg["send_errors"]:
-            bad.append(f"open loop {leg['offered_rate']}: unresolved ops")
+            bad.append(f"open_loop/unresolved: {leg['offered_rate']}/s: "
+                       f"unresolved ops")
     if any(results["ingest_compare"][m]["unresolved"]
            for m in ("seed", "fused")):
-        bad.append("ingest compare: unresolved ops")
+        bad.append("ingest_compare/unresolved: unresolved ops")
     comp = results["compaction"]
     if comp["light_unresolved"] or comp["heavy_unresolved"]:
-        bad.append("compaction: unresolved ops")
+        bad.append("compaction/unresolved: unresolved ops")
     crash = results["crash"]
     kills = crash["kills"]
     if kills["window_hook"] != 1 or kills["parent_sigkill"] < 1:
-        bad.append(f"crash: kills {kills}")
+        bad.append(f"crash/kills: kills {kills}")
     if not crash["record_modes"]["wal.replayed_compact"] > 0:
-        bad.append(f"crash: no compact record replayed "
+        bad.append(f"crash/replayed: no compact record replayed "
                    f"{crash['record_modes']}")
     if crash["unfinished"]:
-        bad.append(f"crash: never acked {crash['unfinished'][:10]}")
+        bad.append(f"crash/unfinished: never acked "
+                   f"{crash['unfinished'][:10]}")
+    if results["chaos"]["gave_up"]:
+        bad.append(f"chaos/gave_up: never acked "
+                   f"{results['chaos']['gave_up'][:10]}")
     return bad
 
 
 def failures(results: Dict[str, object]) -> List[str]:
-    """The adjudication of tools/serve_soak.py (its chaos leg aside),
-    check for check: ``guarantee_failures`` and the shape of the load
-    curves, the ingest comparison and compaction."""
+    """The adjudication of tools/serve_soak.py, check for check:
+    ``guarantee_failures`` and the shape of the load curves, the ingest
+    comparison, compaction and the chaos leg's fault census.  Each line
+    starts with its check's name."""
     bad = guarantee_failures(results)
     curve = results["load"]["open_loop"]
     # (a) goodput scales with offered load below the admission limit
     low, top = curve[0], curve[-1]
     if not top["goodput"] > 1.5 * low["goodput"]:
-        bad.append(f"open loop: goodput {low['goodput']} -> "
+        bad.append(f"open_loop/scaling: goodput {low['goodput']} -> "
                    f"{top['goodput']} does not scale")
     if not low["goodput"] >= 0.8 * low["achieved_offer_rate"]:
-        bad.append(f"open loop: goodput {low['goodput']} under 0.8 x the "
-                   f"offered {low['achieved_offer_rate']}")
+        bad.append(f"open_loop/goodput_floor: goodput {low['goodput']} "
+                   f"under 0.8 x the offered {low['achieved_offer_rate']}")
     # (b) past the limit the frontend sheds typed Overloaded and the
     # server-side ingest p99 stays bounded
     if not top["overloaded"] > 0:
-        bad.append(f"open loop {top['offered_rate']}: nothing shed "
-                   f"({top['submitted']} sent; at the offering's end "
-                   f"{top['window_end']}; client p50 {top['p50_ms']} ms)")
+        bad.append(f"open_loop/shed: nothing shed at "
+                   f"{top['offered_rate']}/s ({top['submitted']} sent; at "
+                   f"the offering's end {top['window_end']}; client p50 "
+                   f"{top['p50_ms']} ms)")
     if top["server_ingest_p99_ms"] is None or \
             top["server_ingest_p99_ms"] >= 2000.0:
-        bad.append(f"open loop: server-side ingest p99 "
+        bad.append(f"open_loop/server_p99: server-side ingest p99 "
                    f"{top['server_ingest_p99_ms']} ms under overload")
     # (b2) fused ingest one step a batch where the seed took two, compact
     # records smaller per acked op, goodput no worse
     seed, fused = (results["ingest_compare"][m] for m in ("seed", "fused"))
     if fused["dispatches_per_batch"] != 1.0 or \
             seed["dispatches_per_batch"] <= 1.5:
-        bad.append(f"ingest compare: {seed['dispatches_per_batch']} / "
-                   f"{fused['dispatches_per_batch']} steps a batch")
+        bad.append(f"ingest_compare/steps: {seed['dispatches_per_batch']} "
+                   f"/ {fused['dispatches_per_batch']} steps a batch")
     if not fused["wal_bytes_per_acked_op"] < \
             0.7 * seed["wal_bytes_per_acked_op"]:
         bad.append(
-            f"ingest compare: WAL bytes an acked op, fused "
+            f"ingest_compare/wal_bytes: WAL bytes an acked op, fused "
             f"{fused['wal_bytes_per_acked_op']} against seed "
             f"{seed['wal_bytes_per_acked_op']} (ops a batch "
             f"{fused['ops_per_batch']} / {seed['ops_per_batch']}, bytes a "
@@ -591,26 +710,32 @@ def failures(results: Dict[str, object]) -> List[str]:
             f"{seed['wal_bytes_per_record']})")
     if not (fused["wal_compact_records"] > 0
             and seed["wal_compact_records"] == 0):
-        bad.append(f"ingest compare: compact records "
+        bad.append(f"ingest_compare/compact_records: compact records "
                    f"{fused['wal_compact_records']} / "
                    f"{seed['wal_compact_records']}")
     if not fused["goodput"] >= 0.8 * seed["goodput"]:
-        bad.append(f"ingest compare: goodput {fused['goodput']} against "
-                   f"seed {seed['goodput']}")
+        bad.append(f"ingest_compare/goodput: goodput {fused['goodput']} "
+                   f"against seed {seed['goodput']}")
     if fused["ingest_p99_ms"] is None or fused["ingest_p99_ms"] >= 2000.0:
-        bad.append(f"ingest compare: fused ingest p99 "
+        bad.append(f"ingest_compare/p99: fused ingest p99 "
                    f"{fused['ingest_p99_ms']} ms")
     # (b3) GC under light traffic with the server p99 bounded, backoff
     # under heavy traffic
     comp = results["compaction"]
     if comp["gc_dropped_lanes_under_traffic"] == 0:
-        bad.append("compaction: no GC under light traffic")
+        bad.append("compaction/gc: no GC under light traffic")
     if comp["light_server_p99_ms"] is None or \
             comp["light_server_p99_ms"] >= 2000.0:
-        bad.append(f"compaction: light server p99 "
+        bad.append(f"compaction/light_p99: light server p99 "
                    f"{comp['light_server_p99_ms']} ms")
     if comp["backoffs_during_heavy"] == 0:
-        bad.append("compaction: no backoff under heavy traffic")
+        bad.append("compaction/backoff: no backoff under heavy traffic")
+    # (d) the chaos leg's wire faults fired: a green leg with no injected
+    # fault proves nothing
+    pc = results["chaos"]["proxy_counters"]
+    if not (pc["dropped"] + pc["truncated"] >= 1 and pc["delayed"] >= 1
+            and pc["refused"] >= 1):
+        bad.append(f"chaos/faults_fired: proxy counters {pc}")
     return bad
 
 
@@ -634,7 +759,8 @@ def run(device: str, quick: bool, seed: int = 23) -> Dict[str, object]:
                           ("ingest_compare",
                            lambda: ingest_compare_leg(root, cfg)),
                           ("compaction", lambda: compaction_leg(root, cfg)),
-                          ("crash", lambda: crash_leg(root, cfg, seed))):
+                          ("crash", lambda: crash_leg(root, cfg, seed)),
+                          ("chaos", lambda: chaos_leg(root, cfg, seed))):
             results[name] = leg()
             print(json.dumps({name: results[name]}), flush=True)
     finally:
