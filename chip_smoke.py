@@ -82,6 +82,23 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      --router-ha and --autopilot modes: every guarantee and every
      check held (the autopilot splits the flash crowd's shard and
      merges back);
+ 13. the multi-device tier, every slot on cuda:0: (a) the port's
+     ``dryrun_multichip`` at 4 and 8 slots, 5 of 5 sharded paths
+     converged and bitwise equal to the unsharded replay, each kernel
+     path's first round against its plain version; (b) the north-star
+     fleet on a 4-slot mesh: v2 δ in dot words (K9) and bitpacked (K8)
+     through the packed block ring over the composed schedule (18
+     intra-block offsets, 2 block-aligned), the full-state butterfly
+     (20 stages, K2 a slot) and 3 ring rounds, every round bitwise
+     equal to the unsharded port, ms a round, bytes ppermuted and
+     bounds beside the unsharded round's time; (c) two gloo processes
+     with two slots each, exchanges staged through host memory, equal
+     digests on both ranks and the one-process mesh; (d) ``serve
+     --ingest --mesh-devices 4`` and ``--mesh-devices 2x2 --sched auto``
+     at E = 2^20, A = 16 as subprocesses under phase 10b's session mix:
+     the set algebra, WAL records equal to a one-slot node's fed the same
+     batches, a bitwise restore, K11 once a lane slot a summary read;
+     every phase's wall time is printed;
 and, after phase 2, phase 2b: the ingest kernel (K10, the whole entry in
 one launch) against its plain version over E x A x B x K (one block up
 to E = 4,096, the cooperative grid above), densities, padding patterns,
@@ -1730,9 +1747,9 @@ def record_batches(fe):
     batches, bodies, append_s = [], [], [0.0]
     ingest, append = node.ingest_batch, node.wal.append
 
-    def recording_ingest(add, dl, live=None):
+    def recording_ingest(add, dl, live=None, **kw):
         batches.append((add.copy(), dl.copy(), live.copy()))
-        return ingest(add, dl, live)
+        return ingest(add, dl, live, **kw)
 
     def timed_append(body):
         t = time.perf_counter()
@@ -2820,6 +2837,570 @@ def phase_fleet_soak(smi: str) -> dict:
     return walls
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multi-device tier on one card (slots share cuda:0)
+# ---------------------------------------------------------------------------
+
+# the full-width mesh cell: the north-star fleet on a 4-slot mesh
+MESH_SLOTS = 4
+# the mesh serving cell: one node's universe (E = 2^20, A = 16) lane-
+# sharded over 4 slots, and 2 x 2 with the admission scheduler
+MESH_SERVE = (("4", ("--mesh-devices", "4")),
+              ("2x2", ("--mesh-devices", "2x2", "--sched", "auto")))
+MESH_SERVE_READS = 3
+# 13c: two processes, two slots each on the card, R x E, A = R
+MULTIHOST_R, MULTIHOST_E = 2048, 256
+
+
+def state_bytes(state) -> int:
+    return sum(x.numel() * x.element_size() for x in state)
+
+
+def phase_mesh_dryrun(counters: Counters) -> dict:
+    """13a: the port's ``dryrun_multichip`` with 4 and 8 slots on
+    cuda:0, 5 of 5 paths converged and bitwise equal to the unsharded
+    replay, the per-slot launches counted; then each kernel path's
+    first round again on the kernels and on their plain versions (those
+    launches are not counted)."""
+    from go_crdt_playground_tpu_torch.entry import dryrun_multichip
+    from go_crdt_playground_tpu_torch.parallel import gossip
+
+    out = {}
+    for n in (4, 8):
+        shape = (n // 2, 2)
+        rounds1 = len(gossip.dissemination_offsets(4 * shape[0]))
+        rounds_p = len(gossip.dissemination_offsets(64 * n))
+        counters.reset()
+        res = dryrun_multichip(n, device="cuda:0")
+        # at least one launch a slot a round (the unsharded replay on
+        # the same card launches the kernels too)
+        counters.read(f"13a dryrun_multichip({n})", at_least={
+            "delta_gossip_round": n * rounds1,
+            "delta_ring_round_packed": n * rounds_p,
+            "delta_ring_round_dotpacked": n * rounds_p})
+        check = dryrun_multichip(n, device="cuda:0", check_plain=True)
+        counters.reset()
+        bad = [r["name"] for r in check if r["plain_equal"] is False]
+        if bad or any(not (r["converged"] and r["bitwise"]) for r in res):
+            raise AssertionError(f"13a: {n} slots: {res} {check}")
+        out[n] = [r["name"] for r in res]
+        log(f"13a dryrun_multichip({n}) on cuda:0: 5/5 paths converged "
+            f"and bitwise equal; each kernel path's first round equal to "
+            f"its plain version ({', '.join(out[n])})")
+    return out
+
+
+def _same_rows(sh, ref, what: str) -> None:
+    """Every slot block of a sharded state against its rows of the
+    unsharded state, bitwise."""
+    import torch
+
+    blk = ref.vv.shape[0] // sh.mesh.shape["replica"]
+    for idx, b in sh.local_blocks():
+        rows = slice(idx[0] * blk, (idx[0] + 1) * blk)
+        for name, x, y in zip(b._fields, b, ref):
+            if not torch.equal(x, y[rows]):
+                raise AssertionError(f"{what}: slot {idx} {name} differs "
+                                     "from the unsharded round")
+
+
+def _time_ms(fn):
+    """(result, device ms) of one call, CUDA events around it."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _mesh_leg(label, sh, ref, schedule, sharded_round, plain_round,
+              counters, wrapper, moved_bytes, bound_bytes):
+    """One 13b leg: every round of ``schedule`` on the sharded state
+    (timed, launches counted) and on the unsharded one, bitwise equal
+    after each round.  Returns (sharded state, unsharded state,
+    report)."""
+    import torch
+
+    times, ppermuted, plain_times = [], 0, []
+    for step in schedule:
+        counters.reset()
+        sh, ms = _time_ms(lambda: sharded_round(sh, step))
+        counters.read(f"13b {label} round {step}",
+                      exact={wrapper: sh.mesh.size})
+        times.append(ms)
+        ppermuted += moved_bytes(step)
+        ref, pms = _time_ms(lambda: plain_round(ref, step))
+        plain_times.append(pms)
+        _same_rows(sh, ref, f"13b {label} round {step}")
+    report = {
+        "rounds": len(schedule), "ms_per_round": sum(times) / len(times),
+        "ms_rounds": times, "unsharded_ms_per_round":
+            sum(plain_times) / len(plain_times),
+        "bytes_ppermuted_per_round": ppermuted / len(schedule),
+        "bound_ms_per_round": bound_bytes / HBM_BYTES_PER_S * 1e3,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return sh, ref, report
+
+
+def phase_mesh_fleet(counters: Counters, smi: str) -> dict:
+    """13b: the north-star fleet (1,048,576 x 256, A = 256) on a 4-slot
+    mesh on cuda:0 (blk = 262,144).  Full-state and v2 δ in dot words
+    (K7, K9) and bitpacked (K6, K8) through
+    ``packed_block_ring_round_shardmap`` over the composed schedule (18
+    intra-block offsets, then 2 block-aligned, 20 rounds), each
+    converged and every round bitwise equal to the unsharded port
+    replaying it; full-state bool through the butterfly
+    (20 stages, K2 per slot, converged) and 3 rounds of
+    ``ring_round_shardmap``, each round equal to the unsharded
+    ``gossip_round`` at the same permutation.  The legs run smallest
+    state first, each leg's tensors freed before the next."""
+    import torch
+
+    from go_crdt_playground_tpu_torch import fleet as fleet_mod
+    from go_crdt_playground_tpu_torch.entry import _packed_reference_round
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import collectives, gossip
+    from go_crdt_playground_tpu_torch.parallel import mesh as mesh_mod
+
+    R, E, W, n = FLEET_R, FLEET_E, FLEET_W, MESH_SLOTS
+    blk = R // n
+    mesh = mesh_mod.make_mesh((n, 1), devices=["cuda:0"] * n)
+    reports = {}
+
+    # full-state bool: the butterfly (K2 gossip_round_rows per slot for
+    # the 18 block-local stages, merge_pairwise_rows for the 2 swaps)
+    torch.cuda.reset_peak_memory_stats()
+    ref = fleet_mod.build_state(R, E, W, "cuda")
+    sb = state_bytes(ref)
+    sh = mesh_mod.shard_state(ref, mesh)
+    stages = list(range(R.bit_length() - 1))
+    local = [s for s in stages if (1 << s) < blk]
+    swap = [s for s in stages if (1 << s) >= blk]
+    sh_loc, ref, rep_loc = _mesh_leg(
+        "butterfly local", sh, ref, local,
+        lambda st, s: gossip.butterfly_round_shardmap(st, mesh, s),
+        lambda st, s: gossip.gossip_round(st, gossip.butterfly_perm(
+            R, s, "cuda")), counters, "gossip_round_rows", lambda s: 0,
+        3 * sb)
+    sh, ref, rep_swap = _mesh_leg(
+        "butterfly swap", sh_loc, ref, swap,
+        lambda st, s: gossip.butterfly_round_shardmap(st, mesh, s),
+        lambda st, s: gossip.gossip_round(st, gossip.butterfly_perm(
+            R, s, "cuda")), counters, "merge_pairwise_rows", lambda s: sb,
+        5 * sb)
+    del sh_loc
+    if not (gossip.converged_shardmap(sh, mesh)
+            and bool(collectives.converged(ref.present, ref.vv))):
+        raise AssertionError("13b butterfly: not converged in 20 stages")
+    reports["butterfly"] = {"local": rep_loc, "swap": rep_swap,
+                            "state_gb": sb / 1e9}
+    del sh, ref
+    # three ring rounds (the ring merges rows of one index a block, so it
+    # is not expected to converge)
+    ref = fleet_mod.build_state(R, E, W, "cuda")
+    sh = mesh_mod.shard_state(ref, mesh)
+    ring_perm = (torch.arange(R, device="cuda") - blk) % R
+    sh, ref, rep_ring = _mesh_leg(
+        "ring", sh, ref, [1, 2, 3],
+        lambda st, _: gossip.ring_round_shardmap(st, mesh),
+        lambda st, _: gossip.gossip_round(st, ring_perm), counters,
+        "merge_pairwise_rows", lambda _: sb, 5 * sb)
+    reports["ring"] = rep_ring
+    del sh, ref
+    torch.cuda.empty_cache()
+
+    # the packed layouts (full-state K7, K6; v2 δ K9, K8) over the
+    # composed schedule
+    # the composed dissemination schedule: every power of two below the
+    # block (18 at blk = 2^18), then the block-aligned offsets
+    schedule = gossip.dissemination_offsets(blk) + [
+        blk * o for o in gossip.dissemination_offsets(n)]
+    for label, build, pack, ring, wrapper in (
+            ("full_dots", fleet_mod.build_state, packed.pack_awset_dots,
+             cm.ring_round_rows_dotpacked, "ring_round_rows_dotpacked"),
+            ("full_bits", fleet_mod.build_state, packed.pack_awset,
+             cm.ring_round_rows_packed, "ring_round_rows_packed"),
+            ("delta_dots", fleet_mod.delta_fleet,
+             packed.pack_awset_delta_dots, cd.delta_ring_round_dotpacked,
+             "delta_ring_round_dotpacked"),
+            ("delta_bits", fleet_mod.delta_fleet, packed.pack_awset_delta,
+             cd.delta_ring_round_packed, "delta_ring_round_packed")):
+        torch.cuda.reset_peak_memory_stats()
+        ref = pack(build(R, E, W, "cuda"))
+        sb = state_bytes(ref)
+        sh = mesh_mod.shard_state(ref, mesh)
+        intra = [o for o in schedule if o < blk]
+        aligned = [o for o in schedule if o >= blk]
+        # a round moves: the stack (read 2 blk, write 2 blk a slot), the
+        # kernel on it (read and write 2 blk), the kept half's copy
+        # (blk, blk), and on an aligned round the received block (blk,
+        # blk): 10 or 12 x the state's bytes
+        sh, ref, rep_i = _mesh_leg(
+            f"{label} intra", sh, ref, intra,
+            lambda st, o: gossip.packed_block_ring_round_shardmap(
+                st, mesh, o),
+            lambda st, o: _packed_reference_round(st, o, blk, ring),
+            counters, wrapper, lambda o: 0, 10 * sb)
+        sh, ref, rep_a = _mesh_leg(
+            f"{label} aligned", sh, ref, aligned,
+            lambda st, o: gossip.packed_block_ring_round_shardmap(
+                st, mesh, o),
+            lambda st, o: _packed_reference_round(st, o, blk, ring),
+            counters, wrapper, lambda o: sb, 12 * sb)
+        if not bool(collectives.converged_packed(ref.present_bits, ref.vv)):
+            raise AssertionError(f"13b {label}: not converged in 20 "
+                                 "rounds")
+        del sh
+        # the unsharded layout's ring round at the same offsets, same run
+        _time_ms(lambda: ring(ref, 1))  # one call before the timed ones
+        ms = []
+        for o in schedule:
+            _, t = _time_ms(lambda: ring(ref, o))
+            ms.append(t)
+        reports[label] = {
+            "intra": rep_i, "aligned": rep_a, "state_gb": sb / 1e9,
+            "unsharded_global_ring_ms_per_round": sum(ms) / len(ms),
+            "kernel_bound_ms_per_round_stacked":
+                4 * sb / HBM_BYTES_PER_S * 1e3,
+            "unsharded_bound_ms_per_round": 2 * sb / HBM_BYTES_PER_S * 1e3}
+        del ref
+        torch.cuda.empty_cache()
+
+    for name, rep in reports.items():
+        log(f"13b {name} ({R} x {E}, A={W}, {n} slots on cuda:0): "
+            + json.dumps(rep) + f" [{smi}]")
+    return reports
+
+
+def multihost_rows(lo: int, hi: int, delta: bool, device):
+    """Replica rows [lo, hi) of 13c's fleet (A = R: every replica a
+    writer of a replica-dependent slice of the universe)."""
+    import torch
+
+    from go_crdt_playground_tpu_torch._u32 import from_numpy_u32
+    from go_crdt_playground_tpu_torch.models.awset import AWSetState
+    from go_crdt_playground_tpu_torch.models.awset_delta import \
+        AWSetDeltaState
+
+    R, E = MULTIHOST_R, MULTIHOST_E
+    e = np.arange(E, dtype=np.uint32)[None, :]
+    r = np.arange(lo, hi, dtype=np.uint32)[:, None]
+    present = (e % (r % 7 + 2)) == 0
+    counter = np.cumsum(present, axis=1, dtype=np.uint32) * present
+    vv = np.zeros((hi - lo, R), np.uint32)
+    vv[np.arange(hi - lo), np.arange(lo, hi)] = counter.max(axis=1)
+    u = lambda a: from_numpy_u32(a, device)  # noqa: E731
+    base = AWSetState(vv=u(vv), present=torch.from_numpy(present).to(device),
+                      dot_actor=u(np.where(present, r, 0)),
+                      dot_counter=u(counter),
+                      actor=u(np.arange(lo, hi, dtype=np.uint32)))
+    if not delta:
+        return base
+    zero = torch.zeros_like(base.dot_actor)
+    return AWSetDeltaState(*base, deleted=torch.zeros_like(base.present),
+                           del_dot_actor=zero, del_dot_counter=zero,
+                           processed=base.vv.clone())
+
+
+def multihost_rounds(mesh, lo: int, hi: int):
+    """13c's rounds on a mesh (this process's rows [lo, hi)): one ring
+    round (K2 a slot), then v2 δ rounds (K5 a slot) with the collective
+    GC over the dissemination schedule.  Returns (ring digest, δ digest,
+    converged): each digest the sum mod 2^32 of every replica's state
+    digest, reduced over the mesh."""
+    from go_crdt_playground_tpu_torch.parallel import gossip, multihost
+    from go_crdt_playground_tpu_torch.parallel import shardmap
+
+    def fleet_digest(sh):
+        d = gossip.state_digest_shardmap(sh, mesh)
+        part = shardmap.map_slots(mesh, lambda i, x: x.sum() & 0xFFFFFFFF,
+                                  d)
+        return int(shardmap.psum(mesh, part, "replica")[
+            mesh.local_slots()[0]])
+
+    dev = mesh.device(mesh.local_slots()[0])
+    sh = multihost.shard_local_rows(multihost_rows(lo, hi, False, dev),
+                                    mesh)
+    ring = fleet_digest(gossip.ring_round_shardmap(sh, mesh))
+    st = multihost.shard_local_rows(multihost_rows(lo, hi, True, dev), mesh)
+    for off in gossip.dissemination_offsets(MULTIHOST_R):
+        st = gossip.delta_gossip_round_shardmap(
+            st, mesh, gossip.ring_perm(MULTIHOST_R, off, "cpu"))
+        st = gossip.gc_shardmap(st, mesh)
+    return ring, fleet_digest(st), gossip.converged_shardmap(st, mesh)
+
+
+def multihost_worker(pid: int, init: str) -> None:
+    """One rank of 13c (run as ``chip_smoke.py --multihost-worker PID
+    INIT``): gloo, two slots on cuda:0, every exchange between the
+    ranks staged through host memory."""
+    from go_crdt_playground_tpu_torch.ops import cuda_delta, cuda_merge
+    from go_crdt_playground_tpu_torch.parallel import multihost, shardmap
+
+    multihost.initialize(init, num_processes=2, process_id=pid,
+                         backend="gloo")
+    mesh = multihost.global_mesh(local_devices=["cuda:0", "cuda:0"])
+    assert shardmap.host_staged() and mesh.multiprocess()
+    lo, hi = multihost.process_replica_block(MULTIHOST_R)
+    t0 = time.perf_counter()
+    ring, delta, conv = multihost_rounds(mesh, lo, hi)
+    print(json.dumps({
+        "pid": pid, "ring": ring, "delta": delta, "converged": conv,
+        "wall_s": time.perf_counter() - t0,
+        "merge_pairwise_rows": cuda_merge.merge_pairwise_rows.launches,
+        "delta_gossip_round": cuda_delta.delta_gossip_round.launches}),
+        flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def phase_multihost(counters: Counters) -> dict:
+    """13c: the 2-process multihost rounds over gloo, each rank's two
+    slots on cuda:0 and its exchanges staged through host memory: both
+    ranks print the same digests, equal to the one-process 4-slot mesh
+    on the card.  Multi-rank NCCL needs one card a rank and is not run
+    here."""
+    from pathlib import Path
+
+    from go_crdt_playground_tpu_torch.parallel import mesh as mesh_mod
+
+    one = mesh_mod.make_mesh((4, 1), devices=["cuda:0"] * 4)
+    counters.reset()
+    want = multihost_rounds(one, 0, MULTIHOST_R)
+    counters.read("13c one-process mesh", at_least={
+        "merge_pairwise_rows": 4, "delta_gossip_round": 4})
+    if not want[2]:
+        raise AssertionError("13c: the one-process mesh did not converge")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multihost_")
+    try:
+        init = f"file://{tmp}/rendezvous"
+        me = str(Path(__file__).resolve())
+        procs = [subprocess.Popen(
+            [sys.executable, me, "--multihost-worker", str(pid), init],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=300)
+                if p.returncode != 0:
+                    raise AssertionError(f"13c worker: {err[-3000:]}")
+                outs.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for o in outs:
+        if (o["ring"], o["delta"], o["converged"]) != want:
+            raise AssertionError(f"13c: rank {o['pid']} {o} != the "
+                                 f"one-process mesh {want}")
+        for name in ("merge_pairwise_rows", "delta_gossip_round"):
+            counters.main_path[name] += o[name]
+    log(f"13c multihost: 2 gloo ranks x 2 slots on cuda:0 ({MULTIHOST_R} "
+        f"x {MULTIHOST_E}), ring digest {want[0]:#x}, δ digest "
+        f"{want[1]:#x}, converged, equal on both ranks and to the "
+        f"one-process mesh; walls "
+        f"{[round(o['wall_s'], 3) for o in outs]} s; multi-rank NCCL not "
+        "run (one card)")
+    return {"ring": want[0], "delta": want[1],
+            "walls_s": [o["wall_s"] for o in outs]}
+
+
+def serve_child(dump: str, argv) -> int:
+    """``serve --ingest ARGV`` as a process whose frontend records every
+    batch and WAL body (``chip_smoke.py --serve-child DUMP ARGV``); at
+    the drain it writes them, the recorder's counters and the K11
+    launches to DUMP (a pickle)."""
+    import pickle
+
+    import go_crdt_playground_tpu_torch.__main__ as cli
+    from go_crdt_playground_tpu_torch.ops import cuda_digest
+
+    build, held = cli._build_frontend, {}
+
+    def recording_build(args):
+        fe = build(args)
+        held["fe"], held["rec"] = fe, record_batches(fe)
+        return fe
+
+    cli._build_frontend = recording_build
+    rc = cli.main(["serve", "--ingest", *argv])
+    batches, bodies, append_s = held["rec"]
+    snap = held["fe"].recorder.snapshot()
+    with open(dump, "wb") as f:
+        pickle.dump({
+            "batches": [(np.nonzero(a), np.nonzero(d), lv)
+                        for a, d, lv in batches],
+            "bodies": bodies, "append_s": append_s[0],
+            "counters": snap["counters"],
+            "apply_s": snap["observations"].get("serve.batch.apply_s"),
+            "k11": cuda_digest.state_group_digests.launches}, f)
+    return rc
+
+
+def phase_mesh_serve(counters: Counters, smi: str) -> dict:
+    """13d: ``serve --ingest --mesh-devices 4`` and ``--mesh-devices 2x2
+    --sched auto`` on cuda:0 as subprocesses at one node's universe (E =
+    2^20, A = 16), driven by phase 10b's session mix from a child
+    process: members and vv equal to the acked ops' set algebra; every
+    WAL record byte-identical to a one-slot torch node's fed the same
+    batches; the durable dir restored bitwise with the mesh class and
+    the plain one; every digest summary read K11 once a slot (counted
+    in the server; a 2-D mesh reads its dp row 0) and equal to the
+    one-slot node's summary."""
+    import pickle
+    import re
+    import signal
+    from pathlib import Path
+
+    import torch
+
+    from go_crdt_playground_tpu_torch.net import digestsync
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.parallel.meshtarget import \
+        MeshApplyTarget
+    from go_crdt_playground_tpu_torch.parallel.meshtarget2d import \
+        Mesh2DApplyTarget
+    from go_crdt_playground_tpu_torch.serve.client import ServeClient
+    from go_crdt_playground_tpu_torch.utils.wal import DeltaWal
+
+    E, A = UNIVERSE_E, UNIVERSE_A
+    out = {}
+    for label, flags in MESH_SERVE:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_serve_")
+        try:
+            dump = f"{tmp}/dump.pkl"
+            argv = ["--elements", str(E), "--actors", str(A),
+                    "--durable-dir", f"{tmp}/durable", "--device",
+                    "cuda:0", *flags]
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--serve-child", dump,
+                 *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+            try:
+                banner = proc.stdout.readline()
+                m = re.search(r"listening on (\S+):(\d+) .*mesh=(\S+) "
+                              r"sched=(\S+)", banner)
+                if m is None:
+                    raise AssertionError(f"13d {label}: banner {banner!r} "
+                                         f"{proc.stderr.read()[-2000:]}")
+                if m.group(3) != label:
+                    raise AssertionError(f"13d banner mesh={m.group(3)}")
+                addr = (m.group(1), int(m.group(2)))
+                up = time.perf_counter() - t0
+                results, lat, wall, rejects = drive_frontend_child(
+                    addr, FRONTEND_OPS, E)
+                bodies_read = []
+                with ServeClient(addr) as c:
+                    members, vv = c.members()
+                    for _ in range(MESH_SERVE_READS):
+                        bodies_read.append(c.digest_summary())
+                proc.send_signal(signal.SIGTERM)
+                stdout, err = proc.communicate(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if proc.returncode != 0:
+                raise AssertionError(f"13d {label}: rc {proc.returncode} "
+                                     f"{err[-3000:]}")
+            with open(dump, "rb") as f:
+                rec = pickle.load(f)
+            acked = sum(ok for ops in results for _, _, ok in ops)
+            if acked != rec["counters"]["serve.ops.acked"] or acked < 2000:
+                raise AssertionError(f"13d {label}: {acked} acked, server "
+                                     f"{rec['counters']['serve.ops.acked']}"
+                                     f", rejects {rejects}")
+            if set(members) != expected_members(results):
+                raise AssertionError(f"13d {label}: members differ from "
+                                     "the acked ops' set algebra")
+            want_vv = np.zeros(A, np.uint32)
+            want_vv[0] = acked
+            if not np.array_equal(vv, want_vv):
+                raise AssertionError(f"13d {label}: vv {vv}")
+            # one K11 launch a lane slot a read (the dp replicas of a
+            # 2-D mesh hold the same lanes; reads take dp row 0)
+            lane_slots = 2 if "x" in label else 4
+            if rec["k11"] != lane_slots * MESH_SERVE_READS:
+                raise AssertionError(f"13d {label}: {rec['k11']} K11 "
+                                     f"launches for {MESH_SERVE_READS} "
+                                     f"reads of {lane_slots} lane slots")
+            counters.main_path["state_group_digests"] += rec["k11"]
+            # the same batches on a one-slot node on the card
+            batches = []
+            for a_nz, d_nz, lv in rec["batches"]:
+                add = np.zeros((lv.shape[0], E), bool)
+                dl = np.zeros((lv.shape[0], E), bool)
+                add[a_nz] = True
+                dl[d_nz] = True
+                batches.append((add, dl, lv))
+            one = Node(0, E, A, device="cuda",
+                       wal=DeltaWal(f"{tmp}/one", fsync=False))
+            one_bodies = []
+            append = one.wal.append
+            one.wal.append = lambda b: (one_bodies.append(b), append(b))
+            for add, dl, lv in batches:
+                one.ingest_batch(add, dl, lv)
+            cuts = rec["counters"].get("mesh.stripe.cuts", 0)
+            if cuts == 0 and one_bodies != rec["bodies"]:
+                raise AssertionError(f"13d {label}: WAL records differ "
+                                     "from the one-slot node's")
+            live = one.state_slice()
+            cls, kw = ((Mesh2DApplyTarget, {"mesh_shape": "2x2"})
+                       if "x" in label else
+                       (MeshApplyTarget, {"mesh_devices": 4}))
+            for klass, nk in ((cls, kw), (Node, None)):
+                back = klass.restore_durable(f"{tmp}/durable",
+                                             device="cuda:0",
+                                             node_kwargs=nk)
+                same_state(live, back.state_slice(),
+                           f"13d {label}: restore as {klass.__name__}")
+                back.wal.close()
+            if bodies_read[-1] != digestsync.node_summary(one):
+                raise AssertionError(f"13d {label}: the summary differs "
+                                     "from the one-slot node's")
+            one.wal.close()
+            p50 = float(np.percentile(lat, 50)) * 1e3
+            p99 = float(np.percentile(lat, 99)) * 1e3
+            apply_s = rec["apply_s"]
+            out[label] = {
+                "ops_per_s": acked / wall, "acked": acked, "wall_s": wall,
+                "ack_p50_ms": p50, "ack_p99_ms": p99,
+                "batches": len(batches),
+                "batch_apply_ms": apply_s["mean"] * 1e3,
+                "wal_append_share": rec["append_s"] / apply_s["sum"],
+                "stripe_cuts": cuts, "k11_launches": rec["k11"],
+                "startup_s": up, "card": smi}
+            log(f"13d serve --mesh-devices {label} (E={E}, A={A}, 4 slots "
+                f"on cuda:0, {FRONTEND_SESSIONS} sessions x {FRONTEND_OPS}"
+                f" ops): {acked} acked in {wall:.3f} s = "
+                f"{acked / wall:.1f} ops/s, ack p50 {p50:.3f} ms p99 "
+                f"{p99:.3f} ms, {len(batches)} batches, "
+                f"{apply_s['mean'] * 1e3:.3f} ms a batch, stripe cuts "
+                f"{cuts}; members and vv equal to the set algebra; WAL "
+                f"records equal to the one-slot node's; restored bitwise; "
+                f"K11 {rec['k11']} launches for {MESH_SERVE_READS} summary "
+                f"reads [{smi}]")
+            log(f"13d {label}: " + json.dumps(out[label]))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 # kernels whose entries no path of the port calls: their launches are
 # those of the phase that drives them
 OFF_MAIN_PATH = ("K3",)
@@ -2849,7 +3430,21 @@ KERNELS = [
 ]
 
 
+def timed_phase(walls: dict, name: str, fn, *args):
+    """Run one phase and log its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    walls[name] = time.perf_counter() - t0
+    log(f"phase {name}: {walls[name]:.1f} s wall")
+    return out
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--multihost-worker":
+        multihost_worker(int(sys.argv[2]), sys.argv[3])
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--serve-child":
+        return serve_child(sys.argv[2], sys.argv[3:])
     try:
         import torch
     except ImportError:
@@ -2859,30 +3454,41 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    smi = phase_environment()
+    walls = {}
+    smi = timed_phase(walls, "1", phase_environment)
     counters = Counters()
     errs, timings = {}, {}
-    phase_kernels(errs)
-    phase_ingest_kernel(errs)
-    phase_digest_kernel(errs)
-    phase_packed_kernels(errs)
-    phase_entry(counters, errs)
-    final = phase_fleet("merge", counters, errs, timings, smi)
-    phase_packed_fleet("merge", final, counters, errs, timings, smi)
+    timed_phase(walls, "2", phase_kernels, errs)
+    timed_phase(walls, "2b", phase_ingest_kernel, errs)
+    timed_phase(walls, "2c", phase_digest_kernel, errs)
+    timed_phase(walls, "2 packed", phase_packed_kernels, errs)
+    timed_phase(walls, "3", phase_entry, counters, errs)
+    final = timed_phase(walls, "4", phase_fleet, "merge", counters, errs,
+                        timings, smi)
+    timed_phase(walls, "5", phase_packed_fleet, "merge", final, counters,
+                errs, timings, smi)
     del final
-    final = phase_fleet("delta", counters, errs, timings, smi)
-    phase_packed_fleet("delta", final, counters, errs, timings, smi)
+    final = timed_phase(walls, "6", phase_fleet, "delta", counters, errs,
+                        timings, smi)
+    timed_phase(walls, "7", phase_packed_fleet, "delta", final, counters,
+                errs, timings, smi)
     del final
-    phase_k3(counters, errs, timings, smi)
-    phase_cli(counters)
-    phase_serve(counters, errs, timings, smi)
-    phase_frontend(counters, smi)
-    phase_serve_soak(smi)
-    phase_sync_fleet(counters, smi)
-    phase_digest_read(counters, timings, smi)
-    phase_universe(counters, timings, smi)
-    phase_fleet_serve(counters, smi)
-    phase_fleet_soak(smi)
+    timed_phase(walls, "8", phase_k3, counters, errs, timings, smi)
+    timed_phase(walls, "9", phase_cli, counters)
+    timed_phase(walls, "10", phase_serve, counters, errs, timings, smi)
+    timed_phase(walls, "10b", phase_frontend, counters, smi)
+    timed_phase(walls, "10b soak", phase_serve_soak, smi)
+    timed_phase(walls, "11a", phase_sync_fleet, counters, smi)
+    timed_phase(walls, "11b", phase_digest_read, counters, timings, smi)
+    timed_phase(walls, "11c", phase_universe, counters, timings, smi)
+    timed_phase(walls, "12a", phase_fleet_serve, counters, smi)
+    timed_phase(walls, "12b", phase_fleet_soak, smi)
+    timed_phase(walls, "13a", phase_mesh_dryrun, counters)
+    timed_phase(walls, "13b", phase_mesh_fleet, counters, smi)
+    timed_phase(walls, "13c", phase_multihost, counters)
+    timed_phase(walls, "13d", phase_mesh_serve, counters, smi)
+    log("phase walls: " + json.dumps({k: round(v, 1)
+                                      for k, v in walls.items()}))
 
     kernels = []
     for key, name, src, replaces, wrappers in KERNELS:

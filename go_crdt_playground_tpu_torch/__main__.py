@@ -18,9 +18,12 @@ prints the round count and the digest.
 serves client ops (serve/) until SIGTERM, then drains and prints
 ``drained: N ops acked, ingest p99 ...``; the flags, defaults and banner
 are the JAX package's ``serve --ingest``.  With ``--standby-of H:P`` it
-is the warm standby of that shard (shard/replica.py).  ``--mesh-devices``
-and ``--sched on`` exit 2: their slices are not ported yet.  The device
-defaults to CUDA.
+is the warm standby of that shard (shard/replica.py).  ``--mesh-devices
+N|DPxMP`` serves a lane-sharded replica (parallel/meshtarget.py,
+meshtarget2d.py) and ``--sched`` sets the admission scheduler
+(serve/scheduler.py).  The device defaults to CUDA; the mesh slots
+follow it (``--device cuda`` wants one card a slot, ``--device cuda:0``
+puts every slot on card 0).
 
   python -m go_crdt_playground_tpu_torch router --serve --shard s0=H:P ...
       [--state-dir D] [--standby-of H:P] [--router-epoch N] ...
@@ -73,6 +76,16 @@ def _cmd_gossip(num_replicas: int, delta: bool = False,
     return 0
 
 
+def _fmt_mesh(spec) -> str:
+    """One banner token for any mesh spec: ``off``, ``N`` or ``DPxMP``
+    (harnesses parse ``mesh=(\\w+)``)."""
+    if spec is None:
+        return "off"
+    if isinstance(spec, tuple):
+        return f"{spec[0]}x{spec[1]}"
+    return str(spec)
+
+
 def _ingest_banner(args, host: str, bound: int) -> None:
     """The serving banner, in the JAX verb's form (harnesses parse it:
     ``listening on H:P``, ``mesh=``, ``sched=``)."""
@@ -83,7 +96,7 @@ def _ingest_banner(args, host: str, bound: int) -> None:
           f"durable={'yes' if args.durable_dir else 'NO'} "
           f"fused={'yes' if args.fused_ingest else 'NO'} "
           f"sync={args.sync_mode} "
-          f"mesh=off "
+          f"mesh={_fmt_mesh(args.mesh_devices)} "
           f"sched={args.sched} "
           f"shard={args.shard_id or 'off'} "
           f"compaction={args.compact_interval or 'off'})", flush=True)
@@ -107,6 +120,7 @@ def _build_frontend(args):
         shard_epoch=args.shard_epoch,
         announce_to=args.announce_to,
         repl_ack_timeout_ms=args.repl_ack_timeout_ms,
+        mesh_devices=args.mesh_devices,
         sched=args.sched, device=args.device)
 
 
@@ -123,13 +137,14 @@ def _cmd_serve_ingest(args) -> int:
     import signal
     import threading
 
-    if args.mesh_devices is not None:
-        return _not_ported("--mesh-devices", "the device-mesh replica")
     if args.standby_of is not None:
         return _cmd_serve_standby(args)
-    if args.sched == "on":
-        return _not_ported("--sched on", "the admission scheduler")
     fe = _build_frontend(args)
+    if args.mesh_devices is not None and not args.fused_ingest:
+        print("WARNING: --no-fused-ingest is ignored with "
+              "--mesh-devices — the mesh write path is always the "
+              "per-slot fused apply + δ (use a plain single-device "
+              "worker for the seed two-step comparison)", flush=True)
     if args.gc_participants is not None and args.compact_interval <= 0:
         print("WARNING: --gc-participants has no effect without "
               "--compact-interval > 0 — no compaction scheduler runs, "
@@ -571,8 +586,12 @@ def _add_serve_parser(sub) -> None:
                         "record) and dense WAL records")
     s.add_argument("--sched", dest="sched", default="auto",
                    choices=("auto", "on", "off"),
-                   help="admission scheduling; 'auto' and 'off' serve "
-                        "FIFO on one device, 'on' is not ported yet")
+                   help="conflict-aware admission scheduling: reorder "
+                        "each drained batch across key-runs (per-key "
+                        "FIFO kept) and pre-stripe it for the 2-D mesh's "
+                        "dp ingest stripes.  'auto' (default) enables it "
+                        "exactly when --mesh-devices is DPxMP with dp > "
+                        "1; 'off' is the FIFO baseline")
     s.add_argument("--shard-id", dest="shard_id", default=None,
                    help="this frontend's shard id in its fleet")
     s.add_argument("--shard-epoch", dest="shard_epoch", type=int,
@@ -604,9 +623,28 @@ def _add_serve_parser(sub) -> None:
                    type=int, default=5,
                    help="consecutive failed WAL_SYNC polls before the "
                         "standby promotes itself")
-    s.add_argument("--mesh-devices", dest="mesh_devices", default=None,
+    def _mesh_devices_spec(text: str):
+        """Typed ``--mesh-devices`` parser: ``N`` or ``DPxMP``; anything
+        else exits 2 with a usage line."""
+        from go_crdt_playground_tpu_torch.parallel.meshtarget2d import \
+            parse_mesh_spec
+
+        try:
+            return parse_mesh_spec(text)
+        except ValueError as e:
+            raise argparse.ArgumentTypeError(str(e)) from e
+
+    s.add_argument("--mesh-devices", dest="mesh_devices",
+                   type=_mesh_devices_spec, default=None,
                    metavar="N|DPxMP",
-                   help="device-mesh replica (not ported yet: exits 2)")
+                   help="hold the replica state on a mesh of slots.  N = "
+                        "1-D lane mesh (parallel/meshtarget.py): slot-"
+                        "local batch applies, K11 digest reads a slot, "
+                        "lane-gather slice transfers.  DPxMP (e.g. 2x2) = "
+                        "2-D mesh (parallel/meshtarget2d.py): lane fields "
+                        "cut over MP while DP replicated ingest stripes "
+                        "apply up to DP micro-batches a dispatch.  The "
+                        "slots follow --device")
     s.add_argument("--device", default="cuda",
                    help="torch device of the served replica (default "
                         "cuda; cpu runs the kernels' plain versions)")

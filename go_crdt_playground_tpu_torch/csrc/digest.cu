@@ -10,7 +10,9 @@
 // and group g's digest is the XOR of the lanes [g * gs, (g + 1) * gs).
 // Lanes past E in the ragged last group hash as zero lanes at their own
 // ids E, E + 1, ... (ops/digest.py group_fold).  Live dots and the vv are
-// not read.
+// not read.  ``lane_base`` is the global id of lane 0 (a lane-sharded
+// node's slot hashes lane e as id lane_base + e, padding included; 0 for
+// a whole slice).
 //
 // Bound: memory.  A lane reads 10 bytes (two bool bytes, two uint32
 // words) and a group writes 4: at E = 1,048,576 and gs = 64 that is
@@ -65,12 +67,14 @@ struct Lanes {
   const uint32_t* xa;
   const uint32_t* xc;
   long long num_e;
+  long long base;  // global id of lane 0
 };
 
 // The fingerprint of lane e, a zero lane when e >= num_e.
 __device__ __forceinline__ uint32_t lane_fp(const Lanes& s, long long e) {
-  if (e >= s.num_e) return fp_of(e, 0u, 0u, 0u, 0u);
-  return fp_of(e, s.present[e] != 0, s.deleted[e] != 0, s.xa[e], s.xc[e]);
+  if (e >= s.num_e) return fp_of(s.base + e, 0u, 0u, 0u, 0u);
+  return fp_of(s.base + e, s.present[e] != 0, s.deleted[e] != 0, s.xa[e],
+               s.xc[e]);
 }
 
 // The fingerprints of lanes 4q .. 4q + 3: vector loads when the quad lies
@@ -84,11 +88,12 @@ __device__ __forceinline__ void quad_fp(const Lanes& s, long long q,
     const uint32_t dw = reinterpret_cast<const uint32_t*>(s.deleted)[q];
     const uint4 a = reinterpret_cast<const uint4*>(s.xa)[q];
     const uint4 c = reinterpret_cast<const uint4*>(s.xc)[q];
-    f[0] = fp_of(e0, (pw & 0xffu) != 0, (dw & 0xffu) != 0, a.x, c.x);
-    f[1] = fp_of(e0 + 1, (pw & 0xff00u) != 0, (dw & 0xff00u) != 0, a.y, c.y);
-    f[2] = fp_of(e0 + 2, (pw & 0xff0000u) != 0, (dw & 0xff0000u) != 0, a.z,
+    const long long id = s.base + e0;
+    f[0] = fp_of(id, (pw & 0xffu) != 0, (dw & 0xffu) != 0, a.x, c.x);
+    f[1] = fp_of(id + 1, (pw & 0xff00u) != 0, (dw & 0xff00u) != 0, a.y, c.y);
+    f[2] = fp_of(id + 2, (pw & 0xff0000u) != 0, (dw & 0xff0000u) != 0, a.z,
                  c.z);
-    f[3] = fp_of(e0 + 3, (pw >> 24) != 0, (dw >> 24) != 0, a.w, c.w);
+    f[3] = fp_of(id + 3, (pw >> 24) != 0, (dw >> 24) != 0, a.w, c.w);
   } else {
 #pragma unroll
     for (int j = 0; j < 4; ++j) f[j] = lane_fp(s, e0 + j);
@@ -205,20 +210,21 @@ void launch(const Lanes& s, uint32_t* out, long long num_g, long long gs,
 }  // namespace
 
 // Group digests of E lanes at group size gs >= 1 into out[ceil(E / gs)];
-// gs = 1 gives the lane fingerprints themselves.  bool arrays one byte a
-// lane, uint32 arrays any 32-bit storage.  Returns the cudaError_t of the
-// launch.
+// gs = 1 gives the lane fingerprints themselves; lane e hashes as id
+// lane_base + e.  bool arrays one byte a lane, uint32 arrays any 32-bit
+// storage.  Returns the cudaError_t of the launch.
 extern "C" int crdt_group_digests(const void* present, const void* deleted,
                                   const void* del_dot_actor,
                                   const void* del_dot_counter, void* out,
                                   long long num_e, long long gs,
-                                  void* stream) {
+                                  long long lane_base, void* stream) {
   if (num_e <= 0) return 0;
   if (gs < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Lanes s{static_cast<const uint8_t*>(present),
                 static_cast<const uint8_t*>(deleted),
                 static_cast<const uint32_t*>(del_dot_actor),
-                static_cast<const uint32_t*>(del_dot_counter), num_e};
+                static_cast<const uint32_t*>(del_dot_counter), num_e,
+                lane_base};
   const long long num_g = (num_e + gs - 1) / gs;
   auto* o = static_cast<uint32_t*>(out);
   const auto st = static_cast<cudaStream_t>(stream);

@@ -218,7 +218,8 @@ def encode_payload_msg(mode: int, src_actor: int, processed,
 
 
 def encode_delta_wal_record(pre_vv, src_actor: int, payload, compact=None,
-                            *, compact_records: bool = True
+                            *, compact_records: bool = True,
+                            num_elements: Optional[int] = None
                             ) -> Tuple[bytes, bool]:
     """THE WAL record-form policy for one δ: ``(body, is_compact)``.
 
@@ -236,9 +237,11 @@ def encode_delta_wal_record(pre_vv, src_actor: int, payload, compact=None,
 
     ``compact`` reaches the host in ONE device->host copy of the whole
     fixed-K form; the dense payload is pulled (in one copy) only when a
-    host-side form is needed."""
+    host-side form is needed.  ``payload`` may be None when ``compact``
+    did not overflow and ``num_elements`` gives E."""
     pre_vv = np.asarray(host(pre_vv), np.uint32)
-    num_elements = int(payload.changed.shape[-1])
+    if num_elements is None:
+        num_elements = int(payload.changed.shape[-1])
 
     def fresh_mask(da: np.ndarray, dc: np.ndarray) -> np.ndarray:
         # NOT covered by the guard: introduced by this record's window

@@ -275,11 +275,18 @@ class Node:
                 self._log_local_delta(pre_vv)
 
     def ingest_batch(self, add_rows: np.ndarray, del_rows: np.ndarray,
-                     live: Optional[np.ndarray] = None) -> None:
+                     live: Optional[np.ndarray] = None,
+                     stripe_hint: Optional[np.ndarray] = None) -> None:
         """Apply one packed ``(B, E)`` micro-batch of client op-rows (row
         b's add selector is one Add(k...) call, its del selector one
         Del(k...) call, ``live`` masks padding rows) and WAL-log the
-        batch's δ BEFORE returning: one fsync covers the whole batch."""
+        batch's δ BEFORE returning: one fsync covers the whole batch.
+
+        ``stripe_hint`` is the admission scheduler's per-row stripe
+        assignment (serve/scheduler.py; int per row, negatives
+        unhinted).  Only a target with replicated ingest stripes
+        (parallel/meshtarget2d.Mesh2DApplyTarget) acts on it; here it is
+        checked for shape and otherwise advisory."""
         add_rows = np.asarray(add_rows, bool)
         del_rows = np.asarray(del_rows, bool)
         if add_rows.shape != del_rows.shape or add_rows.ndim != 2 \
@@ -293,12 +300,21 @@ class Node:
         if live.shape != (add_rows.shape[0],):
             raise ValueError(f"live mask shape {live.shape} does not "
                              f"match batch axis {add_rows.shape[0]}")
+        if stripe_hint is not None:
+            stripe_hint = np.asarray(stripe_hint, np.int32)
+            if stripe_hint.shape != (add_rows.shape[0],):
+                raise ValueError(
+                    f"stripe hint shape {stripe_hint.shape} does not "
+                    f"match batch axis {add_rows.shape[0]}")
         with self._lock:
-            self._apply_batch_locked(add_rows, del_rows, live)
+            self._apply_batch_locked(add_rows, del_rows, live,
+                                     stripe_hint=stripe_hint)
 
     # requires-lock: _lock
     def _apply_batch_locked(self, add_rows: np.ndarray, del_rows: np.ndarray,
-                            live: np.ndarray) -> None:
+                            live: np.ndarray,
+                            stripe_hint: Optional[np.ndarray] = None
+                            ) -> None:
         """The apply+log half of ``ingest_batch``: the rows reach the
         device in one copy, the node's regime applies them and returns
         the δ (compacted on the device when there is a record to write),
@@ -307,7 +323,9 @@ class Node:
         device->host copy, and the dense payload in one more only when
         the compact form overflowed (cuda_ingest.record_to_host).
         With ``ingest_fused`` off the rows are applied first and the δ
-        extracted against the pre-batch vv after (two steps)."""
+        extracted against the pre-batch vv after (two steps).  The
+        replica flavors (parallel/meshtarget.py) override this seam;
+        the sequential path ignores ``stripe_hint``."""
         num_b, num_e = add_rows.shape
         rows = torch.from_numpy(np.concatenate(
             [add_rows.reshape(-1), del_rows.reshape(-1), live])).to(
@@ -447,13 +465,15 @@ class Node:
 
     # requires-lock: _lock
     def _append_delta_record(self, pre_vv: np.ndarray, payload,
-                             compact=None) -> None:
+                             compact=None,
+                             num_elements: Optional[int] = None) -> None:
         """Append one δ record in the form framing.encode_delta_wal_record
         picks: the on-device fixed-K form when given and not overflowed,
         else host-side compaction or the dense record."""
         body, is_compact = framing.encode_delta_wal_record(
             pre_vv, self.actor, payload, compact,
-            compact_records=self.wal_compact_records)
+            compact_records=self.wal_compact_records,
+            num_elements=num_elements)
         self.wal.append(body)
         self._count("wal.compact_records" if is_compact
                     else "wal.dense_records")
@@ -661,7 +681,8 @@ class Node:
                                metadata=self._node_metadata(metadata))
 
     @classmethod
-    def _from_checkpoint(cls, ck, where: str, recorder, device) -> "Node":
+    def _from_checkpoint(cls, ck, where: str, recorder, device,
+                         node_kwargs: Optional[dict] = None) -> "Node":
         meta = ck.metadata
         missing = [k for k in ("actor", "delta_semantics",
                                "strict_reference_semantics")
@@ -676,7 +697,7 @@ class Node:
             num_actors=int(ck.state.vv.shape[-1]),
             delta_semantics=meta["delta_semantics"],
             strict_reference_semantics=meta["strict_reference_semantics"],
-            recorder=recorder, device=device)
+            recorder=recorder, device=device, **(node_kwargs or {}))
         with node._lock:
             node._state = ck.state
         return node
@@ -732,12 +753,16 @@ class Node:
     @classmethod
     def restore_durable(cls, dirpath: str, *, recorder=None,
                         min_generation: int = 0, keep: int = 3,
-                        fallback_init=None, device="cuda") -> "Node":
+                        fallback_init=None, device="cuda",
+                        node_kwargs: Optional[dict] = None) -> "Node":
         """Crash recovery: the newest VALID checkpoint generation
         (fallback past corrupt ones, fenced by ``min_generation``) plus a
         replay of the WAL tail, with the WAL left attached.
         ``fallback_init`` (a zero-argument Node factory) covers the
-        died-before-first-checkpoint case.  A regressed restore (an older
+        died-before-first-checkpoint case.  ``node_kwargs``: extra
+        constructor arguments of ``cls`` (a mesh replica's
+        ``mesh_devices``; placement is deployment configuration, so the
+        checkpoint does not carry it).  A regressed restore (an older
         generation than the newest on disk, or a refused record) persists
         a ``resync-pending`` flag and arms the forced-FULL healing
         epoch."""
@@ -757,7 +782,8 @@ class Node:
             gen = 0
             fell_back = latest_on_disk > 0
         else:
-            node = cls._from_checkpoint(ck, dirpath, recorder, device)
+            node = cls._from_checkpoint(ck, dirpath, recorder, device,
+                                        node_kwargs)
         with node._lock:
             node.generation = gen
         wal = DeltaWal(os.path.join(dirpath, "wal"), recorder=recorder)

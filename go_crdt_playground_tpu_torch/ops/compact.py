@@ -11,7 +11,10 @@ the argument), so the exchange degrades to partial data with no clock
 advance, which converges by retry.
 
 The JAX scatter with ``mode="drop"`` becomes a scatter into K + 1 slots,
-the unclaimed lanes all aimed at slot K, which is then cut off.
+the unclaimed lanes all aimed at slot K, which is then cut off.  Every
+function takes one payload or a batch of them (a leading replica axis
+on every field): ``compact_payload_batch`` and ``expand_payload_batch``
+are the JAX package's vmapped forms, the batch dimension written out.
 """
 
 from __future__ import annotations
@@ -43,38 +46,41 @@ class CompactDeltaPayload(NamedTuple):
 
 
 def _compact_section(mask: torch.Tensor, k: int, *values):
-    """Pack the lanes where ``mask`` into the first of k slots.  Returns
-    (idx, valid, packed values, overflowed)."""
+    """Pack the lanes where ``mask`` into the first of k slots along the
+    last axis.  Returns (idx, valid, packed values, overflowed)."""
     num_e = mask.shape[-1]
     pos = torch.cumsum(mask.to(torch.int64), dim=-1) - 1  # destination
     claim = mask & (pos < k)
     dest = torch.where(claim, pos, k)
 
     def scatter(src):
-        buf = torch.zeros(k + 1, dtype=src.dtype, device=src.device)
-        return buf.scatter_(0, dest, torch.where(claim, src,
-                                                 torch.zeros_like(src)))[:k]
+        buf = torch.zeros(mask.shape[:-1] + (k + 1,), dtype=src.dtype,
+                          device=src.device)
+        return buf.scatter_(-1, dest, torch.where(
+            claim, src, torch.zeros_like(src)))[..., :k]
 
-    eids = torch.arange(num_e, dtype=torch.int32, device=mask.device)
+    eids = torch.arange(num_e, dtype=torch.int32,
+                        device=mask.device).expand(mask.shape)
     return (scatter(eids), scatter(claim),
             tuple(scatter(v) for v in values),
-            mask.sum() > k)
+            mask.sum(dim=-1) > k)
 
 
 def compact_payload(p: DeltaPayload, k_changed: int,
                     k_deleted: int) -> CompactDeltaPayload:
-    """Dense payload (one replica slice) -> fixed-K form."""
+    """Dense payload (one replica slice, or a batch) -> fixed-K form."""
     ch_idx, ch_valid, (ch_da, ch_dc), ch_over = _compact_section(
         p.changed, k_changed, p.ch_da, p.ch_dc)
     del_idx, del_valid, (del_da, del_dc), del_over = _compact_section(
         p.deleted, k_deleted, p.del_da, p.del_dc)
     overflow = ch_over | del_over
+    zero_clock = overflow.unsqueeze(-1)
     return CompactDeltaPayload(
-        src_vv=torch.where(overflow, 0, p.src_vv),
+        src_vv=torch.where(zero_clock, 0, p.src_vv),
         ch_idx=ch_idx, ch_valid=ch_valid, ch_da=ch_da, ch_dc=ch_dc,
         del_idx=del_idx, del_valid=del_valid, del_da=del_da,
         del_dc=del_dc, overflow=overflow, src_actor=p.src_actor,
-        src_processed=torch.where(overflow, 0, p.src_processed))
+        src_processed=torch.where(zero_clock, 0, p.src_processed))
 
 
 def expand_payload(c: CompactDeltaPayload,
@@ -86,9 +92,9 @@ def expand_payload(c: CompactDeltaPayload,
     def scatter(idx, valid, vals):
         idx = widen(idx)
         dest = torch.where(valid & (idx < num_elements), idx, num_elements)
-        buf = torch.zeros(num_elements + 1, dtype=vals.dtype,
-                          device=vals.device)
-        return buf.scatter_(0, dest, vals)[:num_elements]
+        buf = torch.zeros(idx.shape[:-1] + (num_elements + 1,),
+                          dtype=vals.dtype, device=vals.device)
+        return buf.scatter_(-1, dest, vals)[..., :num_elements]
 
     return DeltaPayload(
         src_vv=c.src_vv,
@@ -100,3 +106,8 @@ def expand_payload(c: CompactDeltaPayload,
         del_dc=scatter(c.del_idx, c.del_valid, c.del_dc),
         src_actor=c.src_actor,
         src_processed=c.src_processed)
+
+
+# the JAX package's vmapped forms: the functions above take the batch
+compact_payload_batch = compact_payload
+expand_payload_batch = expand_payload

@@ -51,13 +51,13 @@ _count_lock = threading.Lock()
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("digest")
-    lib.crdt_group_digests.argtypes = [_P] * 5 + [_I64, _I64, _P]
+    lib.crdt_group_digests.argtypes = [_P] * 5 + [_I64, _I64, _I64, _P]
     lib.crdt_group_digests.restype = ctypes.c_int
     return lib
 
 
 def _launch(state: AWSetDeltaState, group_size: int,
-            lib=None) -> torch.Tensor:
+            lib=None, lane_base: int = 0) -> torch.Tensor:
     """One pass over the four read lanes (one CUDA device, [E], their
     storage dtype, contiguous), one allocation, one launch; the device
     context is entered only when the lanes are not on the current
@@ -84,19 +84,19 @@ def _launch(state: AWSetDeltaState, group_size: int,
         rc = lib.crdt_group_digests(p.data_ptr(), d.data_ptr(),
                                     xa.data_ptr(), xc.data_ptr(),
                                     out.data_ptr(), num_e, group_size,
-                                    stream_of(out))
+                                    lane_base, stream_of(out))
     if rc:
         _build.check(lib, rc, "crdt_group_digests")
     return out
 
 
-def lane_fingerprints(state: AWSetDeltaState,
-                      kernel: str = "auto") -> torch.Tensor:
+def lane_fingerprints(state: AWSetDeltaState, kernel: str = "auto",
+                      lane_base: int = 0) -> torch.Tensor:
     """K11: int32-bits [E] lane fingerprints of one replica slice (the
-    kernel at group size 1)."""
+    kernel at group size 1); lane e hashes as global id lane_base + e."""
     if not use_kernel(kernel, state.present):
-        return digest_ops.lane_fingerprints(state)
-    out = _launch(state, 1)
+        return digest_ops.lane_fingerprints(state, lane_base)
+    out = _launch(state, 1, lane_base=lane_base)
     with _count_lock:
         lane_fingerprints.launches += 1
     return out
@@ -104,15 +104,18 @@ def lane_fingerprints(state: AWSetDeltaState,
 
 def state_group_digests(state: AWSetDeltaState,
                         group_size: int = digest_ops.DIGEST_GROUP_LANES,
-                        kernel: str = "auto") -> torch.Tensor:
+                        kernel: str = "auto",
+                        lane_base: int = 0) -> torch.Tensor:
     """K11: int32-bits [ceil(E / group_size)] group digests of one replica
-    slice, fingerprints and fold in one launch; any group_size >= 1."""
+    slice, fingerprints and fold in one launch; any group_size >= 1.
+    ``lane_base``: the global id of lane 0 (a lane-sharded node's
+    slot)."""
     group_size = int(group_size)
     if group_size < 1:
         raise ValueError(f"group size must be >= 1, got {group_size}")
     if not use_kernel(kernel, state.present):
-        return digest_ops.state_group_digests(state, group_size)
-    out = _launch(state, group_size)
+        return digest_ops.state_group_digests(state, group_size, lane_base)
+    out = _launch(state, group_size, lane_base=lane_base)
     with _count_lock:
         state_group_digests.launches += 1
     return out

@@ -73,34 +73,41 @@ def lane_fingerprint_arrays(lane_ids, present, deleted, del_dot_actor,
     return _fold(h, widen(del_dot_counter))
 
 
-def lane_fingerprints(state: AWSetDeltaState) -> torch.Tensor:
+def lane_fingerprints(state: AWSetDeltaState,
+                      lane_base: int = 0) -> torch.Tensor:
     """int32-bits [E] per-lane fingerprints of one replica slice (fields
-    [E]/[A]); vv and processed are not folded in."""
+    [E]/[A]); vv and processed are not folded in.  ``lane_base``: the
+    global id of lane 0 (a lane-sharded node's slot hashes global ids)."""
     e = state.present.shape[-1]
-    ids = torch.arange(e, dtype=torch.int64, device=state.present.device)
+    ids = torch.arange(lane_base, lane_base + e, dtype=torch.int64,
+                       device=state.present.device)
     return narrow(lane_fingerprint_arrays(
         ids, state.present, state.deleted, state.del_dot_actor,
         state.del_dot_counter))
 
 
 def pad_fingerprints(num_elements: int, group_size: int,
-                     device) -> torch.Tensor:
+                     device, lane_base: int = 0) -> torch.Tensor:
     """int32-bits fingerprints of the zero lanes that pad E up to whole
-    groups, at their true ids E, E+1, ..."""
+    groups, at their true ids lane_base + E, lane_base + E + 1, ..."""
     pad = (-num_elements) % group_size
-    ids = torch.arange(num_elements, num_elements + pad, dtype=torch.int64,
+    first = lane_base + num_elements
+    ids = torch.arange(first, first + pad, dtype=torch.int64,
                        device=device)
     z = torch.zeros(pad, dtype=torch.int32, device=device)
     return narrow(lane_fingerprint_arrays(ids, z, z, z, z))
 
 
-def group_fold(fp: torch.Tensor, group_size: int) -> torch.Tensor:
+def group_fold(fp: torch.Tensor, group_size: int,
+               lane_base: int = 0) -> torch.Tensor:
     """XOR-fold int32-bits [E] lane fingerprints into [ceil(E/gs)] group
-    digests, the ragged last group padded with zero-lane fingerprints."""
+    digests, the ragged last group padded with zero-lane fingerprints
+    (at global ids past ``lane_base + E``)."""
     if group_size < 1:
         raise ValueError(f"group size must be >= 1, got {group_size}")
     e = fp.shape[-1]
-    fp = torch.cat([fp, pad_fingerprints(e, group_size, fp.device)])
+    fp = torch.cat([fp, pad_fingerprints(e, group_size, fp.device,
+                                         lane_base)])
     g = fp.view(-1, group_size)
     while g.shape[1] > 1:
         half = g.shape[1] // 2
@@ -112,10 +119,12 @@ def group_fold(fp: torch.Tensor, group_size: int) -> torch.Tensor:
 
 
 def state_group_digests(state: AWSetDeltaState,
-                        group_size: int = DIGEST_GROUP_LANES) -> torch.Tensor:
+                        group_size: int = DIGEST_GROUP_LANES,
+                        lane_base: int = 0) -> torch.Tensor:
     """Per-lane fingerprints and the group XOR fold: K11's plain version.
     ``digest_regime`` is the device dispatch callers should use."""
-    return group_fold(lane_fingerprints(state), group_size)
+    return group_fold(lane_fingerprints(state, lane_base), group_size,
+                      lane_base)
 
 
 def digest_regime(num_elements: int, device="cuda"):

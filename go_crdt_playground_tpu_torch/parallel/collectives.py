@@ -24,21 +24,25 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _lanes(n: int, device) -> torch.Tensor:
-    return _mix32(torch.arange(1, n + 1, dtype=torch.int64, device=device))
+def _lanes(n: int, device, lane_base: int = 0) -> torch.Tensor:
+    return _mix32(torch.arange(lane_base + 1, lane_base + n + 1,
+                               dtype=torch.int64, device=device))
 
 
-def membership_hash(present: torch.Tensor) -> torch.Tensor:
+def membership_hash(present: torch.Tensor,
+                    lane_base: int = 0) -> torch.Tensor:
     """Per-replica membership digest: the sum (mod 2^32) of mixed element
     ids over present lanes.  present: bool[R, E] -> int32[R] (uint32
-    bits)."""
-    lane = narrow(_lanes(present.shape[-1], present.device))
+    bits).  ``lane_base``: the global id of lane 0, for a slice of the
+    element axis (a sharded state's partial sums add up to the whole
+    hash)."""
+    lane = narrow(_lanes(present.shape[-1], present.device, lane_base))
     total = torch.where(present, lane, 0).sum(dim=-1, dtype=torch.int64)
     return narrow(total)
 
 
-def _vv_hash(vv: torch.Tensor) -> torch.Tensor:
-    lane = _lanes(vv.shape[-1], vv.device)
+def _vv_hash(vv: torch.Tensor, lane_base: int = 0) -> torch.Tensor:
+    lane = _lanes(vv.shape[-1], vv.device, lane_base)
     return mul32(_mix32(vv), lane).sum(dim=-1) & MASK
 
 

@@ -11,8 +11,8 @@ runtime for dissemination.  Admission is bounded and sheds with typed
 
 The counterpart of the JAX package's ``serve/``: the same protocol,
 replies, WAL records and counters, over a torch replica (one K10 launch
-a micro-batch on CUDA).  The mesh flavors and the admission scheduler
-are not ported yet (``NotYetPorted``).
+a micro-batch on CUDA), the mesh-sharded replica flavors and the
+conflict-aware admission scheduler included.
 
 The names below load on first use: the router tier imports the client,
 the protocol and the connection host and must not load torch, which the
@@ -30,7 +30,6 @@ _EXPORTS = {
     "PendingOp": "client",
     "ServeClient": "client",
     "CompactionScheduler": "compaction",
-    "NotYetPorted": "frontend",
     "ServeFrontend": "frontend",
     "ConnHost": "host",
     "DeadlineExceeded": "protocol",

@@ -29,8 +29,9 @@ frames, replies, WAL records and counter names.  The replica lives on
 ``device`` (CUDA by default); there every micro-batch is one K10 launch
 (ops/cuda_ingest.py), made from the batcher's thread on the node's
 device, and ``--sync-mode digest`` exchanges read the lane digests
-through K11.  The reference's device-mesh replicas and admission
-scheduler raise ``NotYetPorted``.
+through K11.  ``mesh_devices`` serves a lane-sharded replica
+(parallel/meshtarget.py, meshtarget2d.py) and ``sched`` the
+conflict-aware admission scheduler (serve/scheduler.py).
 """
 
 from __future__ import annotations
@@ -60,12 +61,6 @@ Addr = Tuple[str, int]
 _SLICE_CRASH_ENV = "CRDT_SERVE_CRASH_ON_SLICE"
 
 
-class NotYetPorted(NotImplementedError):
-    """An option of the reference frontend whose slice of the port has
-    not landed yet (the device-mesh replicas, the admission
-    scheduler)."""
-
-
 class ServeFrontend:
     """TCP op-ingest frontend over one durable AWSet replica."""
 
@@ -93,27 +88,51 @@ class ServeFrontend:
         self.recorder = recorder if recorder is not None else Recorder()
         self.durable_dir = durable_dir
         # the replica flavor: a plain single-device Node on ``device``
-        # (CUDA by default: every micro-batch is one K10 launch).  The
-        # reference's device-mesh flavors (``mesh_devices``) and its
-        # admission scheduler (``sched="on"``) raise NotYetPorted.
+        # (CUDA by default: every micro-batch is one K10 launch), the 1-D
+        # lane mesh (parallel/meshtarget.py) or the 2-D dp x mp
+        # replicated-ingest mesh (parallel/meshtarget2d.py), all with the
+        # same durability and dissemination surface.  ``mesh_devices``
+        # takes an int N (1-D), an "N"/"DPxMP" string or a (dp, mp)
+        # tuple; the slots follow ``device`` (mesh.take_devices: "cuda"
+        # wants N cards, a device named with its index holds every slot)
         device = resolve_device(device)
+        node_cls = Node
+        node_kwargs: dict = {"device": device}
         if mesh_devices is not None:
-            raise NotYetPorted(
-                "mesh_devices: the device-mesh replica targets "
-                "(parallel/meshtarget.py, meshtarget2d.py) are not part "
-                "of the port yet; serve one device")
+            from go_crdt_playground_tpu_torch.parallel.meshtarget2d import \
+                parse_mesh_spec
+
+            spec = parse_mesh_spec(mesh_devices)
+            if isinstance(spec, tuple):
+                from go_crdt_playground_tpu_torch.parallel.meshtarget2d \
+                    import Mesh2DApplyTarget
+
+                node_cls = Mesh2DApplyTarget
+                node_kwargs["mesh_shape"] = spec
+            else:
+                from go_crdt_playground_tpu_torch.parallel.meshtarget \
+                    import MeshApplyTarget
+
+                node_cls = MeshApplyTarget
+                node_kwargs["mesh_devices"] = spec
+        # the flavor seam, kept for the warmup's scratch node (it must
+        # build the same class with the same arguments)
+        self._node_kwargs = node_kwargs
         if durable_dir is not None:
             os.makedirs(durable_dir, exist_ok=True)
-            self.node = Node.restore_durable(
-                durable_dir, recorder=self.recorder, device=device,
-                fallback_init=lambda: Node(
+            restore_kwargs = dict(node_kwargs)
+            self.node = node_cls.restore_durable(
+                durable_dir, recorder=self.recorder,
+                device=restore_kwargs.pop("device"),
+                node_kwargs=restore_kwargs,
+                fallback_init=lambda: node_cls(
                     actor, num_elements, num_actors,
-                    recorder=self.recorder, device=device))
+                    recorder=self.recorder, **node_kwargs))
         else:
             # non-durable regime (benchmarks/tests): acks are NOT backed
             # by an fsync — production serving always passes durable_dir
-            self.node = Node(actor, num_elements, num_actors,
-                             recorder=self.recorder, device=device)
+            self.node = node_cls(actor, num_elements, num_actors,
+                                 recorder=self.recorder, **node_kwargs)
         # serve-ladder knobs (plain config attrs — restore_durable
         # rebuilds the node from checkpoint metadata, which does not
         # carry them): fused one-dispatch ingest+δ and compact WAL
@@ -142,13 +161,14 @@ class ServeFrontend:
         if sched not in ("auto", "on", "off"):
             raise ValueError(
                 f"sched must be auto/on/off, got {sched!r}")
-        if sched == "on":
-            raise NotYetPorted(
-                "sched='on': the conflict-aware admission scheduler "
-                "(serve/scheduler.py) is not part of the port yet")
-        # "auto" engages the scheduler only on a replica with more than
-        # one ingest stripe (the 2-D mesh), which the port has not: FIFO
+        stripes = max(1, int(getattr(self.node, "ingest_stripes", 1)))
         self.scheduler = None
+        if sched == "on" or (sched == "auto" and stripes > 1):
+            from go_crdt_playground_tpu_torch.serve.scheduler import \
+                ConflictScheduler
+
+            self.scheduler = ConflictScheduler(
+                stripes, recorder=self.recorder)
         self.batcher = MicroBatcher(
             self.node, self.queue, max_batch=max_batch,
             flush_s=flush_ms / 1000.0, recorder=self.recorder,
@@ -410,7 +430,7 @@ class ServeFrontend:
                 ingest_fused=self.node.ingest_fused,
                 wal_compact_records=self.node.wal_compact_records,
                 wal=DeltaWal(os.path.join(d, "wal"), fsync=False),
-                device=self.node.device)
+                **self._node_kwargs)
             add = np.zeros((B, E), bool)
             add[0, 0] = True  # one live lane: the δ-extract path runs
             scratch.ingest_batch(add, np.zeros((B, E), bool),

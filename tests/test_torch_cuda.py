@@ -696,3 +696,74 @@ def test_cuda_shard_standby_catches_up_and_promotes(tmp_path):
             back.wal.close()
     finally:
         sb.close()
+
+
+@pytest.mark.parametrize("E", [65, 1000, 8192])
+def test_digest_kernel_lane_base_matches_plain(E):
+    """K11 with a lane base (a lane-sharded node's slot hashes global
+    ids): both entries equal the plain version, and base 0 is the call
+    without one."""
+    from go_crdt_playground_tpu_torch.ops import cuda_digest as cg
+
+    st = _on_gpu(random_state(150 + E, 1, E, 8))
+    row = type(st)(*(x[0] for x in st))
+    for base in (0, E, 7 * 1024, (1 << 31) + 3):
+        assert torch.equal(
+            cg.lane_fingerprints(row, kernel="cuda", lane_base=base),
+            cg.lane_fingerprints(row, kernel="torch", lane_base=base))
+        for gs in (1, 48, 64, 256):
+            assert torch.equal(
+                cg.state_group_digests(row, gs, kernel="cuda",
+                                       lane_base=base),
+                cg.state_group_digests(row, gs, kernel="torch",
+                                       lane_base=base)), (base, gs)
+    assert torch.equal(cg.state_group_digests(row, 64, kernel="cuda"),
+                       cg.state_group_digests(row, 64, kernel="cuda",
+                                              lane_base=0))
+
+
+def test_per_slot_kernels_on_a_two_slot_card_mesh():
+    """The sharded rounds on a 2-slot mesh whose slots share cuda:0:
+    K2 (ring and butterfly), K8 and K9 (packed block ring) per slot
+    equal the same rounds on their plain versions, and the launches are
+    counted per slot."""
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import gossip
+    from go_crdt_playground_tpu_torch.parallel import mesh as mesh_mod
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    m = mesh_mod.make_mesh((2, 1), devices=["cuda:0", "cuda:0"])
+    st = random_state(171, 256, 96, 8)
+    st = st._replace(dot_counter=st.dot_counter & 0xFFFFF,
+                     del_dot_counter=st.del_dot_counter & 0xFFFFF)
+    full = mesh_mod.shard_state(_on_gpu(st.base()), m)
+    before = cm.merge_pairwise_rows.launches
+    for run in (lambda s, k: gossip.ring_round_shardmap(s, m, kernel=k),
+                lambda s, k: gossip.butterfly_round_shardmap(s, m, 7,
+                                                             kernel=k)):
+        assert _equal(mesh_mod.gather_state(run(full, "cuda")),
+                      mesh_mod.gather_state(run(full, "torch")))
+    assert cm.merge_pairwise_rows.launches == before + 4
+    before = cm.gossip_round_rows.launches
+    assert _equal(mesh_mod.gather_state(
+        gossip.butterfly_round_shardmap(full, m, 2, kernel="cuda")),
+        mesh_mod.gather_state(
+            gossip.butterfly_round_shardmap(full, m, 2, kernel="torch")))
+    assert cm.gossip_round_rows.launches == before + 2
+    for pack, fn in ((packed.pack_awset_delta, cd.delta_ring_round_packed),
+                     (packed.pack_awset_delta_dots,
+                      cd.delta_ring_round_dotpacked)):
+        sh = mesh_mod.shard_state(pack(type(st)(*(x.cuda() for x in st))),
+                                  m)
+        for off in (5, 128):
+            before = fn.launches
+            got = gossip.packed_block_ring_round_shardmap(sh, m, off,
+                                                          kernel="cuda")
+            assert fn.launches == before + 2
+            want = gossip.packed_block_ring_round_shardmap(sh, m, off,
+                                                           kernel="torch")
+            assert _equal(mesh_mod.gather_state(got),
+                          mesh_mod.gather_state(want)), (fn.__name__, off)

@@ -89,7 +89,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
              + sorted((REPO / "tools").glob("torch_*.py")))
     assert len(files) > 10
     for part in ("serve/frontend.py", "shard/replica.py", "obs/metrics.py",
-                 "utils/degrade.py"):
+                 "utils/degrade.py", "parallel/mesh.py",
+                 "parallel/shardmap.py", "parallel/multihost.py",
+                 "parallel/meshtarget.py", "parallel/meshtarget2d.py",
+                 "serve/scheduler.py", "utils/checkpoint_sharded.py"):
         assert PORT / part in files
     assert REPO / "tools" / "torch_serve_soak.py" in files
     for path in files:
@@ -196,7 +199,7 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "102 skipped" in out.stdout or "102 passed" in out.stdout, \
+    assert "106 skipped" in out.stdout or "106 passed" in out.stdout, \
         out.stdout
 
 
@@ -310,3 +313,63 @@ def test_fleet_modules_fall_under_the_import_scan():
         assert PORT / part in files
     for tool in ("torch_fleet_serve_soak.py", "torch_chaos_soak.py"):
         assert REPO / "tools" / tool in files
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mesh-devices", "4"],
+    ["--mesh-devices", "2x2", "--sched", "auto"],
+    ["--sched", "off"],
+])
+def test_serve_banner_mesh_and_sched_tokens_match_the_jax_verb(
+        argv, monkeypatch, capsys):
+    """``serve --ingest --mesh-devices N|DPxMP --sched MODE`` prints the
+    JAX verb's banner, ``mesh=`` and ``sched=`` tokens included."""
+    import go_crdt_playground_tpu.__main__ as jax_cli
+    import go_crdt_playground_tpu_torch.__main__ as port_cli
+
+    class _Stop(Exception):
+        pass
+
+    class _FakeFrontend:
+        def serve(self, port=0, peer_port=None):
+            return "127.0.0.1", 7001
+
+    banners = []
+    for mod in (jax_cli, port_cli):
+        real = mod._ingest_banner
+
+        def banner(args, host, bound, real=real):
+            real(args, host, bound)
+            raise _Stop
+
+        monkeypatch.setattr(mod, "_build_frontend",
+                            lambda args: _FakeFrontend())
+        monkeypatch.setattr(mod, "_ingest_banner", banner)
+        with pytest.raises(_Stop):
+            mod.main(["serve", "--ingest", *argv])
+        banners.append(capsys.readouterr().out.strip().splitlines()[-1])
+    assert banners[0] == banners[1]
+    want = {"4": "mesh=4", "2x2": "mesh=2x2"}.get(
+        argv[1] if argv[0] == "--mesh-devices" else None, "mesh=off")
+    assert want in banners[1]
+    assert f"sched={argv[-1] if '--sched' in argv else 'auto'}" in banners[1]
+    # a malformed spec exits 2 in both verbs
+    for mod in (jax_cli, port_cli):
+        with pytest.raises(SystemExit) as e:
+            mod.main(["serve", "--ingest", "--mesh-devices", "2x"])
+        assert e.value.code == 2
+
+
+def test_mesh_entry_points_need_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device runs")
+    from go_crdt_playground_tpu_torch.entry import dryrun_multichip
+    from go_crdt_playground_tpu_torch.parallel import mesh, meshtarget
+
+    for call in (lambda: dryrun_multichip(2),
+                 lambda: meshtarget.MeshApplyTarget(0, 16, 2,
+                                                    mesh_devices=1),
+                 lambda: mesh.take_devices(2, "cuda"),
+                 lambda: mesh.take_devices(1, "cuda:0")):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()

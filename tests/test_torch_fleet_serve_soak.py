@@ -17,7 +17,8 @@ sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 
 MODES = {"sweep": [], "router_ha": ["--router-ha"],
-         "shard_repl": ["--shard-repl"], "autopilot": ["--autopilot"]}
+         "shard_repl": ["--shard-repl"], "autopilot": ["--autopilot"],
+         "mesh": ["--mesh"], "zipf": ["--zipf"]}
 
 
 @pytest.mark.slow
@@ -36,12 +37,87 @@ def test_fleet_soak_quick_mode_on_cpu(tmp_path, mode):
 
 
 def test_mesh_and_zipf_modes_are_refused():
+    """The mesh and zipf modes run now (the port has the mesh replicas
+    and the scheduler); asking for two modes at once is refused, and a
+    mesh worker's slots take card 0 when the device is ``cuda``."""
     import torch_fleet_serve_soak as soak
 
-    for flag in ("--mesh", "--zipf"):
+    for flags in (("--mesh", "--zipf"), ("--mesh", "--router-ha")):
         with pytest.raises(SystemExit) as e:
-            soak.main(["--quick", "--device", "cpu", flag])
+            soak.main(["--quick", "--device", "cpu", *flags])
         assert e.value.code == 2
+    old = soak.DEVICE
+    try:
+        for device, slots in (("cuda", "cuda:0"), ("cuda:1", "cuda:1"),
+                              ("cpu", "cpu")):
+            soak.DEVICE = device
+            assert soak.mesh_device() == slots
+            spec = soak._mesh_spec("2x2", 144, 29, sched="on")
+            assert spec.device == slots
+            assert spec.extra_args == ("--mesh-devices", "2x2", "--sched",
+                                       "on")
+        with pytest.raises(ValueError):
+            soak._mesh_spec("2x", 144, 29)
+    finally:
+        soak.DEVICE = old
+
+
+def _mesh_result():
+    """A --mesh result that meets every check."""
+    leg = {"unresolved": 0, "goodput": 400.0}
+    crash = {"outage": {"typed_unavailable": 3, "unresolved": 0},
+             "victim_acked_before_kill": 50, "lost_acked_ops": [],
+             "phantom_members": [], "unfinished": []}
+    return {
+        "serve_curve": [dict(leg, mesh_devices=n, worker_banner_mesh=str(n))
+                        for n in (1, 2)],
+        "serve_curve_2d": [
+            dict(leg, mesh_devices=s, worker_banner_mesh=s,
+                 server_mesh={"rows_per_dispatch": r})
+            for s, r in (("1x2", 4.0), ("2x2", 7.5))],
+        "parity": {"bitwise_equal": True, "ops": 172},
+        "parity_2d": {"bitwise_equal": True, "ops": 172},
+        "crash": copy.deepcopy(crash), "crash_2d": copy.deepcopy(crash)}
+
+
+def _zipf_result():
+    """A --zipf result that meets every check."""
+    def leg(spec, s, sched, cps, rpd):
+        return {"unresolved": 0, "goodput": 800.0, "mesh_devices": spec,
+                "worker_banner_mesh": spec, "worker_banner_sched": sched,
+                "zipf_s": s, "sched": sched,
+                "server_mesh": {"cuts_per_super_batch": cps,
+                                "rows_per_dispatch": rpd}}
+
+    return {
+        "zipf_curve": [leg(spec, s, "on", 0.0, rpd) for s in (0.99, 1.2)
+                       for spec, rpd in (("1x2", 6.0), ("4x2", 20.0))],
+        "zipf_baseline": leg("4x2", 1.2, "off", 1.5, 9.0),
+        "zipf_replay": {"bitwise_equal": True, "members_agree": True,
+                        "acked_adds": 90, "lost_acked_ops": [],
+                        "phantom_members": [],
+                        "traffic": {"unresolved": 0}}}
+
+
+@pytest.mark.parametrize("case", [
+    None, ("mesh", "parity", "bitwise_equal", False),
+    ("mesh", "crash_2d", "lost_acked_ops", [7]),
+    ("zipf", "zipf_baseline", "server_mesh",
+     {"cuts_per_super_batch": 0.0, "rows_per_dispatch": 9.0}),
+    ("zipf", "zipf_replay", "members_agree", False)])
+def test_mesh_and_zipf_checks_name_each_failure(case):
+    import torch_fleet_serve_soak as soak
+
+    for mode, build, checks in (("mesh", _mesh_result, soak.checks_mesh),
+                                ("zipf", _zipf_result, soak.checks_zipf)):
+        r = build()
+        if case is not None and case[0] == mode:
+            r[case[1]][case[2]] = case[3]
+        failed = [c.name for c in checks(r) if not c.ok]
+        if case is None or case[0] != mode:
+            assert failed == [], failed
+        else:
+            assert len(failed) == 1, failed
 
 
 def _sweep_result():

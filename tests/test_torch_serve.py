@@ -30,7 +30,7 @@ from go_crdt_playground_tpu_torch.serve import protocol
 from go_crdt_playground_tpu_torch.serve.admission import (AdmissionQueue,
                                                           OpRequest)
 from go_crdt_playground_tpu_torch.serve.client import ServeClient
-from go_crdt_playground_tpu_torch.serve.frontend import (NotYetPorted,
+from go_crdt_playground_tpu_torch.serve.frontend import (
                                                          ServeFrontend)
 from go_crdt_playground_tpu_torch.utils import wire
 from tests.test_torch_net import prompt_jax_close  # noqa: F401 (autouse)
@@ -714,15 +714,34 @@ def test_slice_transfer_survives_vv_inflation():
 
 
 def test_unported_options_raise_typed():
-    """The reference's mesh replicas and admission scheduler are not
-    ported: asking for them raises ``NotYetPorted``; ``sched='auto'``
-    and ``'off'`` serve FIFO on one device."""
-    with pytest.raises(NotYetPorted, match="mesh"):
-        torch_frontend(E, A, mesh_devices=2)
-    with pytest.raises(NotYetPorted, match="scheduler"):
-        torch_frontend(E, A, sched="on")
+    """The reference's mesh replicas and admission scheduler are ported
+    now: ``mesh_devices`` builds the mesh replica flavors and
+    ``sched='on'`` (or ``'auto'`` on a 2-D mesh) attaches the scheduler;
+    a malformed scheduling mode still raises typed, and ``'auto'`` and
+    ``'off'`` serve FIFO on one device."""
+    from go_crdt_playground_tpu_torch.parallel.meshtarget import \
+        MeshApplyTarget
+    from go_crdt_playground_tpu_torch.parallel.meshtarget2d import \
+        Mesh2DApplyTarget
+    from go_crdt_playground_tpu_torch.serve.scheduler import \
+        ConflictScheduler
+
     with pytest.raises(ValueError, match="sched"):
         torch_frontend(E, A, sched="sometimes")
+    with pytest.raises(ValueError, match="mesh spec"):
+        torch_frontend(E, A, mesh_devices="2x")
+    for kw, cls, sched in (
+            ({"mesh_devices": 2}, MeshApplyTarget, None),
+            ({"sched": "on"}, None, ConflictScheduler),
+            ({"mesh_devices": "2x1"}, Mesh2DApplyTarget,
+             ConflictScheduler),
+            ({"mesh_devices": "2x1", "sched": "off"}, Mesh2DApplyTarget,
+             None)):
+        fe = torch_frontend(E, A, **kw)
+        assert cls is None or type(fe.node) is cls
+        assert (fe.scheduler is None if sched is None
+                else isinstance(fe.scheduler, sched))
+        fe.close()
     for sched in ("auto", "off"):
         fe = torch_frontend(E, A, sched=sched)
         assert fe.scheduler is None

@@ -37,15 +37,27 @@ checks; a name is ``<leg>/<check>`` (goodput floors, an outage or a split really
 windows).  One departure: the autopilot's shards batch one op, and
 its rates scale by the offered rate that saturates one such shard
 (``heat_rate``), so that the flash crowd heats a shard on either
-device, as the reference's rates heat its 250 ops/s shards.  The
-``--mesh`` and ``--zipf`` modes need the device-mesh
-replicas and the admission scheduler, which the port has not yet; the
-tool rejects them.  Shards run on ``--device`` (default cuda); the
-router, its standby and the autopilot are host-only.
+device, as the reference's rates heat its 250 ops/s shards.
+* ``--mesh`` — ``serve --mesh-devices N`` (1-D) and ``DPxMP`` (2-D)
+  workers behind the router: goodput and p99 per width, the dp ladder's
+  rows per dispatch, a worker and a reference worker fed one op log
+  bitwise equal after a drain (1-D against a plain worker, 2-D against
+  1-D), and a SIGKILL + ``restore_durable`` crash leg per flavor.
+* ``--zipf`` — the admission scheduler under hot-key skew: scheduled
+  dp-ladder legs at zipf exponents 0.99 and 1.2, an unscheduled
+  (``--sched off``) baseline at the widest dp, cuts per super-batch
+  at least 5x fewer with the scheduler, and a SIGKILL replay leg whose
+  durable log replays bitwise through a plain node and the mesh class.
+Shards run on ``--device`` (default cuda); the router, its standby and
+the autopilot are host-only.  A mesh worker's slots follow the device
+(mesh.take_devices); given ``cuda`` they all take card 0, so on one
+card every slot of a worker shares it, and the result says so
+(``slots_device``).
 
 Usage:
     python tools/torch_fleet_serve_soak.py [--quick] [--device cuda|cpu]
-        [--router-ha | --shard-repl | --autopilot] [--out FILE]
+        [--router-ha | --shard-repl | --autopilot | --mesh | --zipf]
+        [--out FILE]
 
 Prints one JSON line per leg and, at the end, one ``checks`` line.
 Exits nonzero when any check fails; ``--out`` writes the result with
@@ -2333,6 +2345,485 @@ def checks_shard_repl(r: Dict[str, object]) -> List[Check]:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# mesh legs (the device-mesh replica tier): `--mesh` mode
+# ---------------------------------------------------------------------------
+
+
+def _mesh_slots(spec) -> int:
+    """Slots a ``--mesh-devices`` spec needs: N, or dp * mp (the
+    package's own parser)."""
+    from go_crdt_playground_tpu_torch.parallel.meshtarget2d import \
+        parse_mesh_spec
+
+    parsed = parse_mesh_spec(str(spec))
+    return parsed if isinstance(parsed, int) else parsed[0] * parsed[1]
+
+
+def mesh_device() -> str:
+    """The device of a mesh worker's slots: ``--device`` when it names
+    one device (``cuda:0``, ``cpu``: every slot on it), card 0 for
+    ``cuda``."""
+    return "cuda:0" if DEVICE == "cuda" else DEVICE
+
+
+def _mesh_spec(devices, elements: int, seed: int, sched: str = None,
+               **kw) -> FleetSpec:
+    """A 1-shard fleet whose worker runs ``serve --mesh-devices N`` or
+    ``DPxMP``; ``sched`` its ``--sched`` flag (None: the CLI's auto)."""
+    _mesh_slots(devices)  # a malformed spec fails here
+    extra_args = ("--mesh-devices", str(devices))
+    if sched is not None:
+        extra_args += ("--sched", sched)
+    return FleetSpec(n_shards=1, elements=elements, seed=seed,
+                     extra_args=extra_args, device=mesh_device(), **kw)
+
+
+def _worker_banner(fleet: ShardFleet, field: str = "mesh") -> str:
+    """A field of the worker's own serve banner (``mesh``, ``sched``)."""
+    proc = fleet.shards[0]
+    with proc._line_cond:
+        lines = list(proc._lines)
+    for ln in lines:
+        m = re.search(field.encode() + rb"=(\w+)", ln)
+        if m:
+            return m.group(1).decode()
+    return ""
+
+
+def mesh_sweep_leg(root: str, devices, elements: int, rate: float,
+                   duration_s: float, seed: int, keys=None,
+                   sched: str = None, leg_dir: str = None,
+                   **fleet_kw) -> Dict[str, object]:
+    """One mesh spec's open-loop point through the router, with the
+    worker's dispatch census (rows a dispatch, stripe cuts a
+    super-batch, the scheduler's counters)."""
+    spec = _mesh_spec(devices, elements, seed, sched=sched, **fleet_kw)
+    fleet = ShardFleet(REPO, os.path.join(root, leg_dir or
+                                          f"mesh-{devices}"), spec)
+    try:
+        addr = fleet.start()
+        leg = open_loop_leg(addr, rate, duration_s, elements, keys=keys)
+        leg["mesh_devices"] = devices
+        leg["worker_banner_mesh"] = _worker_banner(fleet)
+        if sched is not None:
+            leg["worker_banner_sched"] = _worker_banner(fleet, "sched")
+        try:
+            with ServeClient(addr, timeout=10.0) as c:
+                counters = c.stats()["aggregate"]["counters"]
+            dispatches = counters.get("ingest.dispatches", 0)
+            rows = counters.get("mesh.stripe.rows",
+                                counters.get("serve.ops.acked", 0))
+            cuts = counters.get("mesh.stripe.cuts", 0)
+            batches = counters.get("serve.batches", 0)
+            leg["server_mesh"] = {
+                "dispatches": dispatches, "stripe_cuts": cuts,
+                "cuts_per_super_batch": (round(cuts / batches, 3)
+                                         if batches else 0.0),
+                "rows_per_dispatch": (round(rows / dispatches, 2)
+                                      if dispatches else 0.0),
+                "sched": {k: counters[k] for k in
+                          ("sched.keyruns", "sched.coalesced_rows",
+                           "sched.deferred_rows") if k in counters}}
+        except Exception as e:  # noqa: BLE001 — the census is evidence
+            leg["server_mesh"] = {"error": str(e)}
+        return leg
+    finally:
+        fleet.close()
+
+
+def _restore_state(durable: str, elements: int):
+    from go_crdt_playground_tpu_torch.net.peer import Node
+
+    node = Node.restore_durable(
+        durable, device="cpu",
+        fallback_init=lambda: Node(0, elements, 1, device="cpu"))
+    try:
+        return node.state_slice(), set(node.members().tolist())
+    finally:
+        node.close()
+
+
+def _mismatched(a, b) -> List[str]:
+    import torch
+
+    return [name for name, x, y in zip(a._fields, a, b)
+            if not torch.equal(x, y)]
+
+
+def mesh_parity_leg(root: str, devices, elements: int, seed: int,
+                    vs=None) -> Dict[str, object]:
+    """A mesh worker and a reference worker (plain, or the mesh spec
+    ``vs``) fed the SAME op log serially through their routers land on
+    byte-identical durable state after a graceful drain (both stores
+    restored in-process and diffed field by field)."""
+    import random
+
+    specs = {"mesh": _mesh_spec(devices, elements, seed, flush_ms=1.0),
+             "plain": (_spec(n_shards=1, elements=elements, seed=seed,
+                             flush_ms=1.0) if vs is None
+                       else _mesh_spec(vs, elements, seed, flush_ms=1.0))}
+    roots = {k: os.path.join(root, f"parity-{k}") for k in specs}
+    rng = random.Random(seed + 1)
+    order = list(range(elements))
+    rng.shuffle(order)
+    ops: List = []
+    added: List[int] = []
+    for e in order:
+        ops.append((protocol.OP_ADD, e))
+        added.append(e)
+        if len(added) % 5 == 0:
+            ops.append((protocol.OP_DEL, added[rng.randrange(len(added))]))
+    retries = 0
+    banner = ""
+    for name in ("mesh", "plain"):
+        fleet = ShardFleet(REPO, roots[name], specs[name])
+        try:
+            addr = fleet.start()
+            if name == "mesh":
+                banner = _worker_banner(fleet)
+            with ServeClient(addr, timeout=60.0) as c:
+                for kind, e in ops:
+                    while True:
+                        try:
+                            c.submit_async(kind, [e],
+                                           deadline_s=30.0).wait(60.0)
+                            break
+                        except protocol.ServeError:
+                            retries += 1
+                            time.sleep(0.05)
+        finally:
+            fleet.close()  # graceful SIGTERM: drain + save_durable
+    states = {k: _restore_state(os.path.join(r, "s0", "state"),
+                                elements)[0] for k, r in roots.items()}
+    mismatched = _mismatched(states["mesh"], states["plain"])
+    return {"mesh_devices": devices, "vs": vs or "plain",
+            "worker_banner_mesh": banner, "elements": elements,
+            "ops": len(ops), "retries": retries,
+            "bitwise_equal": not mismatched,
+            "mismatched_fields": mismatched}
+
+
+def mesh_crash_leg(root: str, devices, elements: int,
+                   seed: int) -> Dict[str, object]:
+    """Ledgered add-only traffic through the router; SIGKILL the mesh
+    worker mid-stream (its keyspace rejects typed ShardUnavailable),
+    restart it on its durable dir (``restore_durable`` re-placed onto
+    the slots), resubmit: zero acked-op loss, zero phantoms."""
+    import random
+
+    rng = random.Random(seed + 2)
+    spec = _mesh_spec(devices, elements, seed, flush_ms=1.0)
+    fleet = ShardFleet(REPO, os.path.join(root, "mesh-crash"), spec)
+    acked: Set[int] = set()
+    submitted: Set[int] = set()
+    outage = {"typed_unavailable": 0, "typed_other": 0, "unresolved": 0}
+    try:
+        addr = fleet.start()
+        todo = workloads.shuffled_universe(elements, seed, rng=rng)
+        n_pre = int(0.4 * len(todo))
+        kill_at = n_pre + 1 + rng.randrange(max(1, len(todo) // 10))
+        client = ServeClient(addr, timeout=30.0)
+        try:
+            for n, e in enumerate(todo):
+                if n == kill_at:
+                    fleet.kill_shard(0)
+                submitted.add(e)
+                try:
+                    client.add(e, deadline_s=5.0)
+                    acked.add(e)
+                except protocol.ShardUnavailable:
+                    outage["typed_unavailable"] += 1
+                except protocol.ServeError:
+                    outage["typed_other"] += 1
+                except (OSError, ConnectionError, socket.timeout):
+                    outage["unresolved"] += 1
+        finally:
+            client.close()
+        acked_before_kill = len(acked)
+        fleet.restart_shard(0)
+        retry_deadline = time.monotonic() + 60.0
+        remaining = [e for e in todo if e not in acked]
+        retries = 0
+        while remaining and time.monotonic() < retry_deadline:
+            client = ServeClient(addr, timeout=30.0)
+            try:
+                still: List[int] = []
+                for e in remaining:
+                    try:
+                        client.add(e, deadline_s=5.0)
+                        acked.add(e)
+                    except (protocol.ServeError, OSError,
+                            ConnectionError, socket.timeout):
+                        still.append(e)
+                remaining = still
+            finally:
+                client.close()
+            if remaining:
+                retries += 1
+                time.sleep(0.25)  # breaker half-open probe cadence
+        with ServeClient(addr, timeout=60.0) as c:
+            members, _ = c.members()
+        members_set = set(members)
+        return {
+            "mesh_devices": devices, "elements": elements,
+            "victim_acked_before_kill": acked_before_kill,
+            "outage": outage, "resubmit_rounds": retries,
+            "acked_ops": len(acked), "submitted_ops": len(submitted),
+            "final_members": len(members_set),
+            "lost_acked_ops": sorted(acked - members_set),
+            "phantom_members": sorted(members_set - submitted),
+            "unfinished": sorted(set(todo) - acked)}
+    finally:
+        fleet.close()
+
+
+def run_mesh_mode(args) -> Dict[str, object]:
+    """``--mesh``: the reference's ladders (quick: E = 144, 1 and 2
+    slots, dp ``1x2`` and ``2x2``), the parity legs and the crash legs."""
+    if args.quick:
+        elements, device_counts = 144, [1, 2]
+        dp_ladder = ["1x2", "2x2"]
+        rate, duration_s = 400.0, 3.0
+    else:
+        elements, device_counts = 288, [1, 2, 4]
+        dp_ladder = ["1x2", "2x2", "4x2"]
+        rate, duration_s = 800.0, 6.0
+    rate_2d = 1600.0
+    deep, deep2d = device_counts[-1], dp_ladder[-1]
+    # the dp ladder is batch-bottlenecked (max_batch 4, flush 10 ms):
+    # goodput and rows a dispatch scale with dp, the effect under test
+    ladder_kw = dict(max_batch=4, flush_ms=10.0)
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="torch-mesh-soak-")
+    curve: List[Dict] = []
+    curve_2d: List[Dict] = []
+    try:
+        for n in device_counts:
+            leg = mesh_sweep_leg(root, n, elements, rate, duration_s,
+                                 args.seed)
+            curve.append(leg)
+            print(json.dumps(leg), flush=True)
+        for spec in dp_ladder:
+            leg = mesh_sweep_leg(root, spec, elements, rate_2d, duration_s,
+                                 args.seed, **ladder_kw)
+            curve_2d.append(leg)
+            print(json.dumps(leg), flush=True)
+        parity = mesh_parity_leg(root, deep, elements, args.seed)
+        print(json.dumps({"mesh_parity": parity}), flush=True)
+        parity_2d = mesh_parity_leg(os.path.join(root, "p2d"), deep2d,
+                                    elements, args.seed + 7, vs=str(deep))
+        print(json.dumps({"mesh_parity_2d": parity_2d}), flush=True)
+        crash = mesh_crash_leg(root, deep, elements, args.seed)
+        crash_2d = mesh_crash_leg(os.path.join(root, "c2d"), deep2d,
+                                  elements, args.seed + 11)
+        for name, leg in (("mesh_crash", crash), ("mesh_crash_2d",
+                                                  crash_2d)):
+            print(json.dumps({name: {k: leg[k] for k in (
+                "outage", "acked_ops", "victim_acked_before_kill",
+                "lost_acked_ops", "phantom_members",
+                "resubmit_rounds")}}), flush=True)
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    return {
+        "fleet": {"elements": elements, "offered_rate": rate,
+                  "duration_s": duration_s, "seed": args.seed,
+                  "quick": bool(args.quick)},
+        "fleet_2d": {"elements": elements, "offered_rate": rate_2d,
+                     "duration_s": duration_s, **ladder_kw},
+        "device": DEVICE, "slots_device": mesh_device(),
+        "serve_curve": curve, "serve_curve_2d": curve_2d,
+        "parity": parity, "parity_2d": parity_2d,
+        "crash": crash, "crash_2d": crash_2d,
+        "elapsed_s": round(time.time() - t0, 1)}
+
+
+def _crash_checks(prefix: str, leg: Dict[str, object]) -> List[Check]:
+    return [_l(f"{prefix}/typed_unavailable",
+               leg["outage"]["typed_unavailable"] > 0),
+            _g(f"{prefix}/unresolved", leg["outage"]["unresolved"] == 0),
+            _l(f"{prefix}/victim_acked_before_kill",
+               leg["victim_acked_before_kill"] > 0),
+            *_ledger_checks(prefix, leg),
+            _g(f"{prefix}/unfinished", leg["unfinished"] == [])]
+
+
+def checks_mesh(r: Dict[str, object]) -> List[Check]:
+    """The reference's adjudication: every op resolved, each worker's
+    banner its spec, the widest dp committing over 1.5x the rows a
+    dispatch of dp = 1 without losing goodput, both parity pins and
+    both crash legs."""
+    legs = r["serve_curve"] + r["serve_curve_2d"]
+    c2d = r["serve_curve_2d"]
+
+    def rpd(leg):
+        return leg.get("server_mesh", {}).get("rows_per_dispatch", 0.0)
+
+    return [
+        _g("mesh/unresolved", all(leg["unresolved"] == 0 for leg in legs)),
+        _l("mesh/goodput", all(leg["goodput"] > 0 for leg in legs)),
+        _l("mesh/worker_banner",
+           all(leg["worker_banner_mesh"] == str(leg["mesh_devices"])
+               for leg in legs)),
+        _l("mesh/dp_rows_per_dispatch",
+           rpd(c2d[0]) > 0 and rpd(c2d[-1]) > 1.5 * rpd(c2d[0])),
+        _l("mesh/dp_goodput", c2d[-1]["goodput"] > 0.9 * c2d[0]["goodput"]),
+        _g("mesh/parity_bitwise",
+           r["parity"]["bitwise_equal"] and r["parity"]["ops"] > 0),
+        _g("mesh/parity_2d_bitwise",
+           r["parity_2d"]["bitwise_equal"] and r["parity_2d"]["ops"] > 0),
+        *_crash_checks("mesh/crash", r["crash"]),
+        *_crash_checks("mesh/crash_2d", r["crash_2d"])]
+
+
+# ---------------------------------------------------------------------------
+# zipf hot-key legs (the admission scheduler): `--zipf` mode
+# ---------------------------------------------------------------------------
+
+
+def zipf_replay_leg(root: str, devices, elements: int, seed: int,
+                    s: float = 1.2, rate: float = 800.0,
+                    duration_s: float = 3.0,
+                    **fleet_kw) -> Dict[str, object]:
+    """A scheduled mesh worker takes concurrent zipf traffic, is
+    SIGKILLed with no final checkpoint, and its durable log (written in
+    the scheduler's emitted order) must replay to one state through a
+    plain sequential node (on a copy) and through the worker's own mesh
+    restore (its drain checkpoint restored again), bitwise; every acked
+    add a member, every member submitted.  Deletes off, so the ledger's
+    membership algebra stays exact under retries."""
+    import shutil as _shutil
+
+    spec = _mesh_spec(devices, elements, seed, sched="on", **fleet_kw)
+    fleet = ShardFleet(REPO, os.path.join(root, "zipf-replay"), spec)
+    try:
+        addr = fleet.start()
+        keys = workloads.ZipfKeys(elements, s=s, seed=seed)
+        leg = open_loop_leg(addr, rate, duration_s, elements, keys=keys,
+                            del_every=0, ledgered=True)
+        banner_sched = _worker_banner(fleet, "sched")
+        fleet.kill_shard(0)
+        durable = os.path.join(root, "zipf-replay", "s0", "state")
+        seq_copy = os.path.join(root, "zipf-replay", "seq-copy")
+        _shutil.copytree(durable, seq_copy)
+        seq_state, seq_members = _restore_state(seq_copy, elements)
+        fleet.restart_shard(0)
+        with ServeClient(addr, timeout=30.0) as c:
+            members, _vv = c.members()
+        mesh_members = set(members)
+        fleet.close()  # graceful: the mesh-restored state's checkpoint
+        mesh_state, _ = _restore_state(durable, elements)
+        mismatched = _mismatched(seq_state, mesh_state)
+        acked = set(leg.get("acked_elements", []))
+        submitted = set(leg.get("submitted_elements", []))
+        return {
+            "mesh_devices": devices, "workload": keys.name,
+            "worker_banner_sched": banner_sched, "elements": elements,
+            "acked_adds": len(acked),
+            "traffic": {k: leg[k] for k in
+                        ("submitted", "acked", "goodput", "unresolved",
+                         "shed_overloaded", "p99_ms")},
+            "bitwise_equal": not mismatched,
+            "mismatched_fields": mismatched,
+            "members_agree": seq_members == mesh_members,
+            "lost_acked_ops": sorted(acked - seq_members),
+            "phantom_members": sorted(seq_members - submitted)}
+    finally:
+        fleet.close()
+
+
+def run_zipf_mode(args) -> Dict[str, object]:
+    """``--zipf``: scheduled dp-ladder legs at s in {0.99, 1.2} (quick:
+    ``1x2``, ``4x2``), the unscheduled baseline at the widest dp and the
+    harshest exponent, and the SIGKILL replay leg."""
+    if args.quick:
+        elements, dp_ladder, duration_s = 144, ["1x2", "4x2"], 3.0
+    else:
+        elements, dp_ladder, duration_s = 288, ["1x2", "2x2", "4x2"], 6.0
+    exponents = [0.99, 1.2]
+    rate = 1600.0
+    deep2d = dp_ladder[-1]
+    # batch-bottlenecked at max_batch 8: wide super-batches are where
+    # arrival-order stripe packing degenerates under skew
+    ladder_kw = dict(max_batch=8, flush_ms=10.0)
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="torch-zipf-soak-")
+    curve: List[Dict] = []
+    try:
+        for s in exponents:
+            for spec in dp_ladder:
+                keys = workloads.ZipfKeys(elements, s=s, seed=args.seed)
+                leg = mesh_sweep_leg(
+                    root, spec, elements, rate, duration_s, args.seed,
+                    keys=keys, sched="on",
+                    leg_dir=f"zipf-{spec}-s{s:g}-on", **ladder_kw)
+                leg["zipf_s"], leg["sched"] = s, "on"
+                curve.append(leg)
+                print(json.dumps(leg), flush=True)
+        baseline = mesh_sweep_leg(
+            root, deep2d, elements, rate, duration_s, args.seed,
+            keys=workloads.ZipfKeys(elements, s=exponents[-1],
+                                    seed=args.seed),
+            sched="off", leg_dir=f"zipf-{deep2d}-s{exponents[-1]:g}-off",
+            **ladder_kw)
+        baseline["zipf_s"], baseline["sched"] = exponents[-1], "off"
+        print(json.dumps(baseline), flush=True)
+        replay = zipf_replay_leg(root, deep2d, elements, args.seed + 3,
+                                 s=exponents[-1], **ladder_kw)
+        print(json.dumps({"zipf_replay": replay}), flush=True)
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    return {
+        "fleet": {"elements": elements, "offered_rate": rate,
+                  "duration_s": duration_s, "seed": args.seed,
+                  "exponents": exponents, "dp_ladder": dp_ladder,
+                  "quick": bool(args.quick), **ladder_kw},
+        "device": DEVICE, "slots_device": mesh_device(),
+        "zipf_curve": curve, "zipf_baseline": baseline,
+        "zipf_replay": replay, "elapsed_s": round(time.time() - t0, 1)}
+
+
+def checks_zipf(r: Dict[str, object]) -> List[Check]:
+    """The reference's adjudication on one worker's own counters: at
+    the harshest exponent and the widest dp, cuts a super-batch at
+    least 5x fewer than the unscheduled baseline (which must cut), rows
+    a dispatch over 1.5x the dp = 1 leg's; the replay leg bitwise."""
+    curve, base, rep = r["zipf_curve"], r["zipf_baseline"], r["zipf_replay"]
+    harsh_s = max(leg["zipf_s"] for leg in curve)
+    harsh = [leg for leg in curve if leg["zipf_s"] == harsh_s]
+    deep, dp1 = harsh[-1], harsh[0]
+
+    def census(leg, key, default=None):
+        return leg.get("server_mesh", {}).get(key, default)
+
+    sched_cps = census(deep, "cuts_per_super_batch")
+    base_cps = census(base, "cuts_per_super_batch")
+    legs = curve + [base]
+    return [
+        _g("zipf/unresolved", all(leg["unresolved"] == 0 for leg in legs)),
+        _l("zipf/goodput", all(leg["goodput"] > 0 for leg in legs)),
+        _l("zipf/worker_banner",
+           all(leg["worker_banner_mesh"] == str(leg["mesh_devices"])
+               and leg["worker_banner_sched"] == leg["sched"]
+               for leg in legs)),
+        _l("zipf/cuts_reduced_5x",
+           sched_cps is not None and base_cps is not None
+           and base_cps > 0 and base_cps >= 5 * sched_cps),
+        _l("zipf/rows_per_dispatch",
+           census(dp1, "rows_per_dispatch", 0.0) > 0
+           and census(deep, "rows_per_dispatch", 0.0)
+           > 1.5 * census(dp1, "rows_per_dispatch", 0.0)),
+        _g("zipf/replay_bitwise",
+           rep["bitwise_equal"] and rep["members_agree"]),
+        _l("zipf/replay_acked", rep["acked_adds"] > 0),
+        *_ledger_checks("zipf/replay", rep),
+        _g("zipf/replay_unresolved", rep["traffic"]["unresolved"] == 0)]
+
+
 def run_sweep(args) -> Dict[str, object]:
     if args.quick:
         elements = 144
@@ -2390,6 +2881,8 @@ MODES = {
     "router_ha": (run_router_ha_mode, lambda r, a: checks_router_ha(r)),
     "shard_repl": (run_shard_repl_mode, lambda r, a: checks_shard_repl(r)),
     "autopilot": (run_autopilot_mode, lambda r, a: checks_autopilot(r)),
+    "mesh": (run_mesh_mode, lambda r, a: checks_mesh(r)),
+    "zipf": (run_zipf_mode, lambda r, a: checks_zipf(r)),
 }
 
 
@@ -2410,9 +2903,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     modes.add_argument("--autopilot", action="store_true",
                        help="fleet-autopilot soak")
     modes.add_argument("--mesh", action="store_true",
-                       help="not ported: needs the device-mesh replicas")
+                       help="device-mesh replica soak")
     modes.add_argument("--zipf", action="store_true",
-                       help="not ported: needs the admission scheduler")
+                       help="admission scheduler under zipf hot keys")
     ap.add_argument("--device", default="cuda",
                     help="torch device of every shard (default cuda; cpu "
                          "runs the kernels' plain versions)")
@@ -2420,13 +2913,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="write the result, its checks and failures here")
     ap.add_argument("--seed", type=int, default=29)
     args = ap.parse_args(argv)
-    if args.mesh or args.zipf:
-        ap.error("--mesh and --zipf need the device-mesh replicas and the "
-                 "admission scheduler, which the port has not yet")
     DEVICE = args.device
     mode = ("router_ha" if args.router_ha else
             "shard_repl" if args.shard_repl else
-            "autopilot" if args.autopilot else "sweep")
+            "autopilot" if args.autopilot else
+            "mesh" if args.mesh else "zipf" if args.zipf else "sweep")
     run, checks_of = MODES[mode]
     t0 = time.monotonic()
     result = run(args)

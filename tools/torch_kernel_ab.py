@@ -21,8 +21,9 @@ own kind of ``--other`` tree:
     (``crdt_ingest_fold``: the rows' prefix sums, the clocks and the
     compaction in torch around it) and whose K11 has the fingerprint-
     per-thread design (before the whole-entry K10); this tree's K10 is
-    the whole entry in one launch (``crdt_ingest``).  Both K11 builds share
-    the C interface ``crdt_group_digests``.
+    the whole entry in one launch (``crdt_ingest``).  Both K11 builds have
+    the C entry ``crdt_group_digests``; this tree's takes a lane base
+    before the stream (passed as 0).
 
 Each design is timed as a whole call (host path included, CUDA events
 around back-to-back calls) with its kernel time, its device busy time
@@ -83,7 +84,9 @@ def bind(path: Path, name: str, tag: str):
                 [P] * 9 + [I32] + [P] * 4 + [I64, I64, I32, P])
             lib.crdt_merge_rows_k3.restype = I32
     elif name == "digest":
-        lib.crdt_group_digests.argtypes = [P] * 5 + [I64, I64, P]
+        lib.crdt_group_digests.argtypes = (
+            [P] * 5 + ([I64, I64, I64, P] if tag == "this"
+                       else [I64, I64, P]))
         lib.crdt_group_digests.restype = I32
     elif tag == "this":
         lib.crdt_ingest.argtypes = [P] * 13 + [I64, I64, I32, I32, I32, P]
