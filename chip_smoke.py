@@ -1739,16 +1739,20 @@ def expected_members(results) -> set:
     return members
 
 
-def record_batches(fe):
+def record_batches(fe, hints: list = None):
     """Wrap a frontend's ingest and WAL append: returns the lists they
     fill (each batch's rows, each WAL body) and a one-element list of
-    the seconds spent in WAL appends (write + fsync)."""
+    the seconds spent in WAL appends (write + fsync).  ``hints``, when
+    given, receives each batch's ``stripe_hint``."""
     node = fe.node
     batches, bodies, append_s = [], [], [0.0]
     ingest, append = node.ingest_batch, node.wal.append
 
     def recording_ingest(add, dl, live=None, **kw):
         batches.append((add.copy(), dl.copy(), live.copy()))
+        if hints is not None:
+            hint = kw.get("stripe_hint")
+            hints.append(None if hint is None else np.array(hint))
         return ingest(add, dl, live, **kw)
 
     def timed_append(body):
@@ -1760,6 +1764,29 @@ def record_batches(fe):
     node.ingest_batch = recording_ingest
     node.wal.append = timed_append
     return batches, bodies, append_s
+
+
+def cut_chunks(add, dl, live, dp: int, hint=None):
+    """The batches whose WAL records a dp-stripe mesh node
+    (``Mesh2DApplyTarget``) writes for one op-batch: the batch itself
+    when the striping planner keeps it whole, else each chunk's rows in
+    batch order, as successive batches.  Returns (batches, cuts)."""
+    from go_crdt_playground_tpu_torch.parallel.meshtarget2d import (
+        _row_keys, plan_rows)
+
+    eff_add, eff_del = add & live[:, None], dl & live[:, None]
+    num_b = add.shape[0]
+    plans, cuts = plan_rows(
+        _row_keys(*np.nonzero(eff_add | eff_del), num_b),
+        eff_add.sum(axis=1, dtype=np.int64), eff_del.any(axis=1),
+        add.shape[1], dp, max(1, -(-num_b // dp)), hint)
+    if len(plans) == 1:
+        return [(add, dl, live)], cuts
+    out = []
+    for p in plans:
+        rows = np.sort(p.index[p.index >= 0])
+        out.append((eff_add[rows], eff_del[rows], np.ones(rows.size, bool)))
+    return out, cuts
 
 
 def replay_batches(batches, actor: int, device: str, wal_dir: str = None,
@@ -2848,6 +2875,7 @@ MESH_SLOTS = 4
 MESH_SERVE = (("4", ("--mesh-devices", "4")),
               ("2x2", ("--mesh-devices", "2x2", "--sched", "auto")))
 MESH_SERVE_READS = 3
+MESH_CUT_SEED = 13
 # 13c: two processes, two slots each on the card, R x E, A = R
 MULTIHOST_R, MULTIHOST_E = 2048, 256
 
@@ -2858,10 +2886,9 @@ def state_bytes(state) -> int:
 
 def phase_mesh_dryrun(counters: Counters) -> dict:
     """13a: the port's ``dryrun_multichip`` with 4 and 8 slots on
-    cuda:0, 5 of 5 paths converged and bitwise equal to the unsharded
-    replay, the per-slot launches counted; then each kernel path's
-    first round again on the kernels and on their plain versions (those
-    launches are not counted)."""
+    cuda:0, 5 of 5 paths converged and every round bitwise equal to the
+    unsharded replay on the kernels' plain versions; the per-slot
+    launches counted exactly (the replay launches none)."""
     from go_crdt_playground_tpu_torch.entry import dryrun_multichip
     from go_crdt_playground_tpu_torch.parallel import gossip
 
@@ -2872,21 +2899,18 @@ def phase_mesh_dryrun(counters: Counters) -> dict:
         rounds_p = len(gossip.dissemination_offsets(64 * n))
         counters.reset()
         res = dryrun_multichip(n, device="cuda:0")
-        # at least one launch a slot a round (the unsharded replay on
-        # the same card launches the kernels too)
-        counters.read(f"13a dryrun_multichip({n})", at_least={
-            "delta_gossip_round": n * rounds1,
-            "delta_ring_round_packed": n * rounds_p,
-            "delta_ring_round_dotpacked": n * rounds_p})
-        check = dryrun_multichip(n, device="cuda:0", check_plain=True)
-        counters.reset()
-        bad = [r["name"] for r in check if r["plain_equal"] is False]
-        if bad or any(not (r["converged"] and r["bitwise"]) for r in res):
-            raise AssertionError(f"13a: {n} slots: {res} {check}")
+        # one launch a slot a round, and no other kernel
+        want = dict.fromkeys(counters.wrappers, 0)
+        want.update(delta_gossip_round=n * rounds1,
+                    delta_ring_round_packed=n * rounds_p,
+                    delta_ring_round_dotpacked=n * rounds_p)
+        counters.read(f"13a dryrun_multichip({n})", exact=want)
+        if any(not (r["converged"] and r["bitwise"]) for r in res):
+            raise AssertionError(f"13a: {n} slots: {res}")
         out[n] = [r["name"] for r in res]
-        log(f"13a dryrun_multichip({n}) on cuda:0: 5/5 paths converged "
-            f"and bitwise equal; each kernel path's first round equal to "
-            f"its plain version ({', '.join(out[n])})")
+        log(f"13a dryrun_multichip({n}) on cuda:0: 5/5 paths converged, "
+            f"every round bitwise equal to the replay on the plain "
+            f"versions ({', '.join(out[n])})")
     return out
 
 
@@ -2921,9 +2945,9 @@ def _time_ms(fn):
 def _mesh_leg(label, sh, ref, schedule, sharded_round, plain_round,
               counters, wrapper, moved_bytes, bound_bytes):
     """One 13b leg: every round of ``schedule`` on the sharded state
-    (timed, launches counted) and on the unsharded one, bitwise equal
-    after each round.  Returns (sharded state, unsharded state,
-    report)."""
+    (timed, launches counted) and on the unsharded one through the
+    kernels' plain versions (``plain_round``), bitwise equal after each
+    round.  Returns (sharded state, unsharded state, report)."""
     import torch
 
     times, ppermuted, plain_times = [], 0, []
@@ -2939,7 +2963,7 @@ def _mesh_leg(label, sh, ref, schedule, sharded_round, plain_round,
         _same_rows(sh, ref, f"13b {label} round {step}")
     report = {
         "rounds": len(schedule), "ms_per_round": sum(times) / len(times),
-        "ms_rounds": times, "unsharded_ms_per_round":
+        "ms_rounds": times, "plain_replay_ms_per_round":
             sum(plain_times) / len(plain_times),
         "bytes_ppermuted_per_round": ppermuted / len(schedule),
         "bound_ms_per_round": bound_bytes / HBM_BYTES_PER_S * 1e3,
@@ -2954,11 +2978,14 @@ def phase_mesh_fleet(counters: Counters, smi: str) -> dict:
     ``packed_block_ring_round_shardmap`` over the composed schedule (18
     intra-block offsets, then 2 block-aligned, 20 rounds), each
     converged and every round bitwise equal to the unsharded port
-    replaying it; full-state bool through the butterfly
-    (20 stages, K2 per slot, converged) and 3 rounds of
-    ``ring_round_shardmap``, each round equal to the unsharded
-    ``gossip_round`` at the same permutation.  The legs run smallest
-    state first, each leg's tensors freed before the next."""
+    replaying it on the kernels' plain versions; full-state bool
+    through the butterfly (20 stages, K2 per slot, converged) and 3
+    rounds of ``ring_round_shardmap``, each round equal to the plain
+    unsharded ``gossip_round`` at the same permutation.  Each leg also
+    times the unsharded kernel round at its offsets.  The legs run
+    smallest state first, each leg's tensors freed before the next."""
+    import functools
+
     import torch
 
     from go_crdt_playground_tpu_torch import fleet as fleet_mod
@@ -2974,6 +3001,12 @@ def phase_mesh_fleet(counters: Counters, smi: str) -> dict:
     mesh = mesh_mod.make_mesh((n, 1), devices=["cuda:0"] * n)
     reports = {}
 
+    def kernel_ms(round_fn, ref, steps):
+        """The unsharded kernel round's device ms at each step, after
+        one untimed call."""
+        _time_ms(lambda: round_fn(ref, steps[0]))
+        return [_time_ms(lambda: round_fn(ref, o))[1] for o in steps]
+
     # full-state bool: the butterfly (K2 gossip_round_rows per slot for
     # the 18 block-local stages, merge_pairwise_rows for the 2 swaps)
     torch.cuda.reset_peak_memory_stats()
@@ -2983,25 +3016,31 @@ def phase_mesh_fleet(counters: Counters, smi: str) -> dict:
     stages = list(range(R.bit_length() - 1))
     local = [s for s in stages if (1 << s) < blk]
     swap = [s for s in stages if (1 << s) >= blk]
+    def butterfly(kernel):
+        return lambda st, s: gossip.gossip_round(
+            st, gossip.butterfly_perm(R, s, "cuda"), kernel=kernel)
+
     sh_loc, ref, rep_loc = _mesh_leg(
         "butterfly local", sh, ref, local,
         lambda st, s: gossip.butterfly_round_shardmap(st, mesh, s),
-        lambda st, s: gossip.gossip_round(st, gossip.butterfly_perm(
-            R, s, "cuda")), counters, "gossip_round_rows", lambda s: 0,
+        butterfly("torch"), counters, "gossip_round_rows", lambda s: 0,
         3 * sb)
     sh, ref, rep_swap = _mesh_leg(
         "butterfly swap", sh_loc, ref, swap,
         lambda st, s: gossip.butterfly_round_shardmap(st, mesh, s),
-        lambda st, s: gossip.gossip_round(st, gossip.butterfly_perm(
-            R, s, "cuda")), counters, "merge_pairwise_rows", lambda s: sb,
+        butterfly("torch"), counters, "merge_pairwise_rows", lambda s: sb,
         5 * sb)
     del sh_loc
     if not (gossip.converged_shardmap(sh, mesh)
             and bool(collectives.converged(ref.present, ref.vv))):
         raise AssertionError("13b butterfly: not converged in 20 stages")
+    del sh
+    ms = kernel_ms(butterfly("auto"), ref, stages)
     reports["butterfly"] = {"local": rep_loc, "swap": rep_swap,
-                            "state_gb": sb / 1e9}
-    del sh, ref
+                            "state_gb": sb / 1e9,
+                            "unsharded_kernel_ms_per_round":
+                                sum(ms) / len(ms)}
+    del ref
     # three ring rounds (the ring merges rows of one index a block, so it
     # is not expected to converge)
     ref = fleet_mod.build_state(R, E, W, "cuda")
@@ -3010,10 +3049,14 @@ def phase_mesh_fleet(counters: Counters, smi: str) -> dict:
     sh, ref, rep_ring = _mesh_leg(
         "ring", sh, ref, [1, 2, 3],
         lambda st, _: gossip.ring_round_shardmap(st, mesh),
-        lambda st, _: gossip.gossip_round(st, ring_perm), counters,
-        "merge_pairwise_rows", lambda _: sb, 5 * sb)
-    reports["ring"] = rep_ring
-    del sh, ref
+        lambda st, _: gossip.gossip_round(st, ring_perm, kernel="torch"),
+        counters, "merge_pairwise_rows", lambda _: sb, 5 * sb)
+    del sh
+    ms = kernel_ms(lambda st, _: gossip.gossip_round(st, ring_perm), ref,
+                   [1, 2, 3])
+    reports["ring"] = dict(rep_ring, unsharded_kernel_ms_per_round=sum(ms)
+                           / len(ms))
+    del ref
     torch.cuda.empty_cache()
 
     # the packed layouts (full-state K7, K6; v2 δ K9, K8) over the
@@ -3033,6 +3076,7 @@ def phase_mesh_fleet(counters: Counters, smi: str) -> dict:
             ("delta_bits", fleet_mod.delta_fleet, packed.pack_awset_delta,
              cd.delta_ring_round_packed, "delta_ring_round_packed")):
         torch.cuda.reset_peak_memory_stats()
+        plain_ring = functools.partial(ring, kernel="torch")
         ref = pack(build(R, E, W, "cuda"))
         sb = state_bytes(ref)
         sh = mesh_mod.shard_state(ref, mesh)
@@ -3046,24 +3090,20 @@ def phase_mesh_fleet(counters: Counters, smi: str) -> dict:
             f"{label} intra", sh, ref, intra,
             lambda st, o: gossip.packed_block_ring_round_shardmap(
                 st, mesh, o),
-            lambda st, o: _packed_reference_round(st, o, blk, ring),
+            lambda st, o: _packed_reference_round(st, o, blk, plain_ring),
             counters, wrapper, lambda o: 0, 10 * sb)
         sh, ref, rep_a = _mesh_leg(
             f"{label} aligned", sh, ref, aligned,
             lambda st, o: gossip.packed_block_ring_round_shardmap(
                 st, mesh, o),
-            lambda st, o: _packed_reference_round(st, o, blk, ring),
+            lambda st, o: _packed_reference_round(st, o, blk, plain_ring),
             counters, wrapper, lambda o: sb, 12 * sb)
         if not bool(collectives.converged_packed(ref.present_bits, ref.vv)):
             raise AssertionError(f"13b {label}: not converged in 20 "
                                  "rounds")
         del sh
         # the unsharded layout's ring round at the same offsets, same run
-        _time_ms(lambda: ring(ref, 1))  # one call before the timed ones
-        ms = []
-        for o in schedule:
-            _, t = _time_ms(lambda: ring(ref, o))
-            ms.append(t)
+        ms = kernel_ms(ring, ref, schedule)
         reports[label] = {
             "intra": rep_i, "aligned": rep_a, "state_gb": sb / 1e9,
             "unsharded_global_ring_ms_per_round": sum(ms) / len(ms),
@@ -3228,10 +3268,11 @@ def serve_child(dump: str, argv) -> int:
     from go_crdt_playground_tpu_torch.ops import cuda_digest
 
     build, held = cli._build_frontend, {}
+    hints = []
 
     def recording_build(args):
         fe = build(args)
-        held["fe"], held["rec"] = fe, record_batches(fe)
+        held["fe"], held["rec"] = fe, record_batches(fe, hints)
         return fe
 
     cli._build_frontend = recording_build
@@ -3241,7 +3282,7 @@ def serve_child(dump: str, argv) -> int:
     with open(dump, "wb") as f:
         pickle.dump({
             "batches": [(np.nonzero(a), np.nonzero(d), lv)
-                        for a, d, lv in batches],
+                        for a, d, lv in batches], "hints": hints,
             "bodies": bodies, "append_s": append_s[0],
             "counters": snap["counters"],
             "apply_s": snap["observations"].get("serve.batch.apply_s"),
@@ -3276,6 +3317,15 @@ def phase_mesh_serve(counters: Counters, smi: str) -> dict:
     from go_crdt_playground_tpu_torch.utils.wal import DeltaWal
 
     E, A = UNIVERSE_E, UNIVERSE_A
+
+    def recorded_node(klass, wal_dir):
+        """(a node on the card with a WAL, the bodies it appends)."""
+        node = klass(0, E, A, device="cuda:0",
+                     wal=DeltaWal(wal_dir, fsync=False))
+        bodies, append = [], node.wal.append
+        node.wal.append = lambda b: (bodies.append(b), append(b))
+        return node, bodies
+
     out = {}
     for label, flags in MESH_SERVE:
         tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_serve_")
@@ -3347,15 +3397,22 @@ def phase_mesh_serve(counters: Counters, smi: str) -> dict:
                 add[a_nz] = True
                 dl[d_nz] = True
                 batches.append((add, dl, lv))
-            one = Node(0, E, A, device="cuda",
-                       wal=DeltaWal(f"{tmp}/one", fsync=False))
-            one_bodies = []
-            append = one.wal.append
-            one.wal.append = lambda b: (one_bodies.append(b), append(b))
-            for add, dl, lv in batches:
-                one.ingest_batch(add, dl, lv)
-            cuts = rec["counters"].get("mesh.stripe.cuts", 0)
-            if cuts == 0 and one_bodies != rec["bodies"]:
+            # (a batch the 2-D node's planner cut is replayed chunk by
+            # chunk: one record a chunk)
+            one, one_bodies = recorded_node(Node, f"{tmp}/one")
+            dp = int(label.split("x")[0]) if "x" in label else 0
+            cuts = 0
+            for (add, dl, lv), hint in zip(batches, rec["hints"]):
+                chunks, c = (cut_chunks(add, dl, lv, dp, hint) if dp
+                             else ([(add, dl, lv)], 0))
+                cuts += c
+                for chunk in chunks:
+                    one.ingest_batch(*chunk)
+            if cuts != rec["counters"].get("mesh.stripe.cuts", 0):
+                raise AssertionError(f"13d {label}: the replay cut {cuts} "
+                                     "times, the server "
+                                     f"{rec['counters']}")
+            if one_bodies != rec["bodies"]:
                 raise AssertionError(f"13d {label}: WAL records differ "
                                      "from the one-slot node's")
             live = one.state_slice()
@@ -3391,14 +3448,61 @@ def phase_mesh_serve(counters: Counters, smi: str) -> dict:
                 f"{p99:.3f} ms, {len(batches)} batches, "
                 f"{apply_s['mean'] * 1e3:.3f} ms a batch, stripe cuts "
                 f"{cuts}; members and vv equal to the set algebra; WAL "
-                f"records equal to the one-slot node's; restored bitwise; "
+                f"records equal to the one-slot node's fed the same "
+                f"batches (cut ones chunk by chunk); restored bitwise; "
                 f"K11 {rec['k11']} launches for {MESH_SERVE_READS} summary "
                 f"reads [{smi}]")
             log(f"13d {label}: " + json.dumps(out[label]))
+            if dp:
+                out[f"{label} cut"] = forced_cuts(label, dp, tmp,
+                                                  recorded_node)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     return out
+
+
+def forced_cuts(label: str, dp: int, tmp: str, recorded_node) -> dict:
+    """The 2-D mesh node's cut path on the card, in process: batches
+    whose rows all touch one lane (so the planner cuts them) go into a
+    ``Mesh2DApplyTarget`` on cuda:0; its WAL records equal a one-slot
+    node's fed the chunks, and the states are bitwise equal."""
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.obs.metrics import Recorder
+    from go_crdt_playground_tpu_torch.parallel.meshtarget2d import \
+        Mesh2DApplyTarget
+
+    E, A, B = UNIVERSE_E, UNIVERSE_A, 32
+    rng = np.random.default_rng(MESH_CUT_SEED)
+    mesh, mesh_bodies = recorded_node(
+        lambda *a, **kw: Mesh2DApplyTarget(*a, mesh_shape=label,
+                                           recorder=Recorder(), **kw),
+        f"{tmp}/cut_mesh")
+    one, one_bodies = recorded_node(Node, f"{tmp}/cut_one")
+    cuts = 0
+    for _ in range(4):
+        add = rng.random((B, E)) < 16 / E
+        dl = rng.random((B, E)) < 4 / E
+        add[:, 5] = True
+        live = np.ones(B, bool)
+        mesh.ingest_batch(add, dl, live)
+        chunks, c = cut_chunks(add, dl, live, dp)
+        cuts += c
+        for chunk in chunks:
+            one.ingest_batch(*chunk)
+    if cuts < 4 or cuts != mesh.recorder.snapshot()["counters"].get(
+            "mesh.stripe.cuts"):
+        raise AssertionError(f"13d {label} cut: {cuts} cuts")
+    if mesh_bodies != one_bodies:
+        raise AssertionError(f"13d {label} cut: WAL records differ from "
+                             "the one-slot node's fed the chunks")
+    same_state(one.state_slice(), mesh.state_slice(), f"13d {label} cut")
+    mesh.wal.close()
+    one.wal.close()
+    log(f"13d {label} cut path: 4 batches of {B} rows cut {cuts} times; "
+        f"{len(mesh_bodies)} WAL records equal to the one-slot node's fed "
+        "the chunks; states bitwise equal")
+    return {"cuts": cuts, "records": len(mesh_bodies)}
 
 
 # kernels whose entries no path of the port calls: their launches are

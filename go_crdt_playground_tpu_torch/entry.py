@@ -60,8 +60,7 @@ def _packed_reference_round(ref, off: int, blk: int, round_fn):
     return type(ref)(*(torch.cat(xs) for xs in zip(*outs)))
 
 
-def dryrun_multichip(n_devices: int, device="cuda",
-                     check_plain: bool = False):
+def dryrun_multichip(n_devices: int, device="cuda"):
     """Run the five sharded paths of the JAX package's dry run on an
     ``n_devices``-slot mesh, each driven to convergence and checked
     bitwise against the same rounds on the unsharded state:
@@ -74,12 +73,16 @@ def dryrun_multichip(n_devices: int, device="cuda",
       4. packed-ring: the bitpacked block ring (K8 per slot);
       5. dotword-ring: the dot-word block ring (K9 per slot).
 
-    ``device``: the slots' devices (``mesh.take_devices``): ``"cuda"``
-    wants n distinct cards, a named device (``"cuda:0"``, ``"cpu"``)
-    holds every slot.  Prints the JAX package's lines and raises on any
-    failure.  ``check_plain``: also run each kernel path's first round
-    on the kernels' plain versions (``kernel="torch"``) and compare.
-    Returns one dict a path: name, converged, bitwise, plain_equal."""
+    The unsharded replay runs the kernels' plain versions
+    (``kernel="torch"``), so on a card every round holds the per-slot
+    kernels against their plain versions and only the sharded rounds
+    launch kernels.  ``device``: the slots' devices
+    (``mesh.take_devices``): ``"cuda"`` wants n distinct cards, a named
+    device (``"cuda:0"``, ``"cpu"``) holds every slot.  Prints the JAX
+    package's lines and raises on any failure.  Returns one dict a path:
+    name, converged, bitwise."""
+    import functools
+
     from go_crdt_playground_tpu_torch.models import packed as packed_mod
     from go_crdt_playground_tpu_torch.ops import cuda_delta
     from go_crdt_playground_tpu_torch.ops import delta as delta_ops
@@ -89,12 +92,6 @@ def dryrun_multichip(n_devices: int, device="cuda",
     dev = devices[0]
     results = []
 
-    def first_round_plain(run, state):
-        """The first round on the kernels and on their plain versions."""
-        if not check_plain:
-            return None
-        return _states_equal(run(state, "auto"), run(state, "torch"))
-
     # -- path 1: the sharded δ round on a 2-D mesh, full dissemination --
     shape = ((n_devices // 2, 2) if n_devices % 2 == 0 and n_devices >= 4
              else (n_devices, 1))
@@ -102,27 +99,16 @@ def dryrun_multichip(n_devices: int, device="cuda",
     R, E = 4 * shape[0], 16 * shape[1]
     ref = fleet.demo_state(R, E, delta=True, device=dev)
     state = mesh_mod.shard_state(ref, mesh)
-
-    def sharded_step(st, perm, kernel="auto"):
-        st = gossip.delta_gossip_round_shardmap(st, mesh, perm,
-                                                kernel=kernel)
-        return gossip.gc_shardmap(st, mesh)
-
-    def plain_step(st, perm):
-        st = gossip.delta_gossip_round(st, perm, delta_semantics="v2")
-        return delta_ops.gc_apply(st, delta_ops.gc_frontier(st.processed))
-
-    offsets = gossip.dissemination_offsets(R)
-    plain_ok = first_round_plain(
-        lambda st, k: sharded_step(st, gossip.ring_perm(R, offsets[0],
-                                                        "cpu"), k), state)
-    for off in offsets:
+    for off in gossip.dissemination_offsets(R):
         perm = gossip.ring_perm(R, off, dev)
-        state = sharded_step(state, perm)
-        ref = plain_step(ref, perm)
+        state = gossip.gc_shardmap(
+            gossip.delta_gossip_round_shardmap(state, mesh, perm), mesh)
+        ref = gossip.delta_gossip_round(ref, perm, delta_semantics="v2",
+                                        kernel="torch")
+        ref = delta_ops.gc_apply(ref, delta_ops.gc_frontier(ref.processed))
     results.append((f"delta-default{shape}xR{R}",
                     gossip.converged_shardmap(state, mesh),
-                    _states_equal(state, ref), plain_ok))
+                    _states_equal(state, ref)))
 
     # -- path 2: EP-layout ring (one replica a slot block, so the offset-1
     #    slot ring converges in n_r - 1 rounds); the unsharded reference
@@ -134,10 +120,10 @@ def dryrun_multichip(n_devices: int, device="cuda",
     ep_perm = (np.arange(R_ep) - 1) % R_ep
     for _ in range(max(n_r - 1, 1)):
         ep_state = gossip.ep_ring_round_shardmap(ep_state, mesh)
-        ep_plain = gossip.gossip_round(ep_plain, ep_perm)
+        ep_plain = gossip.gossip_round(ep_plain, ep_perm, kernel="torch")
     results.append((f"ep{shape}xR{R_ep}",
                     gossip.converged_shardmap(ep_state, mesh),
-                    _states_equal(ep_state, ep_plain), None))
+                    _states_equal(ep_state, ep_plain)))
 
     # -- paths 3-5 need the element axis unsharded -----------------------
     ring_mesh = (mesh if shape[1] == 1
@@ -154,7 +140,7 @@ def dryrun_multichip(n_devices: int, device="cuda",
         c_plain = gossip.compact_delta_gossip_round(c_plain, c_perm)
     results.append((f"compact-ring({n_devices},1)xR{R_c}",
                     gossip.converged_shardmap(c_state, ring_mesh),
-                    _states_equal(c_state, c_plain), None))
+                    _states_equal(c_state, c_plain)))
 
     # -- paths 4 and 5: the packed block rings (intra doublings, then
     #    block doublings: the composed dissemination schedule) ------------
@@ -165,11 +151,9 @@ def dryrun_multichip(n_devices: int, device="cuda",
              cuda_delta.delta_ring_round_packed),
             ("dotword-ring", packed_mod.pack_awset_delta_dots,
              cuda_delta.delta_ring_round_dotpacked)):
+        ring = functools.partial(ring, kernel="torch")
         p_plain = pack(fleet.demo_state(R_p, 128, delta=True, device=dev))
         p_state = mesh_mod.shard_state(p_plain, ring_mesh)
-        plain_ok = first_round_plain(
-            lambda st, k: gossip.packed_block_ring_round_shardmap(
-                st, ring_mesh, 1, kernel=k), p_state)
         off = 1
         while off < R_p:
             p_state = gossip.packed_block_ring_round_shardmap(
@@ -183,20 +167,18 @@ def dryrun_multichip(n_devices: int, device="cuda",
         else:
             conv = collectives.converged_packed(out.present_bits, out.vv)
         results.append((f"{label}({n_devices},1)xR{R_p}", bool(conv),
-                        _states_equal(p_state, p_plain), plain_ok))
+                        _states_equal(p_state, p_plain)))
 
-    for name, conv_ok, bit_ok, _ in results:
+    for name, conv_ok, bit_ok in results:
         print(f"dryrun_multichip path {name}: converged={conv_ok} "
               f"bitwise={bit_ok}")
-    n_ok = sum(conv_ok and bit_ok and plain_ok is not False
-               for _, conv_ok, bit_ok, plain_ok in results)
+    n_ok = sum(conv_ok and bit_ok for _, conv_ok, bit_ok in results)
     summary = (
         f"dryrun_multichip ok: {n_ok}/{len(results)} sharded paths "
         "converged with bitwise-equal unsharded replay "
-        f"({', '.join(name for name, _, _, _ in results)})")
+        f"({', '.join(name for name, _, _ in results)})")
     if n_ok != len(results):
         raise RuntimeError(summary.replace("ok:", "FAILED:"))
     print(summary)
-    return [dict(name=name, converged=c, bitwise=b, plain_equal=p)
-            for name, c, b, p in results]
-
+    return [dict(name=name, converged=c, bitwise=b)
+            for name, c, b in results]

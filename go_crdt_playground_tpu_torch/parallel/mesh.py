@@ -94,33 +94,29 @@ class Mesh:
         return hash(self._key())
 
 
-def visible_devices(kind: Optional[str] = None) -> list:
-    """Distinct devices in a stable order: every CUDA card when one is
-    visible (or ``kind='cuda'``), else the CPU."""
-    if kind == "cpu" or (kind is None and not torch.cuda.is_available()):
+def visible_devices(kind: str = "cuda") -> list:
+    """Distinct devices in a stable order: every CUDA card (raising
+    when none is visible), or the CPU when ``kind='cpu'``."""
+    if kind == "cpu":
         return [torch.device("cpu")]
-    if kind == "cuda":
-        resolve_device("cuda")
+    resolve_device(kind)
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def take_devices(num_devices: Optional[int] = None, device=None) -> list:
-    """The devices of an ``num_devices``-slot mesh.  With no ``device``,
-    or ``"cuda"`` without an index, the first distinct devices in a
-    stable order (restarts of one topology place shards identically),
-    raising when too few are visible.  A device named with its index
+def take_devices(num_devices: Optional[int] = None, device="cuda") -> list:
+    """The devices of an ``num_devices``-slot mesh.  By default, or with
+    ``"cuda"`` without an index, the first distinct cards in a stable
+    order (restarts of one topology place shards identically), raising
+    when too few are visible.  A device named with its index
     (``"cuda:0"``) or ``"cpu"`` puts every slot on it: the opt-in to
     slots that share a device."""
-    kind = None
-    if device is not None:
-        dev = resolve_device(device)
-        if dev.type != "cuda" or dev.index is not None:
-            n = 1 if num_devices is None else int(num_devices)
-            if n < 1:
-                raise ValueError(f"mesh wants {n} devices")
-            return [dev] * n
-        kind = "cuda"
-    devices = visible_devices(kind)
+    dev = resolve_device("cuda" if device is None else device)
+    if dev.type != "cuda" or dev.index is not None:
+        n = 1 if num_devices is None else int(num_devices)
+        if n < 1:
+            raise ValueError(f"mesh wants {n} devices")
+        return [dev] * n
+    devices = visible_devices(dev.type)
     n = len(devices) if num_devices is None else int(num_devices)
     if not 1 <= n <= len(devices):
         raise ValueError(
@@ -133,7 +129,7 @@ def take_devices(num_devices: Optional[int] = None, device=None) -> list:
 def make_mesh(mesh_shape: Optional[Tuple[int, int]] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """A (replica_shards, element_shards) mesh.  Default: every visible
-    device on the replica axis."""
+    card on the replica axis (raising when none is visible)."""
     if devices is None:
         devices = take_devices()
     devices = list(devices)

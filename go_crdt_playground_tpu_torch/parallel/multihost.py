@@ -30,17 +30,19 @@ from go_crdt_playground_tpu_torch.parallel import mesh as mesh_mod
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               backend: Optional[str] = None) -> None:
+               backend: Optional[str] = None,
+               device="cuda") -> None:
     """Join the process group (one call per process, before any sharded
     round).  ``coordinator_address``: ``tcp://host:port`` (or
     ``host:port``) or ``file://path`` of a shared file; nothing on the
     machine tells a process of its cluster, so the address, the world
-    size and the rank are the caller's.  ``backend``: default nccl when
-    a card is visible, gloo otherwise."""
+    size and the rank are the caller's.  ``backend``: default nccl for
+    slots on cards (raising without a card), gloo for ``device='cpu'``."""
     import torch.distributed as dist
 
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        dev = mesh_mod.resolve_device(device)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
     init = coordinator_address
     if init is not None and "://" not in init:
         init = f"tcp://{init}"
@@ -65,8 +67,8 @@ def global_mesh(element_shards: int = 1,
     """One (replica, element) mesh over the devices of every process,
     rank-major, each slot owned by the rank that contributed it.  Call
     after ``initialize``.  ``local_devices``: this process's slots
-    (default every visible device; name one device more than once to
-    give a process several slots on it)."""
+    (default every visible card, raising when none is visible; name one
+    device more than once to give a process several slots on it)."""
     import torch.distributed as dist
 
     if local_devices is None:

@@ -364,12 +364,17 @@ def test_mesh_entry_points_need_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device runs")
     from go_crdt_playground_tpu_torch.entry import dryrun_multichip
-    from go_crdt_playground_tpu_torch.parallel import mesh, meshtarget
+    from go_crdt_playground_tpu_torch.parallel import (mesh, meshtarget,
+                                                      multihost)
 
     for call in (lambda: dryrun_multichip(2),
                  lambda: meshtarget.MeshApplyTarget(0, 16, 2,
                                                     mesh_devices=1),
                  lambda: mesh.take_devices(2, "cuda"),
-                 lambda: mesh.take_devices(1, "cuda:0")):
+                 lambda: mesh.take_devices(1, "cuda:0"),
+                 lambda: mesh.take_devices(2),
+                 lambda: mesh.make_mesh(),
+                 lambda: multihost.global_mesh(),
+                 lambda: multihost.initialize("file:///nonexistent", 1, 0)):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()

@@ -86,14 +86,18 @@ def _records(node):
 # ---------------------------------------------------------------------------
 
 
-def test_make_batch_mesh_shapes_and_bounds():
+def test_make_batch_mesh_shapes_and_bounds(monkeypatch):
     assert make_batch_mesh(1, "cpu").shape[BATCH_AXIS] == 1
     assert make_batch_mesh(4, "cpu").shape[BATCH_AXIS] == 4
     assert make_batch_mesh(None, "cpu").shape[BATCH_AXIS] == 1
     with pytest.raises(ValueError):
         make_batch_mesh(0, "cpu")
-    with pytest.raises(ValueError, match="mesh wants 2 devices"):
-        make_batch_mesh(2)           # distinct devices: the CPU is one
+    # the default wants distinct cards (one, as far as torch can tell)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="mesh wants 2 devices; 1 visible"):
+        make_batch_mesh(2)
+    monkeypatch.undo()
     with pytest.raises(ValueError):
         _mesh(0, e=1023)
 
@@ -446,6 +450,33 @@ def test_mesh2d_wal_byte_identity(tmp_path):
         out = fresh.replay_wal(DeltaWal(str(tmp_path / sub)))
         assert out["bad"] == 0 and out["future"] == 0
         _port_same(ref, fresh.state_slice(), f"replay {name}")
+
+
+@pytest.mark.parametrize("hinted", [False, True])
+def test_mesh2d_cut_chunks_replay_to_the_same_records(tmp_path, hinted):
+    """A cut batch writes one WAL record a chunk: a one-slot node fed the
+    chunks (``chip_smoke.cut_chunks``, the check the card's serve phase
+    runs) appends the same records, byte for byte, and lands in the same
+    state."""
+    import chip_smoke
+
+    rng = np.random.default_rng(23)
+    mesh = _mesh2d(0, "2x2", wal=DeltaWal(str(tmp_path / "m")))
+    plain = _plain(0, wal=DeltaWal(str(tmp_path / "p")))
+    cuts = 0
+    for add, dl, live in _random_batches(rng, 6, add_p=0.004):
+        add[:, 5] = True  # every row shares a lane: the planner cuts
+        hint = (rng.integers(-1, 2, B).astype(np.int32) if hinted
+                else None)
+        mesh.ingest_batch(add, dl, live, stripe_hint=hint)
+        chunks, c = chip_smoke.cut_chunks(add, dl, live, 2, hint)
+        cuts += c
+        for chunk in chunks:
+            plain.ingest_batch(*chunk)
+    assert cuts >= 6
+    assert _records(mesh) == _records(plain)
+    assert len(_records(plain)) == 6 + cuts
+    _port_same(plain.state_slice(), mesh.state_slice(), "cut replay")
 
 
 def test_mesh2d_sharding_layout():

@@ -39,7 +39,8 @@ _WORKER = textwrap.dedent("""
         pass
     ring, delta, conv = run_rounds(mesh, lo, hi)
     print(f"WORKER_OK pid={{pid}} ring={{ring}} delta={{delta}} "
-          f"converged={{conv}}")
+          f"converged={{conv}}", flush=True)
+    torch.distributed.destroy_process_group()
 """).format(repo=REPO)
 
 
