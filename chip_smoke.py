@@ -30,13 +30,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
   7. packed δ north star: phase 5 for the δ fleet (K8, K9); then K9
      and the block-per-row design it replaced timed in turns at every
      offset of the schedule;
-  8. one-row merge entries (K3, on no path of the port: this phase is
-     their only caller): the gossip verb's fleet converged by
-     ``gossip_round`` over ring permutations, then ``merge_pairwise``
-     with a second fleet, against the plain versions; both kernels
-     (a block a row while the rows fit the card, thread groups past
-     that) at the edge shapes; an out-of-range device perm failing the launch in a child
-     process; the calls timed (ms, kernel µs, device operations);
+  8. one-row merge entries (K3, whose path is the Merger bridge of phase
+     14): the gossip verb's fleet converged by ``gossip_round`` over
+     ring permutations, then ``merge_pairwise`` with a second fleet,
+     against the plain versions; both entries at the edge shapes; an
+     out-of-range device perm failing the launch in a child process; the
+     calls timed (ms, kernel µs, device operations);
   9. the gossip CLI verb on the card;
  10. the serve write path on one node (``serve --ingest`` defaults:
      E = 1,024, A = 16, batches of 32): 200 client micro-batches, adds,
@@ -99,6 +98,23 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      the set algebra, WAL records equal to a one-slot node's fed the same
      batches, a bitwise restore, K11 once a lane slot a summary read;
      every phase's wall time is printed;
+ 14. the Merger bridge on the card: (a) a torch ``MergerServer`` on cuda
+     on 127.0.0.1 answering the Go client's T1-T3 and T6 byte streams,
+     the BASELINE ladder's config 1 (3 replicas, E = 16, A = 3, 120 seeded
+     ops) and 200 seeded pairs at the serve node's scale (E <= 1,024
+     keys, A = 16) in full-state, δ v2, δ strict reference and δ loose
+     reference merges, every reply byte-equal to ``execute_merge`` on
+     the CPU and agreeing with the spec merge, and the ``scenario`` verb
+     in process on the card and the CPU (the same output), K3 or K5
+     launched once a merge; (b) a pair at A = 8,193 through the bridge,
+     and K3 and K5 at A = 8,193 and 29,057 against their plain versions;
+     (c) one pair at E = 65,536 keys, A = 256, full-state and δ v2: the
+     request's wall through the server and its parts (decode, spec to
+     pack, host to device, the merge entry, device to host, unpack,
+     encode), the kernel's time by CUDA events beside its bound; (d) the
+     ``serve`` verb spawned once (banner, a ping and a merge, SIGTERM);
+     (e) the δ state checkpointed with its ElementDict, restored on the
+     CPU and the card bitwise;
 and, after phase 2, phase 2b: the ingest kernel (K10, the whole entry in
 one launch) against its plain version over E x A x B x K (one block up
 to E = 4,096, the cooperative grid above), densities, padding patterns,
@@ -1230,8 +1246,8 @@ def k3_call_report(fn, reps: int = 200) -> dict:
 
 
 def phase_k3(counters: Counters, errs: dict, timings: dict, smi: str):
-    """The one-row merge entries (K3).  No path of the port calls them:
-    this phase drives them as a user would, on the gossip verb's fleet
+    """The one-row merge entries (K3; the bridge of phase 14 is their
+    path).  This phase drives them on the gossip verb's fleet
     (``gossip_round`` over the ring permutations of the dissemination
     schedule, then ``merge_pairwise`` with a second fleet), both against
     the plain versions; then both kernels at the edge shapes (E in
@@ -3505,9 +3521,623 @@ def forced_cuts(label: str, dp: int, tmp: str, recorded_node) -> dict:
     return {"cuts": cuts, "records": len(mesh_bodies)}
 
 
-# kernels whose entries no path of the port calls: their launches are
-# those of the phase that drives them
-OFF_MAIN_PATH = ("K3",)
+# ---------------------------------------------------------------------------
+# phase 14: the Merger bridge on the card
+# ---------------------------------------------------------------------------
+
+# seeded pairs at the serve node's scale (SERVE_E keys at most, SERVE_A
+# actors), the pair past both shared-memory limits, the timed pair (the
+# north star's 256 writers)
+BRIDGE_PAIRS = 200
+BRIDGE_WIDE_A = 8193
+BRIDGE_TIMED_E, BRIDGE_TIMED_A = 1 << 16, 256
+# (label, delta, delta_semantics, strict_reference_semantics)
+BRIDGE_KINDS = (("full-state", False, "reference", True),
+                ("δ v2", True, "v2", True),
+                ("δ reference", True, "reference", True),
+                ("δ reference loose", True, "reference", False))
+
+
+def _pb_varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _pb_tag(field: int, wire: int) -> bytes:
+    return _pb_varint(field << 3 | wire)
+
+
+def _pb_len(field: int, payload: bytes) -> bytes:
+    return _pb_tag(field, 2) + _pb_varint(len(payload)) + payload
+
+
+def go_request(dst, src, delta: bool) -> bytes:
+    """The MergeRequest bytes of the JAX package's Go client
+    (bridge/client/main.go): fields in tag order, entries sorted by key,
+    proto3 zero values omitted, repeated uint64 packed; a δ request adds
+    the Deleted log, delta = true, "reference" and the strict quirk."""
+    def dot(d):
+        return ((_pb_tag(1, 0) + _pb_varint(d.actor) if d.actor else b"")
+                + (_pb_tag(2, 0) + _pb_varint(d.counter) if d.counter
+                   else b""))
+
+    def entries(field, m):
+        return b"".join(_pb_len(field, _pb_len(1, k.encode())
+                                + _pb_len(2, dot(m[k])))
+                        for k in sorted(m))
+
+    def replica(rep):
+        vv = list(rep.version_vector.v)
+        return ((_pb_tag(1, 0) + _pb_varint(rep.actor) if rep.actor else b"")
+                + (_pb_len(2, b"".join(map(_pb_varint, vv))) if vv else b"")
+                + entries(3, rep.entries)
+                + (entries(4, rep.deleted) if delta else b""))
+
+    body = _pb_len(1, replica(dst)) + _pb_len(2, replica(src))
+    if delta:
+        body += (_pb_tag(3, 0) + _pb_varint(1) + _pb_len(4, b"reference")
+                 + _pb_tag(5, 0) + _pb_varint(1))
+    return body
+
+
+class BridgeCheck:
+    """A client of the CUDA Merger server: every reply held against
+    ``execute_merge`` on the CPU (the same bytes) and against the port's
+    spec merge of the request (zero-padded to the packed actor axis);
+    counts the merges by kind and times each round trip."""
+
+    def __init__(self, addr):
+        import socket
+
+        self.sock = socket.create_connection(addr, timeout=300)
+        self.counts = {"full": 0, "delta": 0}
+        self.walls = []
+
+    def close(self):
+        self.sock.close()
+
+    def request(self, body: bytes, checked: bool = True):
+        """One merge through the server; ``checked``: against the CPU
+        reply's bytes and the spec merge (the timed pair skips both)."""
+        from go_crdt_playground_tpu_torch.bridge import messages, service
+
+        t0 = time.perf_counter()
+        service.send_frame(self.sock, service.METHOD_MERGE, body)
+        method, reply = service.recv_frame(self.sock)
+        self.walls.append(time.perf_counter() - t0)
+        req = messages.MergeRequest.FromString(body)
+        if method != service.METHOD_MERGE or (checked and reply != (
+                service.execute_merge(req, "cpu").SerializeToString())):
+            raise AssertionError("bridge: the CUDA reply differs from the "
+                                 "CPU reply's bytes")
+        resp = messages.MergeResponse.FromString(reply)
+        if resp.error:
+            raise AssertionError(f"bridge: error reply {resp.error!r}")
+        self.counts["delta" if req.delta else "full"] += 1
+        if checked:
+            dst, src = service.request_replicas(req)
+            num_a = service._dimensions(dst, src)[1]
+            for rep in (dst, src):
+                rep.version_vector.v += [0] * (num_a
+                                               - len(rep.version_vector))
+            dst.merge(src)
+            if (resp.canonical != str(dst)
+                    or list(resp.sorted_values) != dst.sorted_values()):
+                raise AssertionError("bridge: the reply disagrees with the "
+                                     "spec merge")
+        return resp
+
+    def _install(self, dst, resp, delta: bool):
+        """What main.go does with a reply: the merged state into dst,
+        then its canonical rendering and sorted values checked."""
+        from go_crdt_playground_tpu_torch.models.spec import (Dot,
+                                                              VersionVector)
+
+        dst.version_vector = VersionVector(list(resp.merged.version_vector))
+        dst.entries = {e.key: Dot(e.dot.actor, e.dot.counter)
+                       for e in resp.merged.entries}
+        if delta:
+            dst.deleted = {e.key: Dot(e.dot.actor, e.dot.counter)
+                           for e in resp.merged.deleted}
+        if str(dst) != resp.canonical or \
+                list(resp.sorted_values) != dst.sorted_values():
+            raise AssertionError("bridge: installed state renders apart")
+
+    def merge(self, dst, src):
+        self._install(dst, self.request(go_request(dst, src, False)), False)
+
+    def delta_merge(self, dst, src):
+        self._install(dst, self.request(go_request(dst, src, True)), True)
+
+
+def _expect(rep, *values):
+    if rep.sorted_values() != sorted(values):
+        raise AssertionError(f"bridge scenario: {rep.sorted_values()} != "
+                             f"{sorted(values)}")
+
+
+def go_client_scenarios(c: BridgeCheck) -> None:
+    """The Go client's replays over the bridge: T1-T3 (awset_test.go:
+    10-122) and T6 (awset-delta_test.go:168-189), each merge computed by
+    the server, with the client's membership assertions."""
+    from go_crdt_playground_tpu_torch.models.spec import (AWSet, AWSetDelta,
+                                                          VersionVector)
+
+    def pair(cls=AWSet):
+        return (cls(actor=0, version_vector=VersionVector([0, 0])),
+                cls(actor=1, version_vector=VersionVector([0, 0])))
+
+    a, b = pair()                                            # T1
+    a.add("A", "B", "C")
+    b.add("A", "B", "C")
+    c.merge(a, b)
+    c.merge(b, a)
+    a.del_("B")
+    b.add("B")
+    c.merge(b, a)
+    c.merge(a, b)
+    _expect(a, "A", "B", "C")
+    _expect(b, "A", "B", "C")
+
+    a, b = pair()                                            # T2
+    a.add("Shelly")
+    c.merge(b, a)
+    _expect(b, "Shelly")
+    b.add("Bob", "Phil", "Pete")
+    c.merge(a, b)
+    _expect(a, "Shelly", "Bob", "Phil", "Pete")
+    a.del_("Phil")
+    a.add("Bob")
+    a.add("Anna")
+    c.merge(b, a)
+    _expect(a, "Shelly", "Bob", "Pete", "Anna")
+    _expect(b, "Shelly", "Bob", "Pete", "Anna")
+    a.del_("Bob", "Pete")
+    b.del_("Bob", "Shelly")
+    c.merge(a, b)
+    c.merge(b, a)
+    _expect(a, "Anna")
+    _expect(b, "Anna")
+    a.add("A", "B", "C")
+    a.del_("A")
+    a.add("A")
+    c.merge(b, a)
+    _expect(b, "Anna", "A", "B", "C")
+
+    a, b = pair()                                            # T3
+    a.add("Anne", "Bob")
+    b.add("Anne")
+    a2, b2 = a.clone(), b.clone()
+    b2.add("Bob")
+    a2.del_("Bob")
+    c.merge(b2, a2)
+    c.merge(a2, b2)
+    _expect(b2, "Anne", "Bob")
+    _expect(a2, "Anne", "Bob")
+    b.add("Bob")
+    c.merge(b, a)
+    a.del_("Bob")
+    c.merge(b, a)
+    c.merge(a, b)
+    _expect(b, "Anne")
+    _expect(a, "Anne")
+
+    a, b = pair(AWSetDelta)                                  # T6
+    a.add("A", "B")
+    b.add("A", "C")
+    c.delta_merge(a, b)
+    c.delta_merge(b, a)
+    a.del_("B")
+    a.add("D", "E")
+    b.add("E")
+    c.delta_merge(b, a)
+    _expect(b, "A", "C", "D", "E")
+    c.delta_merge(a, b)
+    _expect(a, "A", "C", "D", "E")
+    if (a.version_vector.v, b.version_vector.v) != ([5, 2], [5, 3]):
+        raise AssertionError("bridge T6: the strict empty-δ quirk lost")
+
+
+def bridge_config1(c: BridgeCheck, num_ops: int = 120, seed: int = 11):
+    """BASELINE ladder config 1 (the JAX package's bench.measure_config1:
+    3 replicas, E = 16, A = 3, 120 seeded ops) with every merge answered
+    by the bridge: the bridged replicas render as the spec replicas."""
+    import random
+
+    from go_crdt_playground_tpu_torch.models.spec import AWSet, VersionVector
+
+    rng = random.Random(seed)
+    R, E, A = 3, 16, 3
+    spec = [AWSet(actor=r, version_vector=VersionVector([0] * A))
+            for r in range(R)]
+    bridged = [s.clone() for s in spec]
+    for _ in range(num_ops):
+        r = rng.randrange(R)
+        op = rng.random()
+        if op < 0.55:
+            k = f"e{rng.randrange(E)}"
+            spec[r].add(k)
+            bridged[r].add(k)
+        elif op < 0.75 and spec[r].entries:
+            k = rng.choice(sorted(spec[r].entries))
+            spec[r].del_(k)
+            bridged[r].del_(k)
+        else:
+            src = rng.randrange(R)
+            if src != r:
+                spec[r].merge(spec[src])
+                c.merge(bridged[r], bridged[src])
+    if [str(s) for s in spec] != [str(b) for b in bridged]:
+        raise AssertionError("bridge config 1: renderings differ")
+
+
+def bridge_pair(rng, kind, num_keys: int, num_actors: int):
+    """A seeded request: three writers (distinct actors of num_actors)
+    through adds, deletes and merges over num_keys keys; two of them."""
+    from go_crdt_playground_tpu_torch.bridge import convert, messages
+    from go_crdt_playground_tpu_torch.models.spec import (AWSet, AWSetDelta,
+                                                          VersionVector)
+
+    _, delta, sem, strict = kind
+    reps = [(AWSetDelta(actor=a, version_vector=VersionVector(
+        [0] * num_actors), delta_semantics=sem,
+        strict_reference_semantics=strict) if delta else
+        AWSet(actor=a, version_vector=VersionVector([0] * num_actors)))
+        for a in rng.sample(range(num_actors), 3)]
+    for _ in range(rng.randint(10, 300)):
+        r = reps[rng.randrange(3)]
+        roll = rng.random()
+        if roll < 0.5:
+            r.add(*(f"k{rng.randrange(num_keys)}"
+                    for _ in range(rng.randint(1, 4))))
+        elif roll < 0.7:
+            r.del_(f"k{rng.randrange(num_keys)}")
+        else:
+            r.merge(reps[rng.randrange(3)])
+    dst, src = rng.sample(reps, 2)
+    return messages.MergeRequest(
+        dst=convert.replica_to_proto(dst), src=convert.replica_to_proto(src),
+        delta=delta, delta_semantics=sem,
+        strict_reference_semantics=strict).SerializeToString()
+
+
+def bridge_bound(kind: str, E: int, A: int):
+    """The least time of one pair merge: two rows read, one written;
+    a row is 4A + 9E bytes (full-state), twice that plus the actor for δ."""
+    row = 4 * A + 9 * E if kind == "merge" else 2 * (4 * A + 9 * E) + 4
+    nbytes = 3 * row
+    ops = E * OPS_PER_LANE[kind] + A * OPS_PER_SLOT[kind]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def bridge_wide_requests(c: BridgeCheck) -> int:
+    """A full-state and a δ v2 pair at A = BRIDGE_WIDE_A (past K3's old
+    cap and past 48 KB of shared memory for K5) through the bridge."""
+    from go_crdt_playground_tpu_torch.bridge import convert, messages
+    from go_crdt_playground_tpu_torch.models.spec import (AWSet, AWSetDelta,
+                                                          VersionVector)
+
+    A = BRIDGE_WIDE_A
+    for label, delta, sem, strict in BRIDGE_KINDS[:2]:
+        cls = AWSetDelta if delta else AWSet
+        kw = dict(delta_semantics=sem) if delta else {}
+        a = cls(actor=A - 1, version_vector=VersionVector([0] * A), **kw)
+        b = cls(actor=7, version_vector=VersionVector([0] * A), **kw)
+        a.add(*(f"w{i}" for i in range(64)))
+        b.merge(a)
+        b.add("w1", "x")
+        a.del_("w2", "w3")
+        c.request(messages.MergeRequest(
+            dst=convert.replica_to_proto(a), src=convert.replica_to_proto(b),
+            delta=delta, delta_semantics=sem,
+            strict_reference_semantics=strict).SerializeToString())
+    return 2
+
+
+def bridge_wide_kernels(errs: dict) -> int:
+    """K3 and K5 on random pairs at A = BRIDGE_WIDE_A and past the card's
+    opt-in shared memory (A = 29,057: the vv rows from device memory),
+    bitwise to the plain versions."""
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+
+    rng = np.random.default_rng(14)
+    n = 0
+    for A in (BRIDGE_WIDE_A, 29_057):
+        for E in (1, 1000):
+            st = random_delta_state(rng, 2, E, A, 0x7FFFFFFB, "cuda")
+            base = st.base()
+            d = type(base)(*(x[:1] for x in base))
+            s = type(base)(*(x[1:] for x in base))
+            errs["K3"] = max(errs.get("K3", 0), max_abs_err(
+                cm.merge_pairwise(d, s, kernel="cuda"),
+                cm.merge_pairwise(d, s, kernel="torch"),
+                f"K3 one-row pair A={A} E={E}"))
+            for _, _, sem, strict in BRIDGE_KINDS[1:]:
+                kw = dict(delta_semantics=sem,
+                          strict_reference_semantics=strict)
+                errs["K5"] = max(errs.get("K5", 0), max_abs_err(
+                    cd.delta_gossip_round(st, [1, 1], kernel="cuda", **kw),
+                    cd.delta_gossip_round(st, [1, 1], kernel="torch", **kw),
+                    f"K5 pair A={A} E={E} {sem} strict={strict}"))
+            n += 4
+    return n
+
+
+def bridge_timed_arrays(E: int, A: int, seed: int = 65) -> dict:
+    """The timed pair's packed arrays: dst holds 60% of the E keys, src
+    the rest and a third of dst's (every key in the union), dots of A
+    writers, clocks covering each row's own dots, deletion records on a
+    tenth of each row's absent keys."""
+    rng = np.random.default_rng(seed)
+    u = rng.random(E)
+    present = np.stack([u < 0.6, (u >= 0.6) | (rng.random(E) < 0.3)])
+    deleted = ~present & (rng.random((2, E)) < 0.1)
+    da = rng.integers(0, A, (2, E))
+    dc = rng.integers(1, 1000, (2, E))
+    vv = np.zeros((2, A), np.int64)
+    for r in range(2):
+        np.maximum.at(vv[r], da[r][present[r]], dc[r][present[r]])
+    arrays = {
+        "vv": vv, "present": present,
+        "dot_actor": np.where(present, da, 0),
+        "dot_counter": np.where(present, dc, 0),
+        "actor": np.array([3, 200]),
+        "deleted": deleted,
+        "del_dot_actor": np.where(deleted, rng.integers(0, A, (2, E)), 0),
+        "del_dot_counter": np.where(deleted, rng.integers(1, 1000, (2, E)),
+                                    0),
+        "processed": vv // 2,
+    }
+    return {k: v if v.dtype == bool else v.astype(np.uint32)
+            for k, v in arrays.items()}
+
+
+def bridge_timed(c: BridgeCheck, smi: str, tmp: str) -> dict:
+    """One pair at E = BRIDGE_TIMED_E keys, A = BRIDGE_TIMED_A, full-state
+    and δ v2: one request's wall through the server, then its parts in
+    process on the card (the server's path, step by step; the reply
+    bytes equal the server's), the kernel's time by CUDA events; then
+    the δ state checkpointed with its ElementDict and restored on the
+    CPU and the card."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.bridge import convert, messages, service
+    from go_crdt_playground_tpu_torch.models import awset, awset_delta
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.ops import delta as delta_ops
+    from go_crdt_playground_tpu_torch.ops import merge as merge_ops
+    from go_crdt_playground_tpu_torch.utils import checkpoint, codec
+
+    E, A = BRIDGE_TIMED_E, BRIDGE_TIMED_A
+    keys = codec.ElementDict(capacity=E, values=[f"key-{i:05d}"
+                                                 for i in range(E)])
+    pair = awset_delta.from_arrays(bridge_timed_arrays(E, A), "cpu")
+    reps = codec.unpack_awset_deltas(awset_delta.to_arrays(pair), keys)
+    out = {}
+    for label, delta, sem, strict in BRIDGE_KINDS[:2]:
+        dst, src = reps if delta else codec.unpack_awsets(
+            awset.to_arrays(pair.base()), keys)
+        body = messages.MergeRequest(
+            dst=convert.replica_to_proto(dst),
+            src=convert.replica_to_proto(src), delta=delta,
+            delta_semantics=sem,
+            strict_reference_semantics=strict).SerializeToString()
+        served = c.request(body, checked=False).SerializeToString()
+        wall_ms = c.walls[-1] * 1e3
+        parts, t = {}, time.perf_counter()
+
+        def lap(name):
+            nonlocal t
+            now = time.perf_counter()
+            parts[name] = (now - t) * 1e3
+            t = now
+
+        req = messages.MergeRequest.FromString(body)
+        d_rep, s_rep = service.request_replicas(req)
+        lap("decode")
+        num_e, num_a = service._dimensions(d_rep, s_rep)
+        d = codec.ElementDict(capacity=num_e)
+        arrays = (codec.pack_awset_deltas if delta else codec.pack_awsets)(
+            [d_rep, s_rep], d, num_a)
+        lap("spec->pack")
+        state = (awset_delta if delta else awset).from_arrays(arrays, "cuda")
+        torch.cuda.synchronize()
+        lap("host->device")
+        if delta:
+            merged = delta_ops.delta_merge_one_into(state, 0, state, 1, sem,
+                                                    strict)
+        else:
+            merged, _ = merge_ops.merge_one_into(state, 0, state, 1)
+        torch.cuda.synchronize()
+        lap("merge entry")
+        row = type(merged)(*(x[:1] for x in merged))
+        host = awset.to_arrays(row)
+        lap("device->host")
+        rep = (codec.unpack_awset_deltas(host, d, sem)[0] if delta else
+               codec.unpack_awsets(host, d)[0])
+        lap("unpack")
+        reply = messages.MergeResponse(
+            merged=convert.replica_to_proto(rep),
+            sorted_values=rep.sorted_values(),
+            canonical=str(rep)).SerializeToString()
+        lap("encode")
+        if reply != served:
+            raise AssertionError(f"bridge timed {label}: the step-by-step "
+                                 "reply differs from the server's")
+        if delta:
+            kernel_ms = cuda_time_ms(lambda: cd.delta_gossip_round(
+                state, [1, 1], delta_semantics=sem,
+                strict_reference_semantics=strict), 20)
+        else:
+            one = type(state)(*(x[:1] for x in state))
+            two = type(state)(*(x[1:] for x in state))
+            kernel_ms = cuda_time_ms(lambda: cm.merge_pairwise(one, two), 20)
+        kind = "delta" if delta else "merge"
+        bound_ms, bound_by, nbytes = bridge_bound(kind, num_e, num_a)
+        out[label] = {"request_ms": wall_ms, "parts_ms": parts,
+                      "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "request_bytes": len(body),
+                      "reply_bytes": len(served)}
+        log(f"bridge request at E = {num_e} keys, A = {num_a}, {label} "
+            f"({len(body)} B in, {len(served)} B out): {wall_ms:.3f} ms "
+            f"through the server; parts in process "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            + f" ms; {'K5' if delta else 'K3'} {kernel_ms * 1e3:.3f} us "
+            f"a launch (CUDA events), bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}, {nbytes} B) [{smi}]")
+        if delta:   # (e): the state checkpointed with its dictionary
+            path = os.path.join(tmp, "bridge.ckpt")
+            checkpoint.save_checkpoint(path, merged, dictionary=d)
+            for device in ("cpu", "cuda"):
+                ck = checkpoint.restore_checkpoint(path, device)
+                if ck.dictionary.state_dict() != d.state_dict() or any(
+                        not torch.equal(x.cpu(), y.cpu())
+                        for x, y in zip(ck.state, merged)):
+                    raise AssertionError(f"bridge checkpoint restore on "
+                                         f"{device} differs")
+    log(f"bridge checkpoint: the E = {E} δ state saved from the card with "
+        f"its ElementDict ({E} keys), restored on the CPU and the card "
+        f"bitwise")
+    return out
+
+
+def bridge_cli_start():
+    """``python -m go_crdt_playground_tpu_torch serve`` as a user starts
+    it (the card is its default device)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "go_crdt_playground_tpu_torch", "serve"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def bridge_cli_finish(proc) -> str:
+    """The spawned bridge: its banner, a ping and a merge, SIGTERM."""
+    import re
+    import signal
+
+    from go_crdt_playground_tpu_torch.bridge import MergerClient
+    from go_crdt_playground_tpu_torch.models.spec import AWSet, VersionVector
+
+    try:
+        banner = proc.stdout.readline()
+        m = re.fullmatch(r"Merger bridge listening on (\S+):(\d+) \(method "
+                         r"0x01 = Merge, 0x02 = Ping; 5-byte header \+ "
+                         r"proto body\)\n", banner)
+        if m is None:
+            raise AssertionError(f"bridge serve CLI banner: {banner!r}")
+        a = AWSet(actor=0, version_vector=VersionVector([0, 0]))
+        b = AWSet(actor=1, version_vector=VersionVector([0, 0]))
+        a.add("Anne")
+        b.add("Bob")
+        with MergerClient(m.group(1), int(m.group(2))) as client:
+            if not client.ping() or client.merge(a, b).sorted_values() != [
+                    "Anne", "Bob"]:
+                raise AssertionError("bridge serve CLI: ping or merge")
+        proc.send_signal(signal.SIGTERM)
+        proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"bridge serve CLI exit {proc.returncode}")
+    return banner.strip()
+
+
+def phase_bridge(counters: Counters, errs: dict, timings: dict, smi: str):
+    """The Merger bridge on the card.  (a) A torch ``MergerServer`` on
+    cuda on 127.0.0.1 answers the Go client's T1-T3 and T6 streams, the
+    BASELINE ladder's config 1 and BRIDGE_PAIRS seeded pairs at the serve
+    node's scale in every merge kind; every reply byte-equal to
+    ``execute_merge`` on the CPU and agreeing with the spec merge; the
+    ``scenario`` verb in process on the card and on the CPU, the same
+    output; K3 or K5 once a merge, counted.  (b) The pair past the
+    shared-memory limits, through the bridge and on the kernels.  (c)
+    The timed pair at E = 65,536 keys, A = 256.  (d) The ``serve`` verb
+    spawned once.  (e) A checkpoint with its ElementDict."""
+    import contextlib
+    import io
+    import random
+
+    from go_crdt_playground_tpu_torch.__main__ import main as cli
+    from go_crdt_playground_tpu_torch.bridge import MergerServer
+
+    child = bridge_cli_start()
+    server = MergerServer(device="cuda")
+    c = BridgeCheck(server.serve())
+    tmp = tempfile.mkdtemp(prefix="bridge-")
+    try:
+        counters.reset()
+        go_client_scenarios(c)
+        n_go = sum(c.counts.values())
+        bridge_config1(c)
+        n_config1 = sum(c.counts.values()) - n_go
+        rng = random.Random(1400)
+        t0 = time.perf_counter()
+        for i in range(BRIDGE_PAIRS):
+            c.request(bridge_pair(rng, BRIDGE_KINDS[i % len(BRIDGE_KINDS)],
+                                  rng.choice((16, 128, SERVE_E)), SERVE_A))
+        pairs_s = time.perf_counter() - t0
+        pair_walls = sorted(c.walls[-BRIDGE_PAIRS:])
+        outputs = []
+        for device in ("cuda", "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                if cli(["scenario", "--device", device]) != 0:
+                    raise AssertionError(f"scenario verb on {device}")
+            outputs.append(buf.getvalue())
+        if outputs[0] != outputs[1] or "add-wins holds: True" not in \
+                outputs[0]:
+            raise AssertionError("scenario verb: cuda and cpu differ")
+        n_wide = bridge_wide_requests(c)
+        counts = counters.read("bridge", exact={
+            "merge_pairwise": c.counts["full"] + 1,       # + the scenario
+            "delta_gossip_round": c.counts["delta"], "gossip_round": 0})
+        log(f"bridge: {n_go} Go-client merges (T1-T3, T6), config 1's "
+            f"{n_config1} merges, {BRIDGE_PAIRS} seeded pairs at E <= "
+            f"{SERVE_E} keys, A = {SERVE_A} in {len(BRIDGE_KINDS)} kinds "
+            f"({pairs_s:.2f} s; a request p50 "
+            f"{pair_walls[len(pair_walls) // 2] * 1e3:.3f} ms, p99 "
+            f"{pair_walls[int(len(pair_walls) * 0.99)] * 1e3:.3f} ms through "
+            f"the server), every reply byte-equal to the CPU's and to the "
+            f"spec merge; K3 {counts['merge_pairwise']} and K5 "
+            f"{counts['delta_gossip_round']} launches, one a merge (the "
+            f"scenario verb's absorb among K3's) [{smi}]")
+        n_kernel = bridge_wide_kernels(errs)
+        timings["bridge"] = bridge_timed(c, smi, tmp)
+        timings["bridge_launches"] = counts
+        timings["bridge_pair_ms"] = {
+            "p50": pair_walls[len(pair_walls) // 2] * 1e3,
+            "p99": pair_walls[int(len(pair_walls) * 0.99)] * 1e3}
+        log(f"bridge at A = {BRIDGE_WIDE_A}: {n_wide} requests through the "
+            f"server and {n_kernel} K3/K5 pairs at A in ({BRIDGE_WIDE_A}, "
+            f"29057) bitwise to the plain versions")
+    finally:
+        c.close()
+        server.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"bridge serve CLI: {bridge_cli_finish(child)!r}, a ping and a "
+        f"merge, SIGTERM -> exit 0")
+
+
+# the bridge's kernels: the path that calls them (phase 14)
+BRIDGE_PATHS = {
+    "K3": "Merger bridge full-state merges (bridge/service.execute_merge -> "
+          "ops/merge.merge_one_into), the scenario verb; phase 8's gossip "
+          "verb fleet besides",
+    "K5": "Merger bridge δ merges (bridge/service.execute_merge -> "
+          "ops/delta.delta_merge_one_into, [dst; src] with perm [1, 1])",
+}
+BRIDGE_WRAPPERS = {"K3": "merge_pairwise", "K5": "delta_gossip_round"}
 KERNELS = [
     ("K1", "ring_round_rows", "csrc/merge.cu", "pallas_merge.py:832",
      ("ring_round_rows",)),
@@ -3591,6 +4221,7 @@ def main() -> int:
     timed_phase(walls, "13b", phase_mesh_fleet, counters, smi)
     timed_phase(walls, "13c", phase_multihost, counters)
     timed_phase(walls, "13d", phase_mesh_serve, counters, smi)
+    timed_phase(walls, "14", phase_bridge, counters, errs, timings, smi)
     log("phase walls: " + json.dumps({k: round(v, 1)
                                       for k, v in walls.items()}))
 
@@ -3599,15 +4230,27 @@ def main() -> int:
         launches = sum(counters.main_path[w] for w in wrappers)
         if launches < 1:
             raise AssertionError(f"{key} never launched on the main path")
-        kernels.append({
+        entry = {
             "name": f"{key} {name}", "route": "cuda",
             "source": f"go_crdt_playground_tpu_torch/{src}",
             "replaces": f"go_crdt_playground_tpu/ops/{replaces}",
-            "launches": launches, "on_main_path": key not in OFF_MAIN_PATH,
+            "launches": launches,
             "max_abs_err": errs[key], "bitwise": errs[key] == 0,
             **timings[key],
             "library_ms": None,
-        })
+        }
+        if key in BRIDGE_PATHS:
+            label = "full-state" if key == "K3" else "δ v2"
+            timed = timings["bridge"][label]
+            entry.update(
+                path=BRIDGE_PATHS[key],
+                bridge_launches=timings["bridge_launches"][
+                    BRIDGE_WRAPPERS[key]],
+                bridge_shape=[BRIDGE_TIMED_E, BRIDGE_TIMED_A],
+                bridge_ms=timed["kernel_ms"],
+                bridge_bound_ms=timed["bound_ms"],
+                bridge_request_ms=timed["request_ms"])
+        kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,12 @@
-"""Command line: a replica fleet converging by anti-entropy gossip, and
-the op-ingest serving frontend.
+"""Command line: the reference's add-wins scenario, a replica fleet
+converging by anti-entropy gossip, the Merger bridge and the op-ingest
+serving frontend.
+
+  python -m go_crdt_playground_tpu_torch scenario [--device cuda|cpu]
+
+walks the reference's concurrent-add-wins scenario (awset_test.go:85-122)
+on the spec model, then absorbs once more on the packed state (K3 on the
+card) and prints the JAX verb's lines.
 
   python -m go_crdt_playground_tpu_torch gossip [--replicas N] [--delta]
       [--schedule dissemination|ring|random|butterfly] [--drop-rate P]
@@ -8,6 +15,11 @@ the op-ingest serving frontend.
 Every replica adds one element of a 128-element universe, then the
 fleet gossips until every replica agrees on (membership, VV); the verb
 prints the round count and the digest.
+
+  python -m go_crdt_playground_tpu_torch serve [--port P] [--device D]
+
+serves the Merger bridge (bridge/service.py: K3 and K5 on the card) on a
+TCP port until SIGINT or SIGTERM, with the JAX verb's banner.
 
   python -m go_crdt_playground_tpu_torch serve --ingest [--port P]
       [--elements E] [--actors A] [--actor I] [--durable-dir D]
@@ -76,6 +88,59 @@ def _cmd_gossip(num_replicas: int, delta: bool = False,
     return 0
 
 
+def _cmd_scenario(device="cuda") -> int:
+    """The JAX verb's add-wins walkthrough: the spec model, then one more
+    absorb on the packed state on ``device``."""
+    from go_crdt_playground_tpu_torch.models import awset
+    from go_crdt_playground_tpu_torch.models.spec import AWSet, VersionVector
+    from go_crdt_playground_tpu_torch.ops.merge import merge_one_into
+    from go_crdt_playground_tpu_torch.utils import codec
+
+    print("== concurrent add wins over delete (awset_test.go:85-122) ==")
+    a = AWSet(actor=0, version_vector=VersionVector([0, 0]))
+    b = AWSet(actor=1, version_vector=VersionVector([0, 0]))
+    a.add("Anne", "Bob")
+    b.merge(a)                     # B observes both adds
+    a.del_("Bob")                  # ...then A deletes Bob
+    b.add("Bob")                   # ...while B concurrently re-adds him
+    a.merge(b)
+    b.merge(a)
+    print("spec A:", a)
+    print("spec B:", b)
+
+    dictionary = codec.ElementDict(capacity=4)
+    packed = awset.from_arrays(codec.pack_awsets([a, b], dictionary, 2),
+                               device)
+    packed, _ = merge_one_into(packed, 0, packed, 1)
+    rendered = codec.render_packed(awset.to_arrays(packed), dictionary)
+    print("packed A (after one more absorb):", rendered[0], sep="\n")
+    ok = a.sorted_values() == b.sorted_values() == ["Anne", "Bob"]
+    print("add-wins holds:", ok)
+    return 0 if ok else 1
+
+
+def _cmd_serve(port: int, device="cuda") -> int:
+    """The Merger bridge as a process, until SIGINT or SIGTERM."""
+    import signal
+    import threading
+
+    from go_crdt_playground_tpu_torch.bridge import MergerServer
+
+    srv = MergerServer(port=port, device=device)
+    host, bound = srv.serve()
+    # flush: a harness reading our pipe must see the address before the
+    # first request (stdout is block-buffered when not a tty)
+    print(f"Merger bridge listening on {host}:{bound} "
+          "(method 0x01 = Merge, 0x02 = Ping; 5-byte header + proto body)",
+          flush=True)
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    stop.wait()
+    srv.close()
+    return 0
+
+
 def _fmt_mesh(spec) -> str:
     """One banner token for any mesh spec: ``off``, ``N`` or ``DPxMP``
     (harnesses parse ``mesh=(\\w+)``)."""
@@ -122,12 +187,6 @@ def _build_frontend(args):
         repl_ack_timeout_ms=args.repl_ack_timeout_ms,
         mesh_devices=args.mesh_devices,
         sched=args.sched, device=args.device)
-
-
-def _not_ported(flag: str, what: str) -> int:
-    print(f"error: {flag}: {what} is not part of the port yet (serve one "
-          "device with the plain frontend)", file=sys.stderr, flush=True)
-    return 2
 
 
 def _cmd_serve_ingest(args) -> int:
@@ -526,9 +585,8 @@ def _add_serve_parser(sub) -> None:
     s = sub.add_parser("serve")
     s.add_argument("--port", type=int, default=0)
     s.add_argument("--ingest", action="store_true",
-                   help="run the op-ingest frontend (serve/); the Merger "
-                        "bridge the JAX verb runs without it is not "
-                        "ported yet")
+                   help="run the op-ingest frontend (serve/) instead of "
+                        "the Merger bridge")
     s.add_argument("--elements", type=int, default=1024,
                    help="element universe E of the served replica")
     s.add_argument("--actors", type=int, default=16,
@@ -832,6 +890,10 @@ def _rate(text: str) -> float:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="go_crdt_playground_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    sc = sub.add_parser("scenario")
+    sc.add_argument("--device", default="cuda",
+                    help="torch device of the packed absorb (default cuda; "
+                         "cpu runs K3's plain version)")
     g = sub.add_parser("gossip")
     g.add_argument("--replicas", type=int, default=64)
     g.add_argument("--delta", action="store_true",
@@ -849,10 +911,11 @@ def main(argv=None) -> int:
     _add_serve_parser(sub)
     _add_fleet_parsers(sub)
     args = p.parse_args(argv)
+    if args.cmd == "scenario":
+        return _cmd_scenario(args.device)
     if args.cmd == "serve":
         if not args.ingest:
-            return _not_ported("serve without --ingest",
-                               "the Merger bridge server")
+            return _cmd_serve(args.port, args.device)
         return _cmd_serve_ingest(args)
     if args.cmd == "router":
         return _cmd_router(args)

@@ -21,12 +21,13 @@ def _tensor_type():
 
 
 def host(x) -> np.ndarray:
-    """A tensor (int32 bits or bool) or an array -> numpy: uint32 for an
-    integer tensor, bool for a bool one, ``np.asarray`` otherwise."""
+    """A tensor or an array -> numpy: uint32 for an int32 tensor (the
+    port's uint32 bits), the tensor's own dtype for any other (bool, the
+    uint8 trace codes), ``np.asarray`` for a non-tensor."""
     tensor = _tensor_type()
     if tensor is not None and isinstance(x, tensor):
         a = x.detach().cpu().numpy()
-        return a.copy() if a.dtype == np.bool_ else a.view(np.uint32).copy()
+        return a.view(np.uint32).copy() if a.dtype == np.int32 else a.copy()
     return np.asarray(x)
 
 

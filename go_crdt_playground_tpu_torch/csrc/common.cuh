@@ -47,6 +47,28 @@ inline unsigned grid_for(long long num_r) {
   return static_cast<unsigned>(num_r < cap ? num_r : cap);
 }
 
+// Where a block-per-row kernel keeps the dst and partner vv rows (smem =
+// 2 x A x 4 B): in shared memory up to the card's opt-in limit per block
+// (227 KB on an H100: A <= 29,056), opting in past the default 48 KB; past
+// the limit the kernel reads them from device memory.  Returns 1 (shared),
+// 0 (device memory) or a cudaError_t negated.
+template <typename Kernel>
+inline int vv_rows_in_smem(Kernel* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 1;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (smem > static_cast<size_t>(optin)) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  return err == cudaSuccess ? 1 : -static_cast<int>(err);
+}
+
 // How a state stores its E-shaped lanes (models/packed.py):
 //   LAYOUT_BOOL     membership one byte per lane, dots as two uint32 arrays;
 //   LAYOUT_BITS     membership as uint32[R, W], W = ceil(E/32): bit e % 32

@@ -27,7 +27,9 @@
 //
 // delta_rows (K4, K5, K8): one block per row, its threads striding over E
 // in one coalesced pass; the dst and partner vv rows sit in shared memory
-// so every HasDot is an indexed shared-memory load.  Bit layouts read a
+// so every HasDot is an indexed shared-memory load (past 48 KB the launch
+// opts in to more; past the card's limit, A > 29,056 on an H100, a second
+// instantiation reads them from device memory).  Bit layouts read a
 // warp's 32 lanes from one word and write them back with one ballot; the
 // strict empty-δ test is __syncthreads_or over the block.  It reads the
 // dst row and the partner row separately (3 x the state per round), and
@@ -181,7 +183,9 @@ __device__ __forceinline__ void vv_slot(uint32_t x, uint32_t y,
 // reachable through crdt_delta_round for comparison with K9)
 // ---------------------------------------------------------------------------
 
-template <int L>
+// kSmem: the vv rows staged in shared memory, else read from device
+// memory (an actor axis past the shared-memory limit, crdt::vv_rows_in_smem).
+template <int L, bool kSmem>
 __global__ void delta_rows(
     const uint32_t* __restrict__ vv, const uint32_t* __restrict__ proc,
     Lanes in, const uint32_t* __restrict__ actor,
@@ -189,15 +193,17 @@ __global__ void delta_rows(
     int mode, uint32_t* __restrict__ ovv, uint32_t* __restrict__ oproc,
     OutLanes out, long long num_r, long long num_e, int num_a) {
   extern __shared__ uint32_t smem[];
-  uint32_t* dvv_s = smem;
-  uint32_t* svv_s = smem + num_a;
   const long long e_end = crdt::lane_end<L>(num_e);
   for (long long r = blockIdx.x; r < num_r; r += gridDim.x) {
     const long long p =
         crdt::partner_row(r, partner_mode, offset, perm, num_r);
-    for (int a = threadIdx.x; a < num_a; a += blockDim.x) {
-      dvv_s[a] = vv[r * num_a + a];
-      svv_s[a] = vv[p * num_a + a];
+    const uint32_t* dvv_s = kSmem ? smem : vv + r * num_a;
+    const uint32_t* svv_s = kSmem ? smem + num_a : vv + p * num_a;
+    if (kSmem) {
+      for (int a = threadIdx.x; a < num_a; a += blockDim.x) {
+        smem[a] = vv[r * num_a + a];
+        smem[num_a + a] = vv[p * num_a + a];
+      }
     }
     __syncthreads();
     const uint32_t s_actor = actor[p];
@@ -245,15 +251,14 @@ __global__ void delta_rows(
   }
 }
 
-template <int L>
-int launch(const void* vv, const void* processed, const Lanes& in,
-           const void* actor, const void* perm, long long offset,
-           int partner_mode, int mode, void* ovv, void* oprocessed,
-           const OutLanes& out, long long num_r, long long num_e, int num_a,
-           void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(num_a) * sizeof(uint32_t);
-  delta_rows<L><<<crdt::grid_for(num_r), crdt::kThreads, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
+template <int L, bool kSmem>
+int launch_rows(const void* vv, const void* processed, const Lanes& in,
+                const void* actor, const void* perm, long long offset,
+                int partner_mode, int mode, void* ovv, void* oprocessed,
+                const OutLanes& out, long long num_r, long long num_e,
+                int num_a, size_t smem, void* stream) {
+  delta_rows<L, kSmem><<<crdt::grid_for(num_r), crdt::kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(vv),
       static_cast<const uint32_t*>(processed), in,
       static_cast<const uint32_t*>(actor),
@@ -261,6 +266,25 @@ int launch(const void* vv, const void* processed, const Lanes& in,
       static_cast<uint32_t*>(ovv), static_cast<uint32_t*>(oprocessed), out,
       num_r, num_e, num_a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int L>
+int launch(const void* vv, const void* processed, const Lanes& in,
+           const void* actor, const void* perm, long long offset,
+           int partner_mode, int mode, void* ovv, void* oprocessed,
+           const OutLanes& out, long long num_r, long long num_e, int num_a,
+           void* stream) {
+  const size_t smem = 2 * static_cast<size_t>(num_a) * sizeof(uint32_t);
+  const int staged = crdt::vv_rows_in_smem(delta_rows<L, true>, smem);
+  if (staged < 0) return -staged;
+  if (staged) {
+    return launch_rows<L, true>(vv, processed, in, actor, perm, offset,
+                                partner_mode, mode, ovv, oprocessed, out,
+                                num_r, num_e, num_a, smem, stream);
+  }
+  return launch_rows<L, false>(vv, processed, in, actor, perm, offset,
+                               partner_mode, mode, ovv, oprocessed, out,
+                               num_r, num_e, num_a, 0, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -23,7 +23,9 @@
 // integer operations per lane, far below the card's rate.
 // Design: one block per row, its threads striding over E in one coalesced
 // pass; the dst and partner vv rows (2 x A x 4 B, 16 KB at A = 2048) sit in
-// shared memory so HasDot is an indexed shared-memory load.  Bit layouts
+// shared memory so HasDot is an indexed shared-memory load (past 48 KB the
+// launch opts in to more; past the card's limit, A > 29,056 on an H100, a
+// second instantiation reads them from device memory).  Bit layouts
 // read a warp's 32 lanes from one word and write them back with one
 // ballot.  Any R works.
 //
@@ -85,15 +87,15 @@ __device__ __forceinline__ long long partner_of(long long r, int mode,
   return p;
 }
 
-template <int L, bool kCheck>
+// kSmem: the vv rows staged in shared memory, else read from device
+// memory (an actor axis past the shared-memory limit, crdt::vv_rows_in_smem).
+template <int L, bool kCheck, bool kSmem>
 __global__ void merge_rows(
     const uint32_t* __restrict__ dvv, Lanes d, const uint32_t* __restrict__ svv,
     Lanes s, const void* __restrict__ perm, int perm32, long long offset,
     int partner_mode, uint32_t* __restrict__ ovv, OutLanes o,
     long long num_r, long long num_e, int num_a) {
   extern __shared__ uint32_t smem[];
-  uint32_t* dvv_s = smem;
-  uint32_t* svv_s = smem + num_a;
   const long long e_end = crdt::lane_end<L>(num_e);
   for (long long r = blockIdx.x; r < num_r; r += gridDim.x) {
     bool ok;
@@ -101,11 +103,15 @@ __global__ void merge_rows(
                                            perm32, num_r, threadIdx.x == 0,
                                            ok);
     if (!ok) continue;  // uniform over the block: every thread read p
+    const uint32_t* dvv_s = kSmem ? smem : dvv + r * num_a;
+    const uint32_t* svv_s = kSmem ? smem + num_a : svv + p * num_a;
     for (int a = threadIdx.x; a < num_a; a += blockDim.x) {
       const uint32_t x = dvv[r * num_a + a];
       const uint32_t y = svv[p * num_a + a];
-      dvv_s[a] = x;
-      svv_s[a] = y;
+      if (kSmem) {
+        smem[a] = x;
+        smem[num_a + a] = y;
+      }
       ovv[r * num_a + a] = x < y ? y : x;
     }
     __syncthreads();
@@ -133,18 +139,35 @@ __global__ void merge_rows(
   }
 }
 
+template <int L, bool kCheck, bool kSmem>
+int launch_rows(const void* dvv, Lanes d, const void* svv, Lanes s,
+                const void* perm, int perm32, long long offset,
+                int partner_mode, void* ovv, OutLanes o, long long num_r,
+                long long num_e, int num_a, size_t smem, void* stream) {
+  merge_rows<L, kCheck, kSmem><<<crdt::grid_for(num_r), crdt::kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(dvv), d, static_cast<const uint32_t*>(svv),
+      s, perm, perm32, offset, partner_mode,
+      static_cast<uint32_t*>(ovv), o, num_r, num_e, num_a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int L, bool kCheck = false>
 int launch(const void* dvv, Lanes d, const void* svv, Lanes s,
            const void* perm, int perm32, long long offset, int partner_mode,
            void* ovv, OutLanes o, long long num_r, long long num_e,
            int num_a, void* stream) {
   const size_t smem = 2 * static_cast<size_t>(num_a) * sizeof(uint32_t);
-  merge_rows<L, kCheck><<<crdt::grid_for(num_r), crdt::kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(dvv), d, static_cast<const uint32_t*>(svv),
-      s, perm, perm32, offset, partner_mode,
-      static_cast<uint32_t*>(ovv), o, num_r, num_e, num_a);
-  return static_cast<int>(cudaGetLastError());
+  const int staged = crdt::vv_rows_in_smem(merge_rows<L, kCheck, true>, smem);
+  if (staged < 0) return -staged;
+  if (staged) {
+    return launch_rows<L, kCheck, true>(dvv, d, svv, s, perm, perm32, offset,
+                                        partner_mode, ovv, o, num_r, num_e,
+                                        num_a, smem, stream);
+  }
+  return launch_rows<L, kCheck, false>(dvv, d, svv, s, perm, perm32, offset,
+                                       partner_mode, ovv, o, num_r, num_e,
+                                       num_a, 0, stream);
 }
 
 }  // namespace

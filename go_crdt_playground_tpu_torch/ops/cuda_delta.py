@@ -37,10 +37,9 @@ from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
 from go_crdt_playground_tpu_torch.ops import _build
 from go_crdt_playground_tpu_torch.ops import delta as delta_ops
 from go_crdt_playground_tpu_torch.ops.cuda_merge import (
-    LAYOUT_BITS, LAYOUT_DOTWORD, PARTNER_GATHER, PARTNER_RING, as_index,
-    check_ring_rows, check_state, layout_of, out_like, ptr, ring_index,
-    stream_of, use_kernel)
-from go_crdt_playground_tpu_torch.ops.vv import clock_at
+    LAYOUT_BITS, LAYOUT_DOTWORD, MAX_FUSED_ACTORS, PARTNER_GATHER,
+    PARTNER_RING, _count_lock, as_index, check_ring_rows, check_state,
+    layout_of, out_like, ptr, ring_index, stream_of, use_kernel)
 
 MODES = {"v2": 0, "reference": 1, "reference_loose": 2}
 # K9's segment length L: a segment reads L + 1 rows for L outputs, so a
@@ -72,16 +71,11 @@ def delta_round_plain(state: AWSetDeltaState, index: torch.Tensor,
                       mode: str) -> AWSetDeltaState:
     """The plain version of every entry: replica r absorbs the δ of row
     index[r], by the first-contact full merge where r's clock for the
-    sender's actor is 0, else by extract + apply (ops/delta.py)."""
-    src = AWSetDeltaState(*(x[index] for x in state))
+    sender's actor is 0, else by extract + apply
+    (ops/delta.delta_merge_pairwise)."""
     sem, strict = _SEMANTICS[mode]
-    first_contact = clock_at(state.vv, src.actor[:, None]) == 0   # [R, 1]
-    full = delta_ops.full_merge_delta(state, src, sem)
-    delt = delta_ops.delta_apply(
-        state, delta_ops.delta_extract(src, state.vv), sem, strict)
-    return AWSetDeltaState(*(
-        f if name == "actor" else torch.where(first_contact, f, d)
-        for name, f, d in zip(state._fields, full, delt)))
+    return delta_ops.delta_merge_pairwise(
+        state, AWSetDeltaState(*(x[index] for x in state)), sem, strict)
 
 
 class RingSegments(NamedTuple):
@@ -155,8 +149,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(state, perm, offset: int, partner_mode: int, mode: str):
-    check_state(state)
+def _launch(state, perm, offset: int, partner_mode: int, mode: str,
+            max_actors=MAX_FUSED_ACTORS):
+    check_state(state, max_actors)
     num_r, num_a = state.vv.shape
     outs = out_like(state)
     lib = _lib()
@@ -214,13 +209,15 @@ def delta_gossip_round(state: AWSetDeltaState, perm, *,
                        delta_semantics: str = "v2",
                        strict_reference_semantics: bool = True,
                        kernel: str = "auto") -> AWSetDeltaState:
-    """K5: one δ round in which replica r absorbs the δ of perm[r]."""
+    """K5: one δ round in which replica r absorbs the δ of perm[r]; any
+    actor axis A."""
     mode = kernel_mode(delta_semantics, strict_reference_semantics)
     perm = as_index(perm, state.num_replicas, state.vv.device)
     if not use_kernel(kernel, state.vv):
         return delta_round_plain(state, perm, mode)
-    out = _launch(state, perm, 0, PARTNER_GATHER, mode)
-    delta_gossip_round.launches += 1
+    out = _launch(state, perm, 0, PARTNER_GATHER, mode, max_actors=None)
+    with _count_lock:  # the bridge's connection threads call it at once
+        delta_gossip_round.launches += 1
     return out
 
 

@@ -46,6 +46,7 @@ import contextlib
 import ctypes
 import functools
 import threading
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,8 +56,10 @@ from go_crdt_playground_tpu_torch.models.awset import AWSetState
 from go_crdt_playground_tpu_torch.ops import _build
 from go_crdt_playground_tpu_torch.ops.merge import merge_kernel
 
-# Shared-memory cap on the actor axis: the dst and partner vv rows are
-# staged per block (2 x A x 4 B = 16 KB at the cap).
+# Cap on the actor axis of the entries that check it (``check_state``):
+# the dst and partner vv rows are staged per block (2 x A x 4 B = 16 KB at
+# the cap).  K3 (and K5, ops/cuda_delta.py) take any A: past the card's
+# shared memory their kernels read the vv rows from device memory.
 MAX_FUSED_ACTORS = 2048
 # The reference's packed ring kernels take whole 64-row blocks, at least
 # two (pallas_merge.ring_supported); the packed entries keep that domain.
@@ -103,19 +106,20 @@ def layout_of(state) -> int:
     return LAYOUT_BOOL
 
 
-def check_state(state) -> None:
+def check_state(state, max_actors: Optional[int] = MAX_FUSED_ACTORS
+                ) -> None:
     """Device, dtype, shape and contiguity checks before passing
     pointers to a kernel; for the bool, bitpacked and dot-word states
-    alike."""
+    alike.  ``max_actors``: the entry's cap on A (None: any A)."""
     num_r, num_a = state.vv.shape
     num_e = packed.num_elements(state)
     num_w = packed.packed_width(num_e)
     if num_a < 1:
         raise ValueError("the actor axis must be non-empty")
-    if num_a > MAX_FUSED_ACTORS:
+    if max_actors is not None and num_a > max_actors:
         raise ValueError(
             f"actor axis A={num_a} exceeds the CUDA kernels' shared-memory "
-            f"cap ({MAX_FUSED_ACTORS}); pass kernel='torch' to run the "
+            f"cap ({max_actors}); pass kernel='torch' to run the "
             "plain version")
     for name, t in zip(state._fields, state):
         want_dtype = torch.bool if name in _BOOL_FIELDS else torch.int32
@@ -293,11 +297,8 @@ def _k3_check(dst: AWSetState, src: AWSetState):
         raise ValueError("K3 takes [R, A] vv and [R, E] lanes")
     num_r, num_a = vv.shape
     num_e = dst.present.shape[1]
-    if not 1 <= num_a <= MAX_FUSED_ACTORS:
-        raise ValueError(
-            f"actor axis A={num_a} outside the CUDA kernels' range [1, "
-            f"{MAX_FUSED_ACTORS}] (shared-memory cap); pass kernel='torch' "
-            "to run the plain version")
+    if num_a < 1:
+        raise ValueError("the actor axis must be non-empty")
     dev = vv.device
     shapes = ((num_r, num_a), (num_r, num_e), (num_r, num_e),
               (num_r, num_e), (num_r,))
@@ -395,7 +396,9 @@ def gossip_round(state: AWSetState, perm,
 
 def merge_pairwise(dst: AWSetState, src: AWSetState,
                    kernel: str = "auto") -> AWSetState:
-    """K3, pairwise: ``dst[r] <- src[r]`` between two batches."""
+    """K3, pairwise: ``dst[r] <- src[r]`` between two batches (the
+    bridge's one-row merges, ops/merge.merge_one_into); any actor axis
+    A."""
     if not use_kernel(kernel, dst.vv):
         return merge_rows_plain(dst, src)
     out = _k3_launch(dst, src, None)

@@ -17,13 +17,15 @@ counters widen to int64 first.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from go_crdt_playground_tpu_torch._u32 import MASK, narrow, widen
 from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
-from go_crdt_playground_tpu_torch.ops.merge import merge_kernel
+from go_crdt_playground_tpu_torch.ops.merge import (
+    OUTCOME_ADD, OUTCOME_KEEP, OUTCOME_NONE, OUTCOME_REMOVE, OUTCOME_SKIP,
+    OUTCOME_UPDATE, MergeTrace, _codes, merge_kernel)
 from go_crdt_playground_tpu_torch.ops.vv import clock_at, has_dot, vv_join
 
 
@@ -97,6 +99,26 @@ def delta_apply(dst: AWSetDeltaState, p: DeltaPayload,
                 delta_semantics: str = "reference",
                 strict_reference_semantics: bool = True) -> AWSetDeltaState:
     """Receiver-side ``deltaMerge`` (awset-delta_test.go:107-166)."""
+    return _delta_apply_impl(dst, p, delta_semantics,
+                             strict_reference_semantics, False)[0]
+
+
+def delta_apply_traced(dst: AWSetDeltaState, p: DeltaPayload,
+                       delta_semantics: str = "reference",
+                       strict_reference_semantics: bool = True
+                       ) -> Tuple[AWSetDeltaState, MergeTrace]:
+    """``delta_apply`` plus per-lane decision tensors: the δ counterpart of
+    ops/merge.py's trace, covering the reference's deltaMerge logOutcome
+    calls (awset-delta_test.go:113-163).  No kernel emits it: this is the
+    plain version, on any device."""
+    return _delta_apply_impl(dst, p, delta_semantics,
+                             strict_reference_semantics, True)
+
+
+def _delta_apply_impl(dst: AWSetDeltaState, p: DeltaPayload,
+                      delta_semantics: str, strict_reference_semantics: bool,
+                      with_trace: bool
+                      ) -> Tuple[AWSetDeltaState, Optional[MergeTrace]]:
     if delta_semantics not in ("v2", "reference"):
         raise ValueError(f"unknown delta_semantics {delta_semantics!r}")
     # phase 1 over changed lanes: the full merge's phase-1 table
@@ -134,10 +156,30 @@ def delta_apply(dst: AWSetDeltaState, p: DeltaPayload,
         deleted_log = dst.deleted
         del_da, del_dc = dst.del_dot_actor, dst.del_dot_counter
         processed = dst.processed
+
+    trace = None
+    if with_trace:
+        # phase 1: the full merge's table over the payload's lanes; lanes
+        # outside the payload are NONE
+        both = p.changed & dst.present
+        t1 = _codes(
+            (both & ((dst.dot_actor != p.ch_da)
+                     | (dst.dot_counter != p.ch_dc)), OUTCOME_UPDATE),
+            (both, OUTCOME_KEEP),
+            (p.changed & seen_by_dst, OUTCOME_SKIP),
+            (p.changed, OUTCOME_ADD),
+            default=OUTCOME_NONE)
+        # phase 2 over deletion lanes: the no-op delete of an absent key
+        # also logs "remove" (awset-delta_test.go:160-162)
+        t2 = _codes((remove, OUTCOME_REMOVE),
+                    (p.deleted & present1, OUTCOME_KEEP),
+                    (p.deleted, OUTCOME_REMOVE),
+                    default=OUTCOME_NONE)
+        trace = MergeTrace(phase1=t1, phase2=t2)
     return AWSetDeltaState(
         vv=vv, present=present, dot_actor=da, dot_counter=dc,
         actor=dst.actor, deleted=deleted_log, del_dot_actor=del_da,
-        del_dot_counter=del_dc, processed=processed)
+        del_dot_counter=del_dc, processed=processed), trace
 
 
 def slice_apply(dst: AWSetDeltaState, p: DeltaPayload) -> AWSetDeltaState:
@@ -180,6 +222,66 @@ def full_merge_delta(dst: AWSetDeltaState, src: AWSetDeltaState,
         vv=vv, present=present, dot_actor=da, dot_counter=dc,
         actor=dst.actor, deleted=deleted_log, del_dot_actor=del_da,
         del_dot_counter=del_dc, processed=processed)
+
+
+def delta_merge_pair(dst: AWSetDeltaState, src: AWSetDeltaState,
+                     delta_semantics: str = "reference",
+                     strict_reference_semantics: bool = True
+                     ) -> AWSetDeltaState:
+    """The δ-dispatch merge (awset-delta_test.go:51-65) of one replica pair
+    (or of a batch, row by row): the full merge on first contact (dst's
+    counter for src's actor is 0), δ extract + apply otherwise.  Both
+    branches are computed densely and selected per field."""
+    first_contact = clock_at(dst.vv, src.actor.unsqueeze(-1)) == 0
+    full = full_merge_delta(dst, src, delta_semantics)
+    delt = delta_apply(dst, delta_extract(src, dst.vv), delta_semantics,
+                       strict_reference_semantics)
+    return AWSetDeltaState(*(
+        f if name == "actor" else torch.where(first_contact, f, d)
+        for name, f, d in zip(dst._fields, full, delt)))
+
+
+def delta_merge_pairwise(dst: AWSetDeltaState, src: AWSetDeltaState,
+                         delta_semantics: str = "reference",
+                         strict_reference_semantics: bool = True
+                         ) -> AWSetDeltaState:
+    """Batched ``dst[r] <- src[r]`` δ merge (the JAX package vmaps
+    ``delta_merge_pair``; here the pair function takes the batch)."""
+    return delta_merge_pair(dst, src, delta_semantics,
+                            strict_reference_semantics)
+
+
+def delta_merge_one_into(dst: AWSetDeltaState, r_dst,
+                         src: AWSetDeltaState, r_src,
+                         delta_semantics: str = "reference",
+                         strict_reference_semantics: bool = True,
+                         kernel: str = "auto") -> AWSetDeltaState:
+    """Replica ``r_dst`` of ``dst`` absorbs replica ``r_src`` of ``src`` by
+    the δ dispatch (the reference harness's direct method call,
+    awset-delta_test.go:173; the bridge's δ merge).
+
+    On CUDA tensors the pair goes through K5, which has no pairwise
+    entry: the two rows stack into a two-row batch ``[dst_row;
+    src_row]``, ``cuda_delta.delta_gossip_round`` runs it with perm
+    ``[1, 1]`` (row 1 absorbs itself and is dropped) and row 0 is the
+    result.  ``kernel`` follows ops/cuda_merge.use_kernel."""
+    from go_crdt_playground_tpu_torch.ops import cuda_delta, cuda_merge
+    from go_crdt_playground_tpu_torch.ops.merge import set_row
+
+    r_dst, r_src = int(r_dst), int(r_src)
+    if cuda_merge.use_kernel(kernel, dst.vv):
+        pair = AWSetDeltaState(*(torch.stack((d[r_dst], s[r_src]))
+                                 for d, s in zip(dst, src)))
+        merged = cuda_delta.delta_gossip_round(
+            pair, (1, 1), delta_semantics=delta_semantics,
+            strict_reference_semantics=strict_reference_semantics)
+        row = AWSetDeltaState(*(x[0] for x in merged))
+    else:
+        row = delta_merge_pair(
+            AWSetDeltaState(*(x[r_dst] for x in dst)),
+            AWSetDeltaState(*(x[r_src] for x in src)),
+            delta_semantics, strict_reference_semantics)
+    return set_row(dst, r_dst, row)
 
 
 # ---------------------------------------------------------------------------

@@ -107,16 +107,47 @@ def merge_pairwise(dst: AWSetState, src: AWSetState,
 
 
 def merge_one_into(dst: AWSetState, r_dst, src: AWSetState, r_src,
-                   with_trace: bool = False):
+                   with_trace: bool = False, kernel: str = "auto"):
     """Replica ``r_dst`` of ``dst`` absorbs replica ``r_src`` of ``src``
-    (the direct method call of the reference's simulation harness)."""
+    (the direct method call of the reference's simulation harness, and
+    the bridge's full-state merge).  Returns (the new ``dst``, the trace
+    or None).
+
+    ``kernel`` follows the K wrappers' rule (ops/cuda_merge.use_kernel):
+    on CUDA tensors the two rows go through K3 (``cuda_merge.
+    merge_pairwise`` on two one-row batches), on CPU tensors through the
+    plain version.  No kernel emits a trace, so ``with_trace=True`` runs
+    the plain version, and raises with ``kernel="cuda"``."""
+    from go_crdt_playground_tpu_torch.ops import cuda_merge
+
     r_dst, r_src = int(r_dst), int(r_src)
-    d = AWSetState(*(x[r_dst] for x in dst))
-    s = AWSetState(*(x[r_src] for x in src))
-    merged, trace = _merge_state_arrays(d, s, with_trace)
+    if with_trace:
+        if kernel == "cuda":
+            raise ValueError("with_trace=True runs the plain version (no "
+                             "kernel emits a merge trace); kernel='cuda' "
+                             "cannot honour it")
+        on_kernel = False
+    else:
+        on_kernel = cuda_merge.use_kernel(kernel, dst.vv)
+    if on_kernel:
+        merged = cuda_merge.merge_pairwise(
+            AWSetState(*(x[r_dst:r_dst + 1] for x in dst)),
+            AWSetState(*(x[r_src:r_src + 1] for x in src)))
+        merged, trace = AWSetState(*(x[0] for x in merged)), None
+    else:
+        merged, trace = _merge_state_arrays(
+            AWSetState(*(x[r_dst] for x in dst)),
+            AWSetState(*(x[r_src] for x in src)), with_trace)
+    return set_row(dst, r_dst, merged), trace
+
+
+def set_row(full, r: int, row):
+    """A copy of the state ``full`` with row ``r`` of every field but the
+    replica's own actor column replaced by ``row``'s."""
     fields = []
-    for name in ("vv", "present", "dot_actor", "dot_counter"):
-        x = getattr(dst, name).clone()
-        x[r_dst] = getattr(merged, name)
+    for name, x, y in zip(full._fields, full, row):
+        if name != "actor":
+            x = x.clone()
+            x[r] = y
         fields.append(x)
-    return AWSetState(*fields, actor=dst.actor), trace
+    return type(full)(*fields)

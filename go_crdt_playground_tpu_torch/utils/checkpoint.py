@@ -17,11 +17,11 @@ a mismatch): a bit-rotted or torn checkpoint is refused, never loaded.
 newest-valid-wins restore with fallback past corrupt ones, and a
 generation fence (``GenerationRegression``).
 
-The port has no element dictionary (``ElementDict``) yet: a manifest
-that carries one raises ``UnsupportedCheckpoint`` on restore, also
-through the store, which never falls back past it.  A state type the
-port does not have restores as a plain dict of numpy arrays, with a
-warning and a ``restore.unknown_type`` count.
+A checkpoint may carry the element dictionary (``utils/codec.
+ElementDict``) of a dictionary-coded deployment in its manifest; restore
+hands it back beside the state.  A state type the port does not have
+restores as a plain dict of numpy arrays, with a warning and a
+``restore.unknown_type`` count.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from go_crdt_playground_tpu_torch.models.digest import array_digest
 from go_crdt_playground_tpu_torch.models.packed import (
     DotPackedAWSetDeltaState, DotPackedAWSetState, PackedAWSetDeltaState,
     PackedAWSetState)
+from go_crdt_playground_tpu_torch.utils.codec import ElementDict
 from go_crdt_playground_tpu_torch.utils.fsutil import fsync_dir
 
 _MANIFEST_KEY = "__manifest__"
@@ -70,13 +71,9 @@ class GenerationRegression(RuntimeError):
     fence."""
 
 
-class UnsupportedCheckpoint(ValueError):
-    """A valid checkpoint holding what this port cannot restore yet (an
-    element dictionary)."""
-
-
 class Checkpoint(NamedTuple):
     state: Any
+    dictionary: Optional[ElementDict]
     step: Optional[int]
     metadata: Dict[str, Any]
     generation: Optional[int] = None
@@ -104,12 +101,14 @@ def sweep_tmp_files(directory: str, keep: Optional[str] = None) -> int:
     return swept
 
 
-def save_checkpoint(path: str, state, step: Optional[int] = None,
+def save_checkpoint(path: str, state,
+                    dictionary: Optional[ElementDict] = None,
+                    step: Optional[int] = None,
                     metadata: Optional[Dict[str, Any]] = None,
                     generation: Optional[int] = None) -> str:
     """Atomically and durably write ``state`` (a state NamedTuple of
-    tensors) to the single-file checkpoint at ``path``; returns
-    ``path``."""
+    tensors) and the optional element ``dictionary`` to the single-file
+    checkpoint at ``path``; returns ``path``."""
     fields = getattr(state, "_fields", None)
     if fields is None:
         raise TypeError(
@@ -123,7 +122,7 @@ def save_checkpoint(path: str, state, step: Optional[int] = None,
         "fields": list(fields),
         "step": step,
         "metadata": metadata or {},
-        "dictionary": None,
+        "dictionary": dictionary.state_dict() if dictionary else None,
         "digests": {f: array_digest(a) for f, a in arrays.items()},
         "generation": generation,
     }
@@ -187,10 +186,6 @@ def restore_checkpoint(path: str, device="cuda", *, verify: bool = True,
                 raise CheckpointCorrupt(
                     f"checkpoint {path!r}: array {name!r} digest mismatch "
                     f"(manifest {expect}, recomputed {got})")
-    if manifest.get("dictionary") is not None:
-        raise UnsupportedCheckpoint(
-            f"checkpoint {path!r} carries an element dictionary, which "
-            "this port cannot restore yet")
     cls = STATE_TYPES.get(manifest["state_type"])
     if cls is not None:
         state = cls(**{f: _tensor(arrays[f], dev)
@@ -204,8 +199,11 @@ def restore_checkpoint(path: str, device="cuda", *, verify: bool = True,
         if recorder is not None:
             recorder.count("restore.unknown_type")
         state = arrays
-    return Checkpoint(state=state, step=manifest["step"],
-                      metadata=manifest["metadata"],
+    dictionary = None
+    if manifest["dictionary"] is not None:
+        dictionary = ElementDict.from_state_dict(manifest["dictionary"])
+    return Checkpoint(state=state, dictionary=dictionary,
+                      step=manifest["step"], metadata=manifest["metadata"],
                       generation=manifest.get("generation"))
 
 
@@ -255,13 +253,14 @@ class CheckpointStore:
         gens = self.generations()
         return gens[-1] if gens else 0
 
-    def save(self, state, *, step: Optional[int] = None,
+    def save(self, state, *, dictionary: Optional[ElementDict] = None,
+             step: Optional[int] = None,
              metadata: Optional[Dict[str, Any]] = None) -> int:
         """Write the next generation and prune old ones; returns the new
         generation number (monotonic past corrupt or pruned files)."""
         gen = self.latest_generation() + 1
-        save_checkpoint(self.path_for(gen), state, step=step,
-                        metadata=metadata, generation=gen)
+        save_checkpoint(self.path_for(gen), state, dictionary=dictionary,
+                        step=step, metadata=metadata, generation=gen)
         for old in self.generations()[:-self.keep]:
             try:
                 os.unlink(self.path_for(old))
@@ -292,8 +291,6 @@ class CheckpointStore:
                     raise CheckpointCorrupt(
                         f"generation spoof: file gen-{gen} carries manifest "
                         f"generation {ck.generation}")
-            except UnsupportedCheckpoint:
-                raise
             except Exception as e:  # noqa: BLE001 — any unreadable
                 # generation falls back, counted, never aborts recovery
                 last_err = e

@@ -6,13 +6,11 @@ disk in a format of its own: ``<path>/slot-<i>-<j>.npz``, each local
 slot's block in the single-file format of utils/checkpoint.py (per-array
 CRC digests, atomic replace, directory fsync), written by the process
 that owns the slot, and ``<path>/manifest.json`` (state type, fields,
-mesh shape and layout, step, metadata, generation) written last by rank
-0.  The restore verifies every slot file, fences the generation
-(``GenerationRegression``) and places each block on the target mesh's
-slot, or gathers one whole state without a target.  Compare restored
+mesh shape and layout, step, metadata, element dictionary, generation)
+written last by rank 0.  The restore verifies every slot file, fences
+the generation (``GenerationRegression``) and places each block on the
+target mesh's slot, or gathers one whole state without a target.  Compare restored
 arrays across the packages, not files.
-
-As in utils/checkpoint.py, the port has no element dictionary yet.
 """
 
 from __future__ import annotations
@@ -23,8 +21,9 @@ from typing import Any, Dict, Optional
 
 from go_crdt_playground_tpu_torch.parallel import mesh as mesh_mod
 from go_crdt_playground_tpu_torch.utils.checkpoint import (
-    STATE_TYPES, Checkpoint, GenerationRegression, UnsupportedCheckpoint,
-    restore_checkpoint, save_checkpoint)
+    STATE_TYPES, Checkpoint, GenerationRegression, restore_checkpoint,
+    save_checkpoint)
+from go_crdt_playground_tpu_torch.utils.codec import ElementDict
 from go_crdt_playground_tpu_torch.utils.fsutil import fsync_dir
 
 _FORMAT_VERSION = 1
@@ -35,7 +34,9 @@ def _slot_file(path: str, idx) -> str:
     return os.path.join(path, "slot-" + "-".join(map(str, idx)) + ".npz")
 
 
-def save_checkpoint_sharded(path: str, state, step: Optional[int] = None,
+def save_checkpoint_sharded(path: str, state,
+                            dictionary: Optional[ElementDict] = None,
+                            step: Optional[int] = None,
                             metadata: Optional[Dict[str, Any]] = None,
                             generation: Optional[int] = None) -> str:
     """Write a ``ShardedState`` (or a plain state, as a one-slot mesh)
@@ -63,7 +64,7 @@ def save_checkpoint_sharded(path: str, state, step: Optional[int] = None,
             "specs": [list(s) for s in state.specs],
             "step": step,
             "metadata": metadata or {},
-            "dictionary": None,
+            "dictionary": dictionary.state_dict() if dictionary else None,
             "generation": generation,
         }
         tmp = os.path.join(path, _MANIFEST_TMP)
@@ -106,9 +107,6 @@ def restore_checkpoint_sharded(path: str, target=None, *,
         raise ValueError(
             f"sharded checkpoint format {manifest['format_version']} is "
             f"newer than this framework understands ({_FORMAT_VERSION})")
-    if manifest.get("dictionary") is not None:
-        raise UnsupportedCheckpoint(
-            f"sharded checkpoint {path!r} carries an element dictionary")
     gen = manifest.get("generation")
     if gen is not None and gen < min_generation:
         raise GenerationRegression(
@@ -141,5 +139,9 @@ def restore_checkpoint_sharded(path: str, target=None, *,
                                              device).state
         state = mesh_mod.gather_state(
             mesh_mod.ShardedState(mesh, blocks, cls, specs), device)
-    return Checkpoint(state=state, step=manifest["step"],
+    dictionary = manifest.get("dictionary")
+    return Checkpoint(state=state,
+                      dictionary=(None if dictionary is None else
+                                  ElementDict.from_state_dict(dictionary)),
+                      step=manifest["step"],
                       metadata=manifest["metadata"], generation=gen)

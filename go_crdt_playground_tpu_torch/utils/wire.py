@@ -1,8 +1,9 @@
 """δ-payload wire format: dense masked payloads <-> compact bytes.
 
-The Python codecs of the JAX package's ``utils/wire.py``, byte for byte
-(that package prefers a prebuilt native codec of the same bytes; this
-port encodes with the Python functions).  A dense payload serializes as
+The codecs of the JAX package's ``utils/wire.py``, byte for byte.  The
+masked and vv sections go through the C++ codec (native/codec.cpp) when
+it builds, else through the Python functions below; both give the same
+bytes and reject the same input.  A dense payload serializes as
 
   changed-section || deleted-section || vv-section
 
@@ -25,6 +26,7 @@ from typing import TYPE_CHECKING, Tuple
 
 import numpy as np
 
+from go_crdt_playground_tpu_torch import native
 from go_crdt_playground_tpu_torch._host import host
 
 if TYPE_CHECKING:  # the decoders import it when they build one
@@ -123,14 +125,94 @@ def _payload(src_vv, changed, ch_da, ch_dc, deleted, del_da, del_dc,
         src_processed=np.asarray(src_processed, np.uint32))
 
 
-def encode_payload(p: DeltaPayload) -> bytes:
+# ---------------------------------------------------------------------------
+# Native-backed primitives (native/codec.cpp, the same bytes)
+# ---------------------------------------------------------------------------
+
+
+def _ptr(a: np.ndarray, ctype):
+    import ctypes
+
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _encode_masked_native(lib, mask, da, dc) -> bytes:
+    import ctypes
+
+    e = mask.shape[0]
+    cap = int(lib.delta_encode_bound(e))
+    out = (ctypes.c_uint8 * cap)()
+    n = lib.delta_encode(
+        _ptr(np.ascontiguousarray(mask, np.uint8), ctypes.c_uint8),
+        _ptr(np.ascontiguousarray(da, np.uint32), ctypes.c_uint32),
+        _ptr(np.ascontiguousarray(dc, np.uint32), ctypes.c_uint32),
+        e, out, cap)
+    if n < 0:
+        raise ValueError("native delta_encode failed")
+    return bytes(out[:n])
+
+
+def _decode_masked_native(lib, buf: bytes, pos: int, e: int):
+    import ctypes
+
+    mask = np.zeros(e, np.uint8)
+    da = np.zeros(e, np.uint32)
+    dc = np.zeros(e, np.uint32)
+    raw = np.ascontiguousarray(np.frombuffer(buf, np.uint8)[pos:])
+    n = lib.delta_decode(
+        _ptr(raw, ctypes.c_uint8), raw.size, e, _ptr(mask, ctypes.c_uint8),
+        _ptr(da, ctypes.c_uint32), _ptr(dc, ctypes.c_uint32))
+    if n < 0:
+        raise ValueError("malformed delta section")
+    return mask.astype(bool), da, dc, pos + int(n)
+
+
+def _encode_vv_native(lib, vv) -> bytes:
+    import ctypes
+
+    a = vv.shape[0]
+    cap = int(lib.vv_encode_bound(a))
+    out = (ctypes.c_uint8 * cap)()
+    n = lib.vv_encode(
+        _ptr(np.ascontiguousarray(vv, np.uint32), ctypes.c_uint32), a, out,
+        cap)
+    if n < 0:
+        raise ValueError("native vv_encode failed")
+    return bytes(out[:n])
+
+
+def _decode_vv_native(lib, buf: bytes, pos: int, a: int):
+    import ctypes
+
+    vv = np.zeros(a, np.uint32)
+    raw = np.ascontiguousarray(np.frombuffer(buf, np.uint8)[pos:])
+    n = lib.vv_decode(_ptr(raw, ctypes.c_uint8), raw.size, a,
+                      _ptr(vv, ctypes.c_uint32))
+    if n < 0:
+        raise ValueError("malformed vv section")
+    return vv, pos + int(n)
+
+
+# ---------------------------------------------------------------------------
+# Payload-level API
+# ---------------------------------------------------------------------------
+
+
+def encode_payload(p: DeltaPayload, prefer_native: bool = True) -> bytes:
     """Serialize one replica's δ payload (fields [E]/[A]) to the compact
-    wire form."""
-    return (_encode_masked_py(host(p.changed).astype(bool), host(p.ch_da),
-                              host(p.ch_dc))
-            + _encode_masked_py(host(p.deleted).astype(bool),
-                                host(p.del_da), host(p.del_dc))
-            + _encode_vv_py(host(p.src_vv)))
+    wire form, through the native codec when it builds (the same bytes
+    either way)."""
+    changed, deleted = host(p.changed).astype(bool), host(p.deleted).astype(
+        bool)
+    sections = ((changed, host(p.ch_da), host(p.ch_dc)),
+                (deleted, host(p.del_da), host(p.del_dc)))
+    vv = host(p.src_vv)
+    lib = native.load() if prefer_native else None
+    if lib is not None:
+        return (b"".join(_encode_masked_native(lib, *s) for s in sections)
+                + _encode_vv_native(lib, vv))
+    return (b"".join(_encode_masked_py(*s) for s in sections)
+            + _encode_vv_py(vv))
 
 
 def payload_nbytes_wire(p: DeltaPayload) -> int:
@@ -140,13 +222,23 @@ def payload_nbytes_wire(p: DeltaPayload) -> int:
 
 
 def decode_payload(buf: bytes, num_elements: int, num_actors: int,
-                   src_actor: int = 0) -> DeltaPayload:
+                   src_actor: int = 0,
+                   prefer_native: bool = True) -> DeltaPayload:
     """Inverse of encode_payload.  ``src_processed`` is not shipped (v2
     local bookkeeping) and comes back zeroed; ``src_actor`` rides out of
     band."""
-    changed, ch_da, ch_dc, pos = _decode_masked_py(buf, 0, num_elements)
-    deleted, del_da, del_dc, pos = _decode_masked_py(buf, pos, num_elements)
-    vv, pos = _decode_vv_py(buf, pos, num_actors)
+    lib = native.load() if prefer_native else None
+    if lib is not None:
+        changed, ch_da, ch_dc, pos = _decode_masked_native(
+            lib, buf, 0, num_elements)
+        deleted, del_da, del_dc, pos = _decode_masked_native(
+            lib, buf, pos, num_elements)
+        vv, pos = _decode_vv_native(lib, buf, pos, num_actors)
+    else:
+        changed, ch_da, ch_dc, pos = _decode_masked_py(buf, 0, num_elements)
+        deleted, del_da, del_dc, pos = _decode_masked_py(
+            buf, pos, num_elements)
+        vv, pos = _decode_vv_py(buf, pos, num_actors)
     if pos != len(buf):
         raise ValueError(f"{len(buf) - pos} trailing bytes after payload")
     return _payload(vv, changed, ch_da, ch_dc, deleted, del_da, del_dc,

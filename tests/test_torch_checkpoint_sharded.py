@@ -17,8 +17,8 @@ from go_crdt_playground_tpu.parallel import mesh as jm
 from go_crdt_playground_tpu.utils import checkpoint_sharded as jcs
 from go_crdt_playground_tpu_torch.parallel import mesh as tm
 from go_crdt_playground_tpu_torch.utils import checkpoint_sharded as cs
-from go_crdt_playground_tpu_torch.utils.checkpoint import (
-    GenerationRegression, UnsupportedCheckpoint)
+from go_crdt_playground_tpu_torch.utils.checkpoint import \
+    GenerationRegression
 from tests.test_torch_models import to_torch
 
 
@@ -75,12 +75,13 @@ def test_sharded_checkpoint_restore_without_target(tmp_path):
     path = cs.save_checkpoint_sharded(str(tmp_path / "ck2"), to_torch(st))
     ck = cs.restore_checkpoint_sharded(path, device="cpu")
     _assert_restored_equal(want.state, ck.state)
-    # a manifest with an element dictionary is refused, typed
+    # a manifest with an element dictionary restores it beside the state
     mpath = os.path.join(path, "manifest.json")
     with open(mpath) as f:
         manifest = json.load(f)
     manifest["dictionary"] = {"capacity": 8, "values": ["a"]}
     with open(mpath, "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(UnsupportedCheckpoint):
-        cs.restore_checkpoint_sharded(path, device="cpu")
+    ck = cs.restore_checkpoint_sharded(path, device="cpu")
+    assert ck.dictionary.state_dict() == manifest["dictionary"]
+    _assert_restored_equal(want.state, ck.state)

@@ -767,3 +767,103 @@ def test_per_slot_kernels_on_a_two_slot_card_mesh():
                                                            kernel="torch")
             assert _equal(mesh_mod.gather_state(got),
                           mesh_mod.gather_state(want)), (fn.__name__, off)
+
+
+# -- the bridge's one-row merges (K3, K5) at any actor axis -------------------
+
+WIDE_A = [2049, 6145, 8193, 29057]
+
+
+@pytest.mark.parametrize("A", WIDE_A)
+def test_k3_and_k5_take_any_actor_axis(A):
+    """Past K3's old 2,048 cap, past the 48 KB of shared memory a launch
+    gets without opting in (A = 6,145 for K5) and past the card's opt-in
+    limit (A = 29,057: the vv rows from device memory), bitwise to the
+    plain versions, on one-row pairs and on the bridge's two-row route."""
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+
+    for E in (1, 300):
+        st = _on_gpu(random_state(A + E, 2, E, A))
+        base = st.base()
+        d = type(base)(*(x[:1] for x in base))
+        s = type(base)(*(x[1:] for x in base))
+        assert _equal(cm.merge_pairwise(d, s, kernel="cuda"),
+                      cm.merge_pairwise(d, s, kernel="torch"))
+        assert _equal(cm.gossip_round(base, [1, 0], kernel="cuda"),
+                      cm.gossip_round(base, [1, 0], kernel="torch"))
+        for sem, strict in MODES:
+            kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+            assert _equal(cd.delta_gossip_round(st, [1, 1], kernel="cuda",
+                                                **kw),
+                          cd.delta_gossip_round(st, [1, 1], kernel="torch",
+                                                **kw)), (E, sem, strict)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("sem,strict", MODES)
+def test_one_into_entries_launch_k3_and_k5_once(sem, strict):
+    """merge_one_into and delta_merge_one_into on CUDA tensors: one K3 or
+    K5 launch each, bitwise to the CPU plain versions."""
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.ops import delta as delta_ops
+    from go_crdt_playground_tpu_torch.ops import merge as merge_ops
+
+    cpu = random_state(77, 5, 200, 6)
+    st = _on_gpu(cpu)
+    before = cm.merge_pairwise.launches, cd.delta_gossip_round.launches
+    for r_dst, r_src in ((0, 1), (3, 2), (4, 4)):
+        got, _ = merge_ops.merge_one_into(st.base(), r_dst, st.base(), r_src)
+        want, _ = merge_ops.merge_one_into(cpu.base(), r_dst, cpu.base(),
+                                           r_src)
+        assert _equal(got, type(want)(*(x.cuda() for x in want)))
+        got = delta_ops.delta_merge_one_into(st, r_dst, st, r_src, sem,
+                                             strict)
+        want = delta_ops.delta_merge_one_into(cpu, r_dst, cpu, r_src, sem,
+                                              strict)
+        assert _equal(got, type(want)(*(x.cuda() for x in want)))
+    assert (cm.merge_pairwise.launches - before[0],
+            cd.delta_gossip_round.launches - before[1]) == (3, 3)
+    with pytest.raises(ValueError, match="no kernel emits"):
+        merge_ops.merge_one_into(st.base(), 0, st.base(), 1,
+                                 with_trace=True, kernel="cuda")
+
+
+def test_execute_merge_on_the_card_gives_the_cpu_bytes():
+    """The bridge on CUDA and on the CPU: the same reply bytes for seeded
+    full-state and δ requests, wide actor axes and an error reply."""
+    import random
+
+    from go_crdt_playground_tpu_torch.bridge import convert, messages, service
+    from go_crdt_playground_tpu_torch.models import spec
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    rng = random.Random(4)
+    for i in range(60):
+        delta = i % 2 == 1
+        sem = ("reference", "v2")[i % 4 // 2]
+        n = 3 if i < 56 else 8193
+        reps = [spec.AWSetDelta(actor=a, version_vector=spec.VersionVector(
+            [0] * n), delta_semantics=sem) if delta else
+            spec.AWSet(actor=a, version_vector=spec.VersionVector([0] * n))
+            for a in range(2)]
+        for _ in range(rng.randint(0, 12)):
+            r = reps[rng.randrange(2)]
+            roll = rng.random()
+            if roll < 0.5:
+                r.add(f"k{rng.randrange(6)}")
+            elif roll < 0.7:
+                r.del_(f"k{rng.randrange(6)}")
+            else:
+                r.merge(reps[0] if r is reps[1] else reps[1])
+        req = messages.MergeRequest(
+            dst=convert.replica_to_proto(reps[0]),
+            src=convert.replica_to_proto(reps[1]), delta=delta,
+            delta_semantics=sem, strict_reference_semantics=i % 3 == 0)
+        if i == 59:
+            req.dst.version_vector.append(1 << 32)
+        got = service.execute_merge(req, device="cuda").SerializeToString()
+        want = service.execute_merge(req, device="cpu").SerializeToString()
+        assert got == want, i

@@ -2,14 +2,18 @@
 package in all three δ modes: the XLA δ round and the Pallas δ kernels
 in interpret mode.  Bitwise."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from go_crdt_playground_tpu.models import awset_delta as jax_delta
+from go_crdt_playground_tpu.ops import delta as jax_delta_ops
 from go_crdt_playground_tpu.ops import pallas_delta
 from go_crdt_playground_tpu.parallel import gossip as jax_gossip
 from go_crdt_playground_tpu_torch.ops import cuda_delta
+from go_crdt_playground_tpu_torch.ops import delta as delta_ops
 from tests.test_torch_models import assert_same, scenario, to_torch
 
 MODES = [("v2", True), ("reference", True), ("reference", False)]
@@ -179,3 +183,76 @@ def test_unknown_semantics_rejected():
     with pytest.raises(ValueError):
         cuda_delta.delta_gossip_round(st, np.arange(4),
                                       delta_semantics="v3")
+
+
+# -- the δ merge entries (ops/delta.py) ---------------------------------------
+
+
+def _pair_rows(st, r):
+    return type(st)(*(x[r] for x in st))
+
+
+@pytest.mark.parametrize("sem,strict", MODES)
+@pytest.mark.parametrize("seed", [3, 4])
+def test_delta_merge_entries_match_jax(seed, sem, strict):
+    """delta_merge_pair, delta_merge_pairwise and delta_merge_one_into
+    against the JAX forms, with first contacts (fresh rows that never saw
+    the sender's actor), δ branches and empty payloads among the pairs."""
+    jst = scenario(seed, 6, 40, 6)
+    # rows 4 and 5 are fresh: first contact with every sender
+    jst = jax.tree.map(lambda x: x.at[4:].set(jnp.zeros_like(x[4:])), jst)
+    jst = jst._replace(actor=jnp.arange(6, dtype=jnp.uint32))
+    st = to_torch(jst)
+    perm = np.array([1, 2, 0, 3, 0, 4])
+    src = jax.tree.map(lambda x: x[perm], jst)
+    assert_same(jax_delta_ops.delta_merge_pairwise(jst, src, sem, strict),
+                delta_ops.delta_merge_pairwise(
+                    st, to_torch(src), sem, strict))
+    for r_dst, r_src in ((0, 1), (4, 0), (5, 4), (3, 3), (1, 5)):
+        want = jax_delta_ops.delta_merge_pair(
+            _pair_rows(jst, r_dst), _pair_rows(jst, r_src), sem, strict)
+        got = delta_ops.delta_merge_pair(
+            _pair_rows(st, r_dst), _pair_rows(st, r_src), sem, strict)
+        assert_same(jax.tree.map(lambda x: x[None], want),
+                    type(got)(*(x[None] for x in got)))
+        jfull = jax_delta_ops.delta_merge_one_into(jst, r_dst, jst, r_src,
+                                                   sem, strict)
+        full = delta_ops.delta_merge_one_into(st, r_dst, st, r_src, sem,
+                                              strict)
+        assert_same(jfull, full, f"{r_dst} <- {r_src}")
+        # K5's route on the card: [dst_row; src_row], perm [1, 1], row 0
+        pair = type(st)(*(torch.stack((d[r_dst], d[r_src])) for d in st))
+        mode = cuda_delta.kernel_mode(sem, strict)
+        row0 = cuda_delta.delta_round_plain(pair, torch.tensor([1, 1]),
+                                            mode)
+        assert_same(jax.tree.map(lambda x: x[r_dst:r_dst + 1], jfull),
+                    type(st)(*(x[:1] for x in row0)))
+
+
+def test_delta_merge_one_into_strict_skip_on_an_empty_delta():
+    """The empty-δ vv skip of the strict reference mode survives the K5
+    route: dst already holds everything src would ship, so strict keeps
+    dst's clock and loose joins it."""
+    st = jax_delta.init(2, 4, 2)
+    st = st._replace(vv=jnp.asarray([[5, 1], [3, 4]], jnp.uint32),
+                     present=st.present.at[:, 0].set(True),
+                     dot_actor=st.dot_actor.at[:, 0].set(0),
+                     dot_counter=st.dot_counter.at[:, 0].set(1))
+    port = to_torch(st)
+    for strict in (True, False):
+        want = jax_delta_ops.delta_merge_one_into(st, 0, st, 1, "reference",
+                                                  strict)
+        got = delta_ops.delta_merge_one_into(port, 0, port, 1,
+                                             "reference", strict)
+        assert_same(want, got)
+        pair_round = cuda_delta.delta_round_plain(
+            port, torch.tensor([1, 1]), cuda_delta.kernel_mode(
+                "reference", strict))
+        assert_same(jax.tree.map(lambda x: x[:1], want),
+                    type(port)(*(x[:1] for x in pair_round)))
+        assert (got.vv[0].tolist() == [5, 1]) == strict
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        delta_ops.delta_merge_one_into(port, 0, port, 1, kernel="cuda")
+    before = cuda_delta.delta_gossip_round.launches
+    delta_ops.delta_merge_one_into(port, 0, port, 1, kernel="torch")
+    assert cuda_delta.delta_gossip_round.launches == before

@@ -122,7 +122,7 @@ def test_malformed_input_raises_value_error_in_both(case):
     jfn, fn = {
         "payload": (lambda b: jax_wire.decode_payload(
             b, E, A, prefer_native=False),
-            lambda b: wire.decode_payload(b, E, A)),
+            lambda b: wire.decode_payload(b, E, A, prefer_native=False)),
         "compact": (lambda b: jax_wire.decode_compact_wal_body(b, E, A),
                     lambda b: wire.decode_compact_wal_body(b, E, A)),
         "lanes": (lambda b: jax_wire.decode_payload_lanes(b, E, A),
@@ -459,12 +459,13 @@ def test_unknown_type_warns_and_dictionary_raises(tmp_path):
     assert isinstance(got.state, dict)
     assert rec.snapshot()["counters"]["restore.unknown_type"] == 1
 
+    # a manifest with an element dictionary restores it beside the state
     d = ElementDict(capacity=16)
     d.encode("Anne")
     store = jax_ckpt.CheckpointStore(str(tmp_path / "s"))
     store.save(jax_awd.init(1, 16, 2), dictionary=d)
-    with pytest.raises(ckpt.UnsupportedCheckpoint, match="dictionary"):
-        ckpt.CheckpointStore(str(tmp_path / "s")).restore(device="cpu")
+    gen, ck = ckpt.CheckpointStore(str(tmp_path / "s")).restore(device="cpu")
+    assert gen == 1 and ck.dictionary.state_dict() == d.state_dict()
 
 
 def test_store_generations_fallback_fence_and_spoof(tmp_path):

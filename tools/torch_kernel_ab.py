@@ -17,6 +17,11 @@ own kind of ``--other`` tree:
     verb's fleet (64 x 128, A = 64: ``gossip_round`` over a ring perm
     and ``merge_pairwise``), at a wide row (64 x 1,000, A = 16) and at
     4,096 x 128 (A = 64);
+  * k3same: a tree whose K3 has this tree's C entry
+    (``crdt_merge_rows_k3``, e.g. the parent commit's), both builds
+    through this tree's host path (``cuda_merge._k3_launch``) at the k3
+    leg's shapes and at the Merger bridge's one-row pair (E = 65,536,
+    A = 256);
   * k10, k11: a tree whose K10 is the fold-only kernel
     (``crdt_ingest_fold``: the rows' prefix sums, the clocks and the
     compaction in torch around it) and whose K11 has the fingerprint-
@@ -79,10 +84,10 @@ def bind(path: Path, name: str, tag: str):
         lib.crdt_merge_round.argtypes = (
             [P] * 9 + [I64, I32] + [P] * 4 + [I64, I64, I32, I32, P])
         lib.crdt_merge_round.restype = I32
-        if tag == "this":
-            lib.crdt_merge_rows_k3.argtypes = (
-                [P] * 9 + [I32] + [P] * 4 + [I64, I64, I32, P])
-            lib.crdt_merge_rows_k3.restype = I32
+        k3 = getattr(lib, "crdt_merge_rows_k3", None)  # a tree before it
+        if k3 is not None:
+            k3.argtypes = [P] * 9 + [I32] + [P] * 4 + [I64, I64, I32, P]
+            k3.restype = I32
     elif name == "digest":
         lib.crdt_group_digests.argtypes = (
             [P] * 5 + ([I64, I64, I64, P] if tag == "this"
@@ -269,13 +274,14 @@ def main() -> int:
                     "package's own)")
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--legs", default="k3,k10,k11",
-                    help="comma-separated legs: k3, k10, k11")
+                    help="comma-separated legs: k3, k3same, k10, k11")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
-    if not legs <= {"k3", "k10", "k11"}:
+    if not legs <= {"k3", "k3same", "k10", "k11"}:
         ap.error(f"unknown legs in {args.legs!r}")
-    sources = ([n for leg, n in (("k3", "merge"), ("k11", "digest"),
-                                 ("k10", "ingest")) if leg in legs])
+    sources = sorted({n for leg, n in (("k3", "merge"), ("k3same", "merge"),
+                                       ("k11", "digest"), ("k10", "ingest"))
+                      if leg in legs})
 
     import numpy as np
     import torch
@@ -339,6 +345,34 @@ def main() -> int:
             t = in_turns(calls, names, args.reps)
             key = (f"K3 {'gossip_round' if gather else 'merge_pairwise'} "
                    f"R={R} E={E} A={A}")
+            rows[key] = t
+            print(f"{key}: other {fmt(t['other'])}; this {fmt(t['this'])} "
+                  f"[{smi}]", flush=True)
+
+        same_cases = k3_cases + ((1, 1 << 16, 256, False),)
+        for R, E, A, gather in (same_cases if "k3same" in legs else ()):
+            dst = chip_smoke.random_delta_state(rng, R, E, A, 0x7FFFFFF8,
+                                                "cuda").base()
+            src = dst
+            perm = None
+            if gather:
+                perm = torch.from_numpy(rng.permutation(R)).cuda()
+            else:
+                src = chip_smoke.random_delta_state(rng, R, E, A, 7,
+                                                    "cuda").base()
+            calls = {tag: (lambda tag=tag: cm._k3_launch(
+                dst, src, perm, libs[tag, "merge"]))
+                for tag in ("other", "this")}
+            want = (cm.gossip_round(dst, perm, kernel="torch") if gather
+                    else cm.merge_pairwise(dst, src, kernel="torch"))
+            for tag in ("other", "this"):
+                if not equal(calls[tag](), want):
+                    raise AssertionError(f"K3 R={R} E={E} A={A}: the {tag} "
+                                         "build differs from plain")
+            t = in_turns(calls, {tag: ("merge_rows",) for tag in calls},
+                         args.reps)
+            entry = "gossip_round" if gather else "merge_pairwise"
+            key = f"K3 builds {entry} R={R} E={E} A={A}"
             rows[key] = t
             print(f"{key}: other {fmt(t['other'])}; this {fmt(t['this'])} "
                   f"[{smi}]", flush=True)
