@@ -115,6 +115,20 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      ``serve`` verb spawned once (banner, a ping and a merge, SIGTERM);
      (e) the δ state checkpointed with its ElementDict, restored on the
      CPU and the card bitwise;
+ 15. the other lattice families and the wide actor axes: (a) the OR-Map
+     fleet (phase 4's fleet with three seeded LWW planes, 6,400 B a
+     row): the 20 dissemination ring offsets through
+     ``ormap_ring_gossip_round`` (keys on K1) and a butterfly pass
+     through ``ormap_gossip_round`` (keys on K2), counted, timed beside
+     their bound and converged, every round against
+     ``lattices.gossip_round(ormap_join)`` on the plain versions,
+     bitwise, and ``ormap_join`` on K2; (b) BASELINE config 2 (GCounter,
+     1,000 replicas, 256 actors): its dissemination rounds equal to the
+     CPU's, converged, merges a second; (c) K1, K2, K4, K6 and K8 at A
+     in {2,049, 8,193, 29,057}, K7 and K9 at A in {2,049, 4,096}, K10 at
+     A in {2,049, 12,289, 60,000} against their plain versions, one
+     launch each timed, and at A = 2,049 the gossip rounds,
+     ``rounds_to_convergence`` and ``Node.ingest_batch`` on the card;
 and, after phase 2, phase 2b: the ingest kernel (K10, the whole entry in
 one launch) against its plain version over E x A x B x K (one block up
 to E = 4,096, the cooperative grid above), densities, padding patterns,
@@ -166,7 +180,7 @@ SERVE_E, SERVE_A, SERVE_B = 1024, 16, 32
 INGEST_E, INGEST_A = 1024, 8
 INGEST_LEGS = ((8, 1), (32, 1), (128, 1), (32, 16))
 # K10's cases: element counts (one block up to 4,096 lanes, the
-# cooperative grid above), actor counts (1, serve's 16, the kernel's cap),
+# cooperative grid above), actor counts (1, serve's 16, 2,048),
 # batch sizes and Ks
 INGEST_CHECK_E = (1, 255, 1024, 4096, 4097, 1 << 20)
 INGEST_CHECK_A = (1, 16, 2048)
@@ -553,7 +567,8 @@ def phase_ingest_kernel(errs: dict):
     E = 4,096, the cooperative grid above), densities, padding patterns,
     states with history, own clocks whose prefix sums cross 2^31 or wrap
     at 2^32, K = 128 and K = 0 (no compact form), and the compact form's
-    one-copy host read.  B = 0 launches the kernel; A = 2049 raises."""
+    one-copy host read.  B = 0 launches the kernel (A past the shared
+    memory: phase 15)."""
     import torch
 
     from go_crdt_playground_tpu_torch._u32 import host, to_host
@@ -632,22 +647,13 @@ def phase_ingest_kernel(errs: dict):
         raise AssertionError(
             f"K10 cases missed a regime: {n_overflow} overflowing, "
             f"{n_cross31} crossing 2^31, {n_wrap32} wrapping 2^32")
-    wide = ingest_slice(rng, 64, 2049, 0, 5, False, "cuda")
-    rows = torch.zeros((2, 64), dtype=torch.bool, device="cuda")
-    try:
-        ci.ingest_rows_delta_fused(wide, rows, rows, rows[:, 0],
-                                   k_changed=8, k_deleted=8)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("K10 with A = 2049 did not raise")
     torch.cuda.synchronize()
     n_shapes = len(INGEST_CHECK_E) * len(INGEST_CHECK_A) * len(INGEST_CHECK_B)
     log(f"ingest kernel: {n_checks} K10-vs-plain checks over {n_shapes} "
         f"(E, A, B) shapes x 9 batch kinds x K in {INGEST_CHECK_K} bitwise "
         f"equal, one-copy record reads equal, B = 0 launched, "
         f"{n_overflow} overflowing batches, {n_cross31} crossing 2^31, "
-        f"{n_wrap32} wrapping 2^32; A = 2049 raises "
+        f"{n_wrap32} wrapping 2^32 "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -4129,6 +4135,430 @@ def phase_bridge(counters: Counters, errs: dict, timings: dict, smi: str):
         f"merge, SIGTERM -> exit 0")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the other lattice families and the wide actor axes
+# ---------------------------------------------------------------------------
+
+# BASELINE config 2 (the JAX package's bench.measure_config2): GCounter,
+# 1,000 replicas, 256 actors, through the dissemination ring offsets;
+# passes of the schedule timed
+CONFIG2_R, CONFIG2_A = 1000, 256
+CONFIG2_PASSES = 50
+# operations a lane of the OR-Map's LWW cells: two sign flips a compare,
+# two compares and an equality, their and/or, three selects
+LWW_OPS_PER_LANE = 12
+# wide actor axes: the merge and δ rows stage 2 x A x 4 B, so A = 2,049
+# fits the default 48 KB, 8,193 opts in and 29,057 is past the card's
+# 227 KB (device memory); dot words hold at most 4,096 actors; K10 stages
+# A x 4 B (12,289 opts in, 60,000 reads device memory)
+WIDE_A = (2049, 8193, 29057)
+WIDE_DOT_A = (2049, 4096)
+WIDE_INGEST_A = (2049, 12289, 60000)
+WIDE_R, WIDE_E = 128, 300
+# K10's wide checks: one block (E = 1,024) and the cooperative grid
+WIDE_INGEST_E, WIDE_INGEST_B = (1024, 8192), 32
+# calls queued behind a sleeping stream for a wide launch's device time
+WIDE_QUEUED = 20
+
+
+def queued_device_ms(fn, n: int, cycles: int = 50_000_000) -> float:
+    """Device ms a call: ``n`` calls queued on the stream behind
+    ``torch.cuda._sleep``, CUDA events around them, so the host's launch
+    gaps fall inside the sleep and the events time the device's work
+    back to back.  The sleep grows until it still holds the stream when
+    the last call is queued."""
+    import torch
+
+    out = fn()
+    del out
+    torch.cuda.synchronize()
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            out = fn()
+        end.record()
+        held = not start.query()
+        del out
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / n
+        cycles *= 4
+    raise AssertionError("the host could not queue the calls behind a "
+                         "sleeping stream")
+
+
+def config2_state(R: int, A: int, device):
+    """BASELINE config 2's fleet as bench.measure_config2 seeds it: counts
+    from default_rng(0) in [0, 2^20), replica r writing as actor r mod A."""
+    from go_crdt_playground_tpu_torch._u32 import from_numpy_u32
+    from go_crdt_playground_tpu_torch.ops import lattices
+
+    counts = np.random.default_rng(0).integers(
+        0, 1 << 20, (R, A)).astype(np.uint32)
+    return lattices.GCounterState(
+        counts=from_numpy_u32(counts, device),
+        actor=from_numpy_u32(np.arange(R, dtype=np.uint32) % A, device))
+
+
+def ormap_fleet(R: int, E: int, W: int, device):
+    """The full-state fleet (fleet.build_state: W writers, the rest
+    observers) as an OR-Map whose every present key holds a cell: a
+    seeded stamp in [1, 1,000], the key's writer and a value; absent keys
+    hold (0, 0, 0).  One row writes as each actor, so equal (stamp,
+    writer) pairs carry equal values."""
+    import torch
+
+    from go_crdt_playground_tpu_torch import fleet as fleet_mod
+    from go_crdt_playground_tpu_torch._u32 import MASK, narrow
+    from go_crdt_playground_tpu_torch.ops import lattices
+
+    base = fleet_mod.build_state(R, E, W, device)
+    dev = base.vv.device
+    r = torch.arange(R, dtype=torch.int64, device=dev)[:, None]
+    e = torch.arange(E, dtype=torch.int64, device=dev)[None, :]
+    h = (e * 2246822519 + r * 3266489917 + 374761393) & MASK
+    return lattices.ORMapState(
+        *base, ts=narrow(torch.where(base.present, 1 + h % 1000, 0)),
+        wr_actor=torch.where(base.present, base.dot_actor, 0),
+        val=narrow(torch.where(base.present, h, 0)))
+
+
+def ormap_converged(state) -> bool:
+    """Membership and clocks agree (the AWSet digest) and every row holds
+    the same cells."""
+    from go_crdt_playground_tpu_torch.parallel import collectives
+
+    return bool(collectives.converged(state.present, state.vv)) and all(
+        bool((x == x[:1]).all()) for x in (state.ts, state.wr_actor,
+                                           state.val))
+
+
+def ormap_bounds(R: int, E: int, A: int, gathered: bool):
+    """Least time of an OR-Map round: the AWSet round's bytes, and the
+    three cell planes read once and written once; its operations."""
+    nbytes = _schedule_bytes("merge", R, E, A, gathered) + 2 * 3 * 4 * R * E
+    ops = R * (E * (OPS_PER_LANE["merge"] + LWW_OPS_PER_LANE)
+               + A * OPS_PER_SLOT["merge"])
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def phase_ormap_fleet(counters: Counters, errs: dict, timings: dict,
+                      smi: str):
+    """The OR-Map fleet at the north star's width: the 20 dissemination
+    ring offsets through ``ormap_ring_gossip_round`` (keys on K1), then
+    a butterfly pass through ``ormap_gossip_round`` (keys on K2), each
+    from the fresh fleet, counted and timed, converged; then every round
+    again, its whole state against ``lattices.gossip_round(ormap_join,
+    ...)`` on the kernels' plain versions on the card, bitwise; and
+    ``ormap_join`` on K2 against its plain version."""
+    import functools
+
+    import torch
+
+    from go_crdt_playground_tpu_torch.ops import lattices
+    from go_crdt_playground_tpu_torch.parallel import gossip
+
+    R, E, W = FLEET_R, FLEET_E, FLEET_W
+    t0 = time.perf_counter()
+    state = ormap_fleet(R, E, W, "cuda")
+    torch.cuda.synchronize()
+    log(f"OR-Map fleet: {R} x {E}, A={W}, three LWW planes, built in "
+        f"{time.perf_counter() - t0:.2f} s ({state_bytes(state) / 1e9:.3f} "
+        "GB)")
+    plain_join = functools.partial(lattices.ormap_join, kernel="torch")
+    stages = R.bit_length() - 1
+    legs = (("ring", gossip.ormap_ring_gossip_round,
+             gossip.dissemination_offsets(R), "ring_round_rows", "K1",
+             False),
+            ("butterfly", gossip.ormap_gossip_round,
+             [gossip.butterfly_perm(R, st, "cuda") for st in range(stages)],
+             "gossip_round_rows", "K2", True))
+    report = {}
+    for label, round_fn, partners, wrapper, key, gathered in legs:
+        warm = round_fn(state, partners[0])
+        del warm
+        torch.cuda.synchronize()
+        counters.reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cur = state
+        for partner in partners:
+            cur = round_fn(cur, partner)
+        end.record()
+        total = checksum(cur)
+        sched_ms = start.elapsed_time(end)
+        launched = counters.read(f"OR-Map {label}",
+                                 exact={wrapper: len(partners)})[wrapper]
+        if not ormap_converged(cur):
+            raise AssertionError(f"OR-Map {label}: fleet not converged")
+        del cur
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        cur = state
+        for i, partner in enumerate(partners):
+            got = round_fn(cur, partner, kernel="cuda")
+            perm = partner if gathered else gossip.ring_perm(R, partner,
+                                                             "cuda")
+            want = lattices.gossip_round(plain_join, cur, perm)
+            errs[key] = max(errs.get(key, 0), max_abs_err(
+                got, want, f"OR-Map {label} round {i}"))
+            del want
+            cur = got
+        if checksum(cur) != total:
+            raise AssertionError(f"OR-Map {label}: the replay differs from "
+                                 "the counted run")
+        del cur, got
+        torch.cuda.empty_cache()
+        bound_ms, bound_by, nbytes = ormap_bounds(R, E, W, gathered)
+        per = sched_ms / len(partners)
+        report[label] = {"rounds": len(partners), "kernel": key,
+                         "wrapper": wrapper, "launches": launched,
+                         "schedule_ms": sched_ms, "ms_per_round": per,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"OR-Map {label}: {len(partners)} rounds ({key} {wrapper} "
+            f"for the keys), converged, schedule {sched_ms:.3f} ms, "
+            f"{per:.4f} ms/round against a bound of {bound_ms:.4f} ms "
+            f"({bound_by}, {nbytes / 1e9:.3f} GB) -> {bound_ms / per:.1%}; "
+            f"every round bitwise equal to lattices.gossip_round(ormap_join)"
+            f" on the plain versions ({time.perf_counter() - t1:.1f} s) "
+            f"[{smi}]")
+    perm = gossip.butterfly_perm(R, 3, "cuda")
+    got = lattices.gossip_round(lattices.ormap_join, state, perm)
+    want = lattices.gossip_round(plain_join, state, perm)
+    errs["K2"] = max(errs.get("K2", 0), max_abs_err(
+        got, want, "ormap_join on K2"))
+    del got, want, state
+    torch.cuda.empty_cache()
+    log("OR-Map: ormap_join on K2 (merge_pairwise_rows) bitwise equal to "
+        "its plain version at the fleet's width")
+    timings["ormap"] = report
+
+
+def phase_config2(timings: dict, smi: str):
+    """BASELINE config 2 on the card: the GCounter fleet through its
+    dissemination ring rounds (``lattices.gossip_round(gcounter_join,
+    ...)``), every round bitwise equal to the same rounds on the CPU,
+    converged; passes of the schedule timed, merges a second."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.ops import lattices
+    from go_crdt_playground_tpu_torch.parallel import gossip
+
+    R, A = CONFIG2_R, CONFIG2_A
+    offsets = gossip.dissemination_offsets(R)
+    perms = [gossip.ring_perm(R, o, "cuda") for o in offsets]
+
+    def schedule(st, rounds):
+        for p in rounds:
+            st = lattices.gossip_round(lattices.gcounter_join, st, p)
+        return st
+
+    state = config2_state(R, A, "cuda")
+    got, want = state, config2_state(R, A, "cpu")
+    for p in perms:
+        got = schedule(got, [p])
+        want = schedule(want, [p.cpu()])
+        for g, w in zip(got, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError("config 2: a round differs from the "
+                                     "CPU's")
+    if not bool((got.counts == got.counts[:1]).all()):
+        raise AssertionError("config 2: the fleet did not converge")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(CONFIG2_PASSES):
+        out = schedule(state, perms)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del out
+    n = CONFIG2_PASSES * len(offsets)
+    per_ms = start.elapsed_time(end) / n
+    rate = R / (per_ms / 1e3)
+    timings["config2"] = {"replicas": R, "actors": A, "rounds": n,
+                          "ms_per_round": per_ms,
+                          "host_ms_per_round": wall * 1e3 / n,
+                          "merges_per_s": rate}
+    log(f"config 2: GCounter {R} replicas x {A} actors, {len(offsets)} "
+        f"dissemination rounds converged and bitwise equal to the CPU's; "
+        f"{n} rounds timed: {per_ms:.4f} ms/round (CUDA events), "
+        f"{wall * 1e3 / n:.4f} host, {rate:.1f} merges/s [{smi}]")
+
+
+def phase_wide_actors(errs: dict, timings: dict, smi: str):
+    """Every entry past the 2,048 actors the kernels once refused, each
+    bitwise against its plain version and one launch timed: K1, K2, K4
+    (three modes), K6 and K8 (three modes) at WIDE_A; K7 and K9 (three
+    modes) at WIDE_DOT_A; K10 at WIDE_INGEST_A on one block and on the
+    cooperative grid, and at A = 16 beside A = 60,000.  Then the entry
+    points at A = 2,049 on the card: the gossip rounds, the convergence
+    loop and a ``Node``'s ``ingest_batch``."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import collectives, gossip
+
+    rng = np.random.default_rng(2049)
+    modes = [("v2", True), ("reference", True), ("reference", False)]
+    wide = {}
+    t0 = time.perf_counter()
+
+    def timed(key, what, A, call):
+        """ms a call (CUDA events around the wrapper, the host's launch
+        included) and the device's µs a call (queued_device_ms)."""
+        ms = cuda_time_ms(lambda: call("cuda"), 3)
+        dev = queued_device_ms(lambda: call("cuda"), WIDE_QUEUED)
+        wide.setdefault(key, {}).setdefault(what, {})[A] = {
+            "ms": ms, "device_us": dev * 1e3}
+
+    def held(key, what, A, call):
+        got, want = call("cuda"), call("torch")
+        errs[key] = max(errs.get(key, 0), max_abs_err(
+            got, want, f"{what} A={A}"))
+        del got, want
+        timed(key, what, A, call)
+
+    for A in WIDE_A:
+        st = random_delta_state(rng, WIDE_R, WIDE_E, A, 0x7FFFFFFB, "cuda")
+        full = st.base()
+        other = random_delta_state(rng, WIDE_R, WIDE_E, A, 0x7FFFFFFB,
+                                   "cuda").base()
+        perm = torch.from_numpy(rng.permutation(WIDE_R)).cuda()
+        bits, dbits = packed.pack_awset(full), packed.pack_awset_delta(st)
+        held("K1", "ring_round_rows", A,
+             lambda k: cm.ring_round_rows(full, 65, kernel=k))
+        held("K2", "gossip_round_rows", A,
+             lambda k: cm.gossip_round_rows(full, perm, kernel=k))
+        held("K2", "merge_pairwise_rows", A,
+             lambda k: cm.merge_pairwise_rows(full, other, kernel=k))
+        held("K6", "ring_round_rows_packed", A,
+             lambda k: cm.ring_round_rows_packed(bits, 65, kernel=k))
+        for sem, strict in modes:
+            kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+            tag = "" if sem == "v2" else f" {sem}{'' if strict else ' loose'}"
+            held("K4", "delta_ring_round" + tag, A,
+                 lambda k: cd.delta_ring_round(st, 65, kernel=k, **kw))
+            held("K8", "delta_ring_round_packed" + tag, A,
+                 lambda k: cd.delta_ring_round_packed(dbits, 65, kernel=k,
+                                                      **kw))
+    for A in WIDE_DOT_A:
+        st = random_delta_state(rng, WIDE_R, WIDE_E, A, 0, "cuda")
+        dots = packed.pack_awset_dots(st.base())
+        ddots = packed.pack_awset_delta_dots(st)
+        held("K7", "ring_round_rows_dotpacked", A,
+             lambda k: cm.ring_round_rows_dotpacked(dots, 65, kernel=k))
+        for sem, strict in modes:
+            kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+            tag = "" if sem == "v2" else f" {sem}{'' if strict else ' loose'}"
+            for off in (1, 65):
+                held("K9", f"delta_ring_round_dotpacked offset {off}" + tag,
+                     A, lambda k: cd.delta_ring_round_dotpacked(
+                         ddots, off, kernel=k, **kw))
+    try:
+        cm.check_state(ddots._replace(
+            vv=torch.zeros((WIDE_R, packed.DOT_MAX_ACTORS + 1),
+                           dtype=torch.int32, device="cuda"),
+            processed=torch.zeros((WIDE_R, packed.DOT_MAX_ACTORS + 1),
+                                  dtype=torch.int32, device="cuda")))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a dot-word state with A = 4,097 passed")
+
+    def k10(row, E, B):
+        add = torch.from_numpy(rng.random((B, E)) < 0.1).cuda()
+        dl = torch.from_numpy(rng.random((B, E)) < 0.05).cuda()
+        live = torch.from_numpy(np.arange(B) % 5 != 3).cuda()
+        return lambda k: ci.ingest_rows_delta_fused(
+            row, add, dl, live, k_changed=128, k_deleted=128, kernel=k)
+
+    for A in (16,) + WIDE_INGEST_A:
+        for E in WIDE_INGEST_E:
+            if A == 16 and E != WIDE_INGEST_E[0]:
+                continue
+            row = ingest_slice(rng, E, A, 0x7FFFFFFB, 0xFFFFFFF0, False,
+                               "cuda")
+            call = k10(row, E, WIDE_INGEST_B)
+            got, want = call("cuda"), call("torch")
+            for part in range(3):
+                errs["K10"] = max(errs.get("K10", 0), max_abs_err(
+                    got[part], want[part], f"K10 E={E} A={A} part {part}"))
+            del got, want
+            timed("K10", f"ingest_rows_delta_fused E={E} B={WIDE_INGEST_B}",
+                  A, call)
+
+    # the entry points at A = 2,049 on the card, against the plain rounds
+    A = WIDE_A[0]
+    st = random_delta_state(rng, WIDE_R, 64, A, 5, "cuda")
+    full = st.base()
+    perm = gossip.ring_perm(WIDE_R, 3, "cuda")
+    for what, got, want in (
+            ("ring_gossip_round", gossip.ring_gossip_round(full, 1),
+             gossip.ring_gossip_round(full, 1, kernel="torch")),
+            ("gossip_round", gossip.gossip_round(full, perm),
+             gossip.gossip_round(full, perm, kernel="torch")),
+            ("delta_ring_gossip_round", gossip.delta_ring_gossip_round(st, 1),
+             gossip.delta_ring_gossip_round(st, 1, kernel="torch")),
+            ("delta_gossip_round", gossip.delta_gossip_round(st, perm),
+             gossip.delta_gossip_round(st, perm, kernel="torch"))):
+        max_abs_err(got, want, f"{what} at A={A}")
+    rounds, out = gossip.rounds_to_convergence(full)
+    if not bool(collectives.converged(out.present, out.vv)):
+        raise AssertionError("rounds_to_convergence at A = 2,049 did not "
+                             "converge")
+    E = 256
+    gpu, cpu = (Node(0, E, A, device=d) for d in ("cuda", "cpu"))
+    cpu._fused_regime = (ci.ingest_rows_delta_fused, min(128, E))
+    before = ci.ingest_rows_delta_fused.launches
+    for i in range(4):
+        add = rng.random((8, E)) < 0.05
+        dl = rng.random((8, E)) < 0.02
+        for node in (gpu, cpu):
+            node.ingest_batch(add, dl, np.ones(8, bool))
+    if ci.ingest_rows_delta_fused.launches != before + 4:
+        raise AssertionError("Node.ingest_batch at A = 2,049: K10 not "
+                             "launched once a batch")
+    for g, c in zip(gpu.state_slice(), cpu.state_slice()):
+        if not torch.equal(g.cpu(), c):
+            raise AssertionError("Node.ingest_batch at A = 2,049 differs "
+                                 "from the CPU node")
+    for node in (gpu, cpu):
+        node.close()
+    torch.cuda.synchronize()
+    timings["wide"] = wide
+    for key in sorted(wide, key=lambda k: int(k[1:])):
+        for what, by_a in wide[key].items():
+            log(f"  wide {key} {what}: " + ", ".join(
+                f"A={a} {t['ms']:.4f} ms (device {t['device_us']:.3f} µs)"
+                for a, t in by_a.items()))
+    log(f"wide actors: K1, K2, K4, K6, K8 at A in {WIDE_A}, K7, K9 at "
+        f"{WIDE_DOT_A}, K10 at {WIDE_INGEST_A} (E in {WIDE_INGEST_E}) "
+        "bitwise equal to their plain versions, a dot-word state at A = "
+        "4,097 refused; at A = 2,049 the gossip rounds, "
+        f"rounds_to_convergence ({rounds} rounds) and Node.ingest_batch"
+        f" return on the card ({time.perf_counter() - t0:.1f} s) [{smi}]")
+
+
+def phase_lattices(counters: Counters, errs: dict, timings: dict, smi: str):
+    phase_ormap_fleet(counters, errs, timings, smi)
+    phase_config2(timings, smi)
+    phase_wide_actors(errs, timings, smi)
+
+
 # the bridge's kernels: the path that calls them (phase 14)
 BRIDGE_PATHS = {
     "K3": "Merger bridge full-state merges (bridge/service.execute_merge -> "
@@ -4222,6 +4652,7 @@ def main() -> int:
     timed_phase(walls, "13c", phase_multihost, counters)
     timed_phase(walls, "13d", phase_mesh_serve, counters, smi)
     timed_phase(walls, "14", phase_bridge, counters, errs, timings, smi)
+    timed_phase(walls, "15", phase_lattices, counters, errs, timings, smi)
     log("phase walls: " + json.dumps({k: round(v, 1)
                                       for k, v in walls.items()}))
 
@@ -4250,6 +4681,17 @@ def main() -> int:
                 bridge_ms=timed["kernel_ms"],
                 bridge_bound_ms=timed["bound_ms"],
                 bridge_request_ms=timed["request_ms"])
+        for leg in timings["ormap"].values():
+            if leg["kernel"] == key:
+                entry.update(
+                    ormap_path="OR-Map rounds (parallel/gossip.ormap_"
+                               "ring_gossip_round / ormap_gossip_round: the "
+                               "keys' AWSet round)",
+                    ormap_launches=leg["launches"],
+                    ormap_ms_per_round=leg["ms_per_round"],
+                    ormap_bound_ms=leg["bound_ms"])
+        if key in timings["wide"]:
+            entry["wide_actor"] = timings["wide"][key]
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -47,14 +47,16 @@ inline unsigned grid_for(long long num_r) {
   return static_cast<unsigned>(num_r < cap ? num_r : cap);
 }
 
-// Where a block-per-row kernel keeps the dst and partner vv rows (smem =
-// 2 x A x 4 B): in shared memory up to the card's opt-in limit per block
-// (227 KB on an H100: A <= 29,056), opting in past the default 48 KB; past
-// the limit the kernel reads them from device memory.  Returns 1 (shared),
-// 0 (device memory) or a cudaError_t negated.
+// Where a kernel keeps the vv rows it stages (smem bytes of dynamic shared
+// memory beside static_bytes of static shared memory): in shared memory up
+// to the card's opt-in limit per block (227 KB on an H100; the merge and
+// δ rows, 2 x A x 4 B, fit to A = 29,056), opting in past the default
+// 48 KB; past the limit the kernel reads them from device memory.
+// Returns 1 (shared), 0 (device memory) or a cudaError_t negated.
 template <typename Kernel>
-inline int vv_rows_in_smem(Kernel* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 1;
+inline int vv_rows_in_smem(Kernel* kernel, size_t smem,
+                           size_t static_bytes = 0) {
+  if (smem + static_bytes <= 48 * 1024) return 1;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -62,7 +64,7 @@ inline int vv_rows_in_smem(Kernel* kernel, size_t smem) {
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (err != cudaSuccess) return -static_cast<int>(err);
-  if (smem > static_cast<size_t>(optin)) return 0;
+  if (smem + static_bytes > static_cast<size_t>(optin)) return 0;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

@@ -53,7 +53,9 @@
 // whose three buffers would not fit keep only vv, processed and the actor
 // in the ring and read their lanes from device memory ("wide" rows);
 // rows or pointers not on 16-byte boundaries copy, load and store word by
-// word.  Any R, E and A that delta_rows takes.
+// word.  Any R and E; A up to the dot word's 4,096 actors, where a wide
+// row's slot (vv, processed, the actor) is 32.8 KB and a warp's three
+// slots 98 KB: one warp a block, opted in past 48 KB.
 #include "common.cuh"
 
 namespace {

@@ -31,7 +31,11 @@
 // (ingest_layout below); its head holds the compact form and a copy of
 // the pre-batch vv, so the WAL record reaches the host in one copy.  A
 // thread owns a quad of 4 lanes (one 32-bit row load, 16-byte lane
-// loads and stores where aligned).
+// loads and stores where aligned).  Every HasDot of the δ reads the
+// pre-batch vv staged in shared memory (A x 4 B; past 48 KB the launch
+// opts in to more); past the card's limit (A > 57,920 on an H100, beside
+// the 768 B of block-scan buffers) a second instantiation of each kernel
+// reads it from device memory, so any A runs in the one launch.
 //   E <= 4,096 (the serve shapes): one block, warps owning 128-lane
 //   chunks, one pass over the rows (eight rows' loads at a time).  Per
 //   row, each warp counts its chunk's adds; each thread folds its lanes'
@@ -45,11 +49,12 @@
 //   scan of every row) measured 2.3-2.4 us a four-row step on the H100:
 //   one SM walks B rows of dependent work.  The compaction is one block
 //   scan.
-//   E > 4,096: one cooperative launch, the grid sized by occupancy so it
-//   is resident, warps owning 128-lane chunks, with grid-wide syncs
-//   between the phases: per-chunk add counts of every row, their scan
-//   along each row, the fold (a warp scan per row), the scan of the
-//   per-chunk δ counts, the compaction.
+//   E > 4,096: one cooperative launch, the grid sized by the occupancy of
+//   the instantiation launched at its shared memory, so it is resident,
+//   warps owning 128-lane chunks, with grid-wide syncs between the
+//   phases: per-chunk add counts of every row, their scan along each
+//   row, the fold (a warp scan per row), the scan of the per-chunk δ
+//   counts, the compaction.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -63,6 +68,13 @@ constexpr int kChunk = 128;  // lanes of one warp
 constexpr int kRows = 8;     // rows whose loads the one-block path batches
 constexpr int kGridThreads = crdt::kThreads;
 constexpr unsigned kFull = 0xffffffffu;
+
+// The static shared memory of both kernels: block_scan's warp totals and
+// ORs, two buffers each.
+struct ScanSmem {
+  unsigned long long tot[2][32];
+  uint32_t ors[2][32];
+};
 
 // Regions of the output buffer, in order.  The head (up to VV) goes to
 // the host for a WAL record; the rest stays on the device.
@@ -451,13 +463,19 @@ __device__ unsigned long long scan_in_place(unsigned long long* x,
 
 // E <= 4,096: the whole entry in one block of ceil(E / 4) threads
 // (rounded up to whole warps); warp w owns the 128-lane chunk w.
-// VEC_ROWS: E % 4 == 0 and the rows 4-byte aligned.
-template <bool VEC_ROWS>
+// VEC_ROWS: E % 4 == 0 and the rows 4-byte aligned.  kSmem: the pre-batch
+// vv staged in shared memory (A x 4 B), else read from device memory (an
+// actor axis past the card's shared-memory limit, crdt::vv_rows_in_smem).
+template <bool VEC_ROWS, bool kSmem>
 __global__ void __launch_bounds__(1024) ingest_block(Params p) {
-  extern __shared__ uint32_t vv_s[];
-  __shared__ unsigned long long s_tot[2][32];
-  __shared__ uint32_t s_or[2][32];
-  for (int a = threadIdx.x; a < p.num_a; a += blockDim.x) vv_s[a] = p.vv[a];
+  extern __shared__ uint32_t smem[];
+  __shared__ ScanSmem scan;
+  unsigned long long(*s_tot)[32] = scan.tot;
+  uint32_t(*s_or)[32] = scan.ors;
+  const uint32_t* vv_s = kSmem ? smem : p.vv;
+  if (kSmem) {
+    for (int a = threadIdx.x; a < p.num_a; a += blockDim.x) smem[a] = p.vv[a];
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const long long e0 = 4LL * threadIdx.x;
@@ -615,13 +633,19 @@ __global__ void __launch_bounds__(1024) ingest_block(Params p) {
   write_clocks(p, actor, final_ctr, overflow, threadIdx.x, blockDim.x);
 }
 
-// E > 4,096: one cooperative launch; warps own 128-lane chunks.
+// E > 4,096: one cooperative launch; warps own 128-lane chunks.  kSmem:
+// as ingest_block's.
+template <bool kSmem>
 __global__ void __launch_bounds__(kGridThreads) ingest_grid(Params p) {
-  extern __shared__ uint32_t vv_s[];
-  __shared__ unsigned long long s_tot[2][32];
-  __shared__ uint32_t s_or[2][32];
+  extern __shared__ uint32_t smem[];
+  __shared__ ScanSmem scan;
+  unsigned long long(*s_tot)[32] = scan.tot;
+  uint32_t(*s_or)[32] = scan.ors;
   cg::grid_group grid = cg::this_grid();
-  for (int a = threadIdx.x; a < p.num_a; a += blockDim.x) vv_s[a] = p.vv[a];
+  const uint32_t* vv_s = kSmem ? smem : p.vv;
+  if (kSmem) {
+    for (int a = threadIdx.x; a < p.num_a; a += blockDim.x) smem[a] = p.vv[a];
+  }
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const long long warps_per_block = blockDim.x >> 5;
@@ -766,26 +790,69 @@ inline bool aligned(const void* p, uintptr_t to) {
   return reinterpret_cast<uintptr_t>(p) % to == 0;
 }
 
-// Blocks of ingest_grid the card holds at once (occupancy x SMs), per
-// device, at the largest vv row the wrapper admits (8 KB of shared
-// memory).
-int grid_blocks(int* err) {
-  static int cached[64];
+// Blocks of one ingest_grid instantiation the card holds at once
+// (occupancy x SMs) with `smem` bytes of dynamic shared memory, per device;
+// the last answer per device and instantiation is kept.
+int grid_blocks(const void* kernel, int variant, size_t smem, int* err) {
+  struct Cached {
+    size_t smem;
+    int blocks;
+  };
+  static Cached cached[64][2];
   int dev = 0;
   *err = static_cast<int>(cudaGetDevice(&dev));
   if (*err) return 0;
-  if (dev < 64 && cached[dev]) return cached[dev];
+  if (dev < 64 && cached[dev][variant].blocks &&
+      cached[dev][variant].smem == smem) {
+    return cached[dev][variant].blocks;
+  }
   int sms = 0, per_sm = 0;
   *err = static_cast<int>(
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   if (!*err) {
     *err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ingest_grid, kGridThreads, 2048 * sizeof(uint32_t)));
+        &per_sm, kernel, kGridThreads, smem));
   }
   if (*err) return 0;
   const int blocks = sms * per_sm;
-  if (dev < 64) cached[dev] = blocks;
+  if (dev < 64) cached[dev][variant] = Cached{smem, blocks};
   return blocks;
+}
+
+// The one-block path: the vv staged where it fits (the launch opts in
+// past 48 KB), else read from device memory.
+template <bool VEC_ROWS>
+int launch_block(const Params& p, unsigned threads, size_t smem,
+                 cudaStream_t s) {
+  const int staged = crdt::vv_rows_in_smem(ingest_block<VEC_ROWS, true>,
+                                           smem, sizeof(ScanSmem));
+  if (staged < 0) return -staged;
+  if (staged) {
+    ingest_block<VEC_ROWS, true><<<1, threads, smem, s>>>(p);
+  } else {
+    ingest_block<VEC_ROWS, false><<<1, threads, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cooperative path: the grid sized by the occupancy of the
+// instantiation it launches, at the shared memory it launches with.
+int launch_grid(Params& p, size_t smem, cudaStream_t s) {
+  const int staged =
+      crdt::vv_rows_in_smem(ingest_grid<true>, smem, sizeof(ScanSmem));
+  if (staged < 0) return -staged;
+  const void* kernel = staged ? reinterpret_cast<const void*>(ingest_grid<true>)
+                              : reinterpret_cast<const void*>(ingest_grid<false>);
+  const size_t dyn = staged ? smem : 0;
+  int err = 0;
+  const int resident = grid_blocks(kernel, staged, dyn, &err);
+  if (err) return err;
+  const long long nch = (p.num_e + kChunk - 1) / kChunk;
+  const long long want = (nch + kGridThreads / 32 - 1) / (kGridThreads / 32);
+  const int blocks = static_cast<int>(want < resident ? want : resident);
+  void* args[] = {&p};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      kernel, dim3(blocks), dim3(kGridThreads), args, dyn, s));
 }
 
 }  // namespace
@@ -844,21 +911,8 @@ extern "C" int crdt_ingest(
     const long long quads = (num_e + 3) / 4;
     const unsigned threads =
         static_cast<unsigned>(quads < 32 ? 32 : (quads + 31) / 32 * 32);
-    if (p.vec_rows) {
-      ingest_block<true><<<1, threads, smem, s>>>(p);
-    } else {
-      ingest_block<false><<<1, threads, smem, s>>>(p);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return p.vec_rows ? launch_block<true>(p, threads, smem, s)
+                      : launch_block<false>(p, threads, smem, s);
   }
-  int err = 0;
-  const int resident = grid_blocks(&err);
-  if (err) return err;
-  const long long nch = (num_e + kChunk - 1) / kChunk;
-  const long long want = (nch + kGridThreads / 32 - 1) / (kGridThreads / 32);
-  const int blocks = static_cast<int>(want < resident ? want : resident);
-  void* args[] = {&p};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(ingest_grid), dim3(blocks),
-      dim3(kGridThreads), args, smem, s));
+  return launch_grid(p, smem, s);
 }

@@ -37,7 +37,7 @@ from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
 from go_crdt_playground_tpu_torch.ops import _build
 from go_crdt_playground_tpu_torch.ops import delta as delta_ops
 from go_crdt_playground_tpu_torch.ops.cuda_merge import (
-    LAYOUT_BITS, LAYOUT_DOTWORD, MAX_FUSED_ACTORS, PARTNER_GATHER,
+    LAYOUT_BITS, LAYOUT_DOTWORD, PARTNER_GATHER,
     PARTNER_RING, _count_lock, as_index, check_ring_rows, check_state,
     layout_of, out_like, ptr, ring_index, stream_of, use_kernel)
 
@@ -149,9 +149,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(state, perm, offset: int, partner_mode: int, mode: str,
-            max_actors=MAX_FUSED_ACTORS):
-    check_state(state, max_actors)
+def _launch(state, perm, offset: int, partner_mode: int, mode: str):
+    check_state(state)
     num_r, num_a = state.vv.shape
     outs = out_like(state)
     lib = _lib()
@@ -215,7 +214,7 @@ def delta_gossip_round(state: AWSetDeltaState, perm, *,
     perm = as_index(perm, state.num_replicas, state.vv.device)
     if not use_kernel(kernel, state.vv):
         return delta_round_plain(state, perm, mode)
-    out = _launch(state, perm, 0, PARTNER_GATHER, mode, max_actors=None)
+    out = _launch(state, perm, 0, PARTNER_GATHER, mode)
     with _count_lock:  # the bridge's connection threads call it at once
         delta_gossip_round.launches += 1
     return out

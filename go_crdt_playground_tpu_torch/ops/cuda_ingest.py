@@ -44,8 +44,9 @@ from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
 from go_crdt_playground_tpu_torch.ops import _build
 from go_crdt_playground_tpu_torch.ops.compact import (CompactDeltaPayload,
                                                       compact_payload)
-from go_crdt_playground_tpu_torch.ops.cuda_merge import (
-    MAX_FUSED_ACTORS, device_guard, stream_of, use_kernel)
+from go_crdt_playground_tpu_torch.ops.cuda_merge import (device_guard,
+                                                        stream_of,
+                                                        use_kernel)
 from go_crdt_playground_tpu_torch.ops.delta import DeltaPayload, delta_extract
 from go_crdt_playground_tpu_torch.ops.vv import clock_at, set_clock
 
@@ -70,16 +71,15 @@ _GROUPS = ((_HEAD_WORDS, torch.int32), (_HEAD_BOOLS, torch.bool),
 
 def check_slice(state: AWSetDeltaState) -> None:
     """Device, dtype, shape and contiguity of one replica slice (vv[A],
-    lanes[E], actor[]) before its pointers reach the kernel."""
+    lanes[E], actor[]) before its pointers reach the kernel; any actor
+    axis A >= 1."""
     vv = state.vv
     dev = vv.device
     num_a = vv.shape[0] if vv.dim() == 1 else -1
     num_e = state.present.shape[0] if state.present.dim() == 1 else -1
-    if not 1 <= num_a <= MAX_FUSED_ACTORS:
-        raise ValueError(
-            f"actor axis A={num_a} outside the ingest kernel's range [1, "
-            f"{MAX_FUSED_ACTORS}] (shared-memory cap); pass kernel='torch' "
-            "to run the plain version")
+    if num_a < 1:
+        raise ValueError(f"the ingest kernel takes a vv[A] with A >= 1, "
+                         f"got shape {tuple(vv.shape)}")
     for name, t in zip(state._fields, state):
         want_dtype = torch.bool if name in ("present", "deleted") \
             else torch.int32

@@ -46,8 +46,6 @@ import contextlib
 import ctypes
 import functools
 import threading
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -56,11 +54,6 @@ from go_crdt_playground_tpu_torch.models.awset import AWSetState
 from go_crdt_playground_tpu_torch.ops import _build
 from go_crdt_playground_tpu_torch.ops.merge import merge_kernel
 
-# Cap on the actor axis of the entries that check it (``check_state``):
-# the dst and partner vv rows are staged per block (2 x A x 4 B = 16 KB at
-# the cap).  K3 (and K5, ops/cuda_delta.py) take any A: past the card's
-# shared memory their kernels read the vv rows from device memory.
-MAX_FUSED_ACTORS = 2048
 # The reference's packed ring kernels take whole 64-row blocks, at least
 # two (pallas_merge.ring_supported); the packed entries keep that domain.
 _RING_BLOCK_R = 64
@@ -106,21 +99,22 @@ def layout_of(state) -> int:
     return LAYOUT_BOOL
 
 
-def check_state(state, max_actors: Optional[int] = MAX_FUSED_ACTORS
-                ) -> None:
+def check_state(state) -> None:
     """Device, dtype, shape and contiguity checks before passing
     pointers to a kernel; for the bool, bitpacked and dot-word states
-    alike.  ``max_actors``: the entry's cap on A (None: any A)."""
+    alike.  Any actor axis A >= 1 (the kernels stage the vv rows in
+    shared memory where they fit and read them from device memory past
+    that); a dot-word state holds at most ``DOT_MAX_ACTORS``, as
+    packing enforces."""
     num_r, num_a = state.vv.shape
     num_e = packed.num_elements(state)
     num_w = packed.packed_width(num_e)
     if num_a < 1:
         raise ValueError("the actor axis must be non-empty")
-    if max_actors is not None and num_a > max_actors:
+    if layout_of(state) == LAYOUT_DOTWORD and num_a > packed.DOT_MAX_ACTORS:
         raise ValueError(
-            f"actor axis A={num_a} exceeds the CUDA kernels' shared-memory "
-            f"cap ({max_actors}); pass kernel='torch' to run the "
-            "plain version")
+            f"a dot-word state holds at most {packed.DOT_MAX_ACTORS} "
+            f"actors (12-bit actor field), got A={num_a}")
     for name, t in zip(state._fields, state):
         want_dtype = torch.bool if name in _BOOL_FIELDS else torch.int32
         want_shape = ((num_r,) if name == "actor" else

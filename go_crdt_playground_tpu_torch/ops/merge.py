@@ -151,3 +151,45 @@ def set_row(full, r: int, row):
             x[r] = y
         fields.append(x)
     return type(full)(*fields)
+
+
+def _sample_awset(rng, n: int, n_ops: int, device="cuda") -> AWSetState:
+    """Reachable AWSet rows for the lattice laws: seeded adds and
+    deletes plus gossip mixing through the merge itself, drawn as the
+    reference's ``_sample_awset`` draws.  One add per element: a re-add
+    while a stale copy of the element's dot circulates exercises the
+    documented (order-sensitive) stale-dot overwrite, and the laws are
+    promised over the single-dot regime."""
+    from go_crdt_playground_tpu_torch.models import awset
+    from go_crdt_playground_tpu_torch.ops import lattices
+
+    n_elems = 8
+    state = awset.init(n, n_elems, n, device=device)
+    join = lambda d, s: merge_pairwise(d, s)[0]  # noqa: E731
+    unadded = list(range(n_elems))
+    for _ in range(n_ops):
+        roll = rng.random()
+        if roll < 0.35 and unadded:
+            e = unadded.pop(int(rng.integers(len(unadded))))
+            state = awset.add_element(state, e % n, e)
+        elif roll < 0.55:
+            state = awset.del_element(state, rng.integers(n),
+                                      rng.integers(n_elems))
+        else:
+            state = lattices.mix_rows(join, state, rng)
+    return state
+
+
+def _register_awset_join() -> None:
+    from go_crdt_playground_tpu_torch._u32 import host
+    from go_crdt_playground_tpu_torch.ops import lattices
+
+    lattices.register_join(lattices.JoinSpec(
+        "awset_merge", _sample_awset,
+        lambda d, s: merge_pairwise(d, s)[0],
+        # the observable projection only: dot metadata is order-sensitive
+        # by documented design (the stale-dot overwrite)
+        lambda s: {"vv": host(s.vv), "present": host(s.present)}))
+
+
+_register_awset_join()

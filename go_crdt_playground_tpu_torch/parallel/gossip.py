@@ -171,6 +171,46 @@ def delta_ring_gossip_round(state: AWSetDeltaState, offset,
     return _keep_dropped(merged, state, drop_mask)
 
 
+def _ormap_cells(state, keys: AWSetState, index: torch.Tensor):
+    """An OR-Map round's result: the merged keys, and the LWW cells
+    joined against the partner rows ``index`` (a row gather, one
+    partner copy of each plane)."""
+    from go_crdt_playground_tpu_torch.ops.lattices import (ORMapState,
+                                                           _lww_newer)
+
+    src_ts, src_wa = state.ts[index], state.wr_actor[index]
+    take = _lww_newer(src_ts, src_wa, state.ts, state.wr_actor)
+    return ORMapState(
+        *keys, ts=torch.where(take, src_ts, state.ts),
+        wr_actor=torch.where(take, src_wa, state.wr_actor),
+        val=torch.where(take, state.val[index], state.val))
+
+
+def ormap_gossip_round(state, perm, kernel: str = "auto"):
+    """One OR-Map anti-entropy round: the key membership is the AWSet
+    round (K2 on CUDA tensors, as ``gossip_round``), the cells join with
+    the elementwise LWW rule.  Bitwise
+    ``lattices.gossip_round(lattices.ormap_join, state, perm)``."""
+    from go_crdt_playground_tpu_torch.ops.lattices import ormap_keys
+
+    index = cuda_merge.as_index(perm, state.vv.shape[0], state.vv.device)
+    keys = gossip_round(ormap_keys(state), index, kernel=kernel)
+    return _ormap_cells(state, keys, index)
+
+
+def ormap_ring_gossip_round(state, offset, kernel: str = "auto"):
+    """OR-Map ring round: the key membership on the ring round (K1 on
+    CUDA tensors, partner rows read in place), the cells against the
+    partner rows by a row gather.  Bitwise ``ormap_gossip_round(state,
+    ring_perm(R, offset))``."""
+    from go_crdt_playground_tpu_torch.ops.lattices import ormap_keys
+
+    keys = ring_gossip_round(ormap_keys(state), offset, kernel=kernel)
+    index = cuda_merge.ring_index(state.vv.shape[0], offset,
+                                  state.vv.device)
+    return _ormap_cells(state, keys, index)
+
+
 def all_pairs_converge(state, delta: bool = False,
                        delta_semantics: str = "v2"):
     """The all-pairs exchange realized as ceil(log2 R) doubling-offset

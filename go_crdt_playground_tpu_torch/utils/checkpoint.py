@@ -19,8 +19,8 @@ generation fence (``GenerationRegression``).
 
 A checkpoint may carry the element dictionary (``utils/codec.
 ElementDict``) of a dictionary-coded deployment in its manifest; restore
-hands it back beside the state.  A state type the port does not have
-restores as a plain dict of numpy arrays, with a warning and a
+hands it back beside the state.  A state type neither package restores
+typed restores as a plain dict of numpy arrays, with a warning and a
 ``restore.unknown_type`` count.
 """
 
@@ -44,6 +44,9 @@ from go_crdt_playground_tpu_torch.models.digest import array_digest
 from go_crdt_playground_tpu_torch.models.packed import (
     DotPackedAWSetDeltaState, DotPackedAWSetState, PackedAWSetDeltaState,
     PackedAWSetState)
+from go_crdt_playground_tpu_torch.ops.lattices import (
+    GCounterState, LWWMapState, MVRegisterState, ORMapState, PNCounterState,
+    TwoPSetState)
 from go_crdt_playground_tpu_torch.utils.codec import ElementDict
 from go_crdt_playground_tpu_torch.utils.fsutil import fsync_dir
 
@@ -51,12 +54,13 @@ _MANIFEST_KEY = "__manifest__"
 _FORMAT_VERSION = 2
 _TMP_PREFIX = ".ckpt-tmp-"
 
-# every state type the port has
+# every state type the reference restores typed
 STATE_TYPES = {
     cls.__name__: cls
     for cls in (AWSetState, AWSetDeltaState, PackedAWSetState,
                 PackedAWSetDeltaState, DotPackedAWSetState,
-                DotPackedAWSetDeltaState)
+                DotPackedAWSetDeltaState, GCounterState, PNCounterState,
+                TwoPSetState, LWWMapState, MVRegisterState, ORMapState)
 }
 
 

@@ -243,14 +243,17 @@ def test_ingest_kernel_matches_plain(E, A):
                     assert _equal(g, w), (E, A, B, k)
 
 
-def test_ingest_kernel_rejects_a_wide_actor_axis():
-    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
-
-    row = _on_gpu(_slice(90, 64, 2049, 0))
-    add = torch.zeros((2, 64), dtype=torch.bool, device="cuda")
-    with pytest.raises(ValueError, match="shared-memory cap"):
-        ci.ingest_rows_delta_fused(row, add, add, add[:, 0], k_changed=8,
-                                   k_deleted=8)
+@pytest.mark.parametrize("A", [2049, 12289, 60000])
+def test_ingest_kernel_takes_a_wide_actor_axis(A):
+    """K10 past the default 48 KB of shared memory (A = 12,289 opts in)
+    and past the card's limit (A = 60,000 reads the vv from device
+    memory), on one block and on the cooperative grid, bitwise."""
+    for i, E in enumerate((64, 4097)):
+        row = _on_gpu(_slice(90 + i, E, A, 0xFFFFFFF0))
+        add, dl, live = (x.cuda() for x in _batch(91 + i, 32, E, 0.1,
+                                                  "holes"))
+        for k in (0, 128):
+            _k10_check(row, add, dl, live, k)
 
 
 def test_node_on_the_card_matches_the_plain_regime(tmp_path):
@@ -395,9 +398,6 @@ def test_k10_whole_entry_matches_plain(E, A):
     """One block (E <= 4,096) and the cooperative grid (E > 4,096), at B
     in {0, 1, 32, 128} and K in {0, 128}, sparse and dense batches, own
     clocks whose counters cross 2^31 and wrap 2^32."""
-    from go_crdt_playground_tpu_torch.ops.cuda_merge import MAX_FUSED_ACTORS
-
-    assert A in (1, 16, MAX_FUSED_ACTORS)
     for i, B in enumerate((0, 1, 32, 128)):
         base = (0x7FFFFFF0, 0xFFFFFFF0, 0)[(i + A) % 3]
         row = _on_gpu(_slice(200 + i, E, A, base))
@@ -867,3 +867,133 @@ def test_execute_merge_on_the_card_gives_the_cpu_bytes():
         got = service.execute_merge(req, device="cuda").SerializeToString()
         want = service.execute_merge(req, device="cpu").SerializeToString()
         assert got == want, i
+
+
+# -- wide actor axes and the OR-Map rounds ------------------------------------
+
+
+@pytest.mark.parametrize("A", [2049, 8193, 29057])
+def test_wide_actor_rounds_match_plain(A):
+    """K1, K2, K4, K6 and K8 past 2,048 actors: the vv rows in the
+    default 48 KB (A = 2,049), opted in (8,193) and in device memory
+    (29,057), every δ mode, bitwise; the gossip entry points return."""
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import collectives, gossip
+
+    st = _on_gpu(random_state(A, 128, 100, A))
+    full = st.base()
+    other = _on_gpu(random_state(A + 1, 128, 100, A)).base()
+    perm = torch.from_numpy(np.random.default_rng(A).permutation(128)).cuda()
+    bits, dbits = packed.pack_awset(full), packed.pack_awset_delta(st)
+    for off in (1, 65):
+        for fn, s in ((cm.ring_round_rows, full),
+                      (cm.ring_round_rows_packed, bits)):
+            assert _equal(fn(s, off, kernel="cuda"),
+                          fn(s, off, kernel="torch"))
+        for sem, strict in MODES:
+            kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+            for fn, s in ((cd.delta_ring_round, st),
+                          (cd.delta_ring_round_packed, dbits)):
+                assert _equal(fn(s, off, kernel="cuda", **kw),
+                              fn(s, off, kernel="torch", **kw)), (off, kw)
+    assert _equal(cm.gossip_round_rows(full, perm, kernel="cuda"),
+                  cm.gossip_round_rows(full, perm, kernel="torch"))
+    assert _equal(cm.merge_pairwise_rows(full, other, kernel="cuda"),
+                  cm.merge_pairwise_rows(full, other, kernel="torch"))
+    assert _equal(gossip.ring_gossip_round(full, 3),
+                  gossip.ring_gossip_round(full, 3, kernel="torch"))
+    assert _equal(gossip.delta_ring_gossip_round(st, 3),
+                  gossip.delta_ring_gossip_round(st, 3, kernel="torch"))
+    rounds, out = gossip.rounds_to_convergence(st, delta=True)
+    assert rounds >= 1 and bool(collectives.converged(out.present, out.vv))
+
+
+@pytest.mark.parametrize("A", [2049, 4096])
+def test_wide_actor_dot_words_match_plain(A):
+    """K7 and K9 (the cycle walk, its wide rows at A = 4,096: one warp a
+    block, 98 KB opted in) up to the dot word's 4,096 actors."""
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+
+    st = _on_gpu(random_state(A, 128, 100, A))
+    st = st._replace(dot_counter=st.dot_counter & 0xFFFFF,
+                     del_dot_counter=st.del_dot_counter & 0xFFFFF)
+    dots = packed.pack_awset_dots(st.base())
+    ddots = packed.pack_awset_delta_dots(st)
+    for off in (0, 1, 64, 65):
+        assert _equal(cm.ring_round_rows_dotpacked(dots, off, kernel="cuda"),
+                      cm.ring_round_rows_dotpacked(dots, off,
+                                                   kernel="torch"))
+        for sem, strict in MODES:
+            kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+            assert _equal(
+                cd.delta_ring_round_dotpacked(ddots, off, kernel="cuda",
+                                              **kw),
+                cd.delta_ring_round_dotpacked(ddots, off, kernel="torch",
+                                              **kw)), (off, kw)
+
+
+@pytest.mark.parametrize("A", [16, 2049])
+def test_ormap_rounds_on_the_kernels(A):
+    """The OR-Map rounds with their keys on K1 (ring) and K2 (perm), and
+    ``ormap_join`` on K2, against their plain versions."""
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.ops import lattices as L
+    from go_crdt_playground_tpu_torch.parallel import gossip
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    rng = np.random.default_rng(A)
+    base = _on_gpu(random_state(A, 128, 100, A)).base()
+    cells = [torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (128, 100),
+                                           dtype=np.int64)
+                              .astype(np.int32)).cuda() for _ in range(3)]
+    cells[0] = torch.where(base.present, cells[0] & 7, 0)  # stamp ties
+    st = L.ORMapState(*base, *cells)
+    perm = torch.from_numpy(rng.permutation(128)).cuda()
+    ring0, gather0 = cm.ring_round_rows.launches, \
+        cm.gossip_round_rows.launches
+    pair0 = cm.merge_pairwise_rows.launches
+    for off in (1, 65):
+        assert _equal(gossip.ormap_ring_gossip_round(st, off),
+                      gossip.ormap_ring_gossip_round(st, off,
+                                                     kernel="torch"))
+    assert _equal(gossip.ormap_gossip_round(st, perm),
+                  L.gossip_round(lambda d, s: L.ormap_join(
+                      d, s, kernel="torch"), st, perm))
+    assert _equal(L.gossip_round(L.ormap_join, st, perm),
+                  gossip.ormap_gossip_round(st, perm, kernel="torch"))
+    row = L.ormap_join(L.ORMapState(*(x[3] for x in st)),
+                       L.ORMapState(*(x[9] for x in st)))
+    want = L.ormap_join(L.ORMapState(*(x[3] for x in st)),
+                        L.ORMapState(*(x[9] for x in st)), kernel="torch")
+    assert _equal(row, want)
+    assert cm.ring_round_rows.launches == ring0 + 2
+    assert cm.gossip_round_rows.launches == gather0 + 1
+    assert cm.merge_pairwise_rows.launches == pair0 + 2
+
+
+def test_node_ingests_with_a_wide_actor_axis():
+    """``Node.ingest_batch`` at A = 2,049 on the card: K10 once a batch,
+    the state equal to a CPU node's fed the same batches."""
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    E, A = 256, 2049
+    gpu, cpu = Node(0, E, A, device="cuda"), Node(0, E, A, device="cpu")
+    cpu._fused_regime = (ci.ingest_rows_delta_fused, min(128, E))
+    before = ci.ingest_rows_delta_fused.launches
+    for i in range(6):
+        add, dl, live = _batch(500 + i, 8, E, 0.05, "holes")
+        for n in (gpu, cpu):
+            n.ingest_batch(add.numpy(), dl.numpy(), live.numpy())
+    assert ci.ingest_rows_delta_fused.launches == before + 6
+    assert _equal(tuple(x.cpu() for x in gpu.state_slice()),
+                  cpu.state_slice())
+    for n in (gpu, cpu):
+        n.close()

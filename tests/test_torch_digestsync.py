@@ -553,12 +553,35 @@ def test_mixed_digest_pair_matches_the_jax_pair(torch_side):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("sync_mode", ["digest", "delta"])
-def test_sync_curve_quick_leg_matches_the_jax_fleet(sync_mode):
-    """tools/chaos_soak.py's quick traffic leg (4 nodes, E = 256, 4 ops a
-    round, 5 traffic and 4 quiescent rounds) on a torch fleet through
-    chip_smoke.sync_traffic_leg, and on a JAX fleet through the tool:
-    the same bytes, rounds, lanes and quiescent counts."""
+@pytest.fixture
+def jax_fleet_waits(monkeypatch):
+    """tools/chaos_soak.run_traffic_leg reads the fleet's counters as soon
+    as its clients return, while a served half may still be recording its
+    own (a server counts after its last send), so under load its numbers
+    move: a late server count falls out of the window it belongs to.  The
+    port's leg waits for every served exchange (chip_smoke.wait_served).
+    Here each supervisor round of the JAX fleet ends the same way: once
+    every node of the fleet has finished serving."""
+    import go_crdt_playground_tpu.net as jax_net
+
+    nodes = []
+
+    class FleetNode(jax_net.Node):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            nodes.append(self)
+
+    class WaitingSupervisor(jax_net.SyncSupervisor):
+        def sync_round(self, *args, **kwargs):
+            out = super().sync_round(*args, **kwargs)
+            chip_smoke.wait_served(nodes)
+            return out
+
+    monkeypatch.setattr(jax_net, "Node", FleetNode)
+    monkeypatch.setattr(jax_net, "SyncSupervisor", WaitingSupervisor)
+
+
+def _quick_legs(sync_mode):
     import chaos_soak
 
     want = chaos_soak.run_traffic_leg(sync_mode, 4, 256, 4, 5, seed=17,
@@ -566,12 +589,53 @@ def test_sync_curve_quick_leg_matches_the_jax_fleet(sync_mode):
     got, states = chip_smoke.sync_traffic_leg(sync_mode, 4, 256, 4, 5, 17,
                                               quiescent_rounds=4,
                                               device="cpu")
+    return want, got, states
+
+
+@pytest.mark.parametrize("sync_mode", ["digest", "delta"])
+def test_sync_curve_quick_leg_matches_the_jax_fleet(sync_mode,
+                                                    jax_fleet_waits):
+    """tools/chaos_soak.py's quick traffic leg (4 nodes, E = 256, 4 ops a
+    round, 5 traffic and 4 quiescent rounds) on a torch fleet through
+    chip_smoke.sync_traffic_leg, and on a JAX fleet through the tool:
+    the same bytes, rounds, lanes and quiescent counts."""
+    want, got, states = _quick_legs(sync_mode)
     assert got == want
     assert got["converged"] and len(states) == 4
     if sync_mode == "digest":
         assert got["quiescent_state_lanes"] == 0
         assert got["delta_fallbacks"] == 0
         assert got["quiescent_exchanges"] > 0
+
+
+@pytest.mark.parametrize("sync_mode", ["digest", "delta"])
+def test_sync_curve_quick_leg_counts_every_served_half(sync_mode,
+                                                       jax_fleet_waits,
+                                                       monkeypatch):
+    """Every served half's counter record 50 ms late in both packages
+    (what a loaded machine does to a server thread after its last send):
+    both fleets still count the same bytes, rounds and lanes, and the
+    same as with prompt records."""
+    import threading
+    import time
+
+    import go_crdt_playground_tpu.net.digestsync as jax_ds
+    import go_crdt_playground_tpu.net.peer as jax_peer
+
+    want_prompt, got_prompt, _ = _quick_legs(sync_mode)
+
+    def late(record):
+        def wrapped(*args, **kwargs):
+            if threading.current_thread() is not threading.main_thread():
+                time.sleep(0.05)
+            return record(*args, **kwargs)
+        return wrapped
+
+    for mod, name in ((jax_peer.Node, "_record"), (jax_ds, "_record"),
+                      (Node, "_record"), (digestsync, "_record")):
+        monkeypatch.setattr(mod, name, late(getattr(mod, name)))
+    want, got, _ = _quick_legs(sync_mode)
+    assert got == want == got_prompt == want_prompt
 
 
 def test_mixed_fleet_converges_on_the_digest_regime():

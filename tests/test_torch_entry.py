@@ -270,7 +270,7 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "114 skipped" in out.stdout or "114 passed" in out.stdout, \
+    assert "124 skipped" in out.stdout or "124 passed" in out.stdout, \
         out.stdout
 
 

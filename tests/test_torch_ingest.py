@@ -214,10 +214,16 @@ def test_k10_wrapper_guards():
     with pytest.raises(ValueError, match="do not match"):
         cuda_ingest.ingest_rows_delta_fused(
             row, add, add, np.ones(3, bool), k_changed=8, k_deleted=8)
-    wide = row._replace(vv=torch.zeros(2049, dtype=torch.int32),
-                        processed=torch.zeros(2049, dtype=torch.int32))
-    with pytest.raises(ValueError, match="shared-memory cap"):
-        cuda_ingest.check_slice(wide)
+    # any actor axis A >= 1 reaches the kernel (past the card's shared
+    # memory it reads the vv from device memory)
+    for num_a in (2049, 60000):
+        cuda_ingest.check_slice(row._replace(
+            vv=torch.zeros(num_a, dtype=torch.int32),
+            processed=torch.zeros(num_a, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="A >= 1"):
+        cuda_ingest.check_slice(row._replace(
+            vv=torch.zeros(0, dtype=torch.int32),
+            processed=torch.zeros(0, dtype=torch.int32)))
     before = cuda_ingest.ingest_rows_delta_fused.launches
     cuda_ingest.ingest_rows_delta_fused(row, add, add, np.ones(2, bool),
                                         k_changed=0, k_deleted=0)

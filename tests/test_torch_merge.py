@@ -143,15 +143,39 @@ def test_kernel_dispatch_rules():
         cuda_merge.ring_round_rows(st, 1, kernel="pallas")
     with pytest.raises(ValueError, match="perm entries"):
         cuda_merge.gossip_round_rows(st, np.array([0, 1, 2, 4]))
-    wide = to_torch(rand_state(rng, 2, 8, cuda_merge.MAX_FUSED_ACTORS + 1))
-    with pytest.raises(ValueError, match="kernel='torch'"):
-        cuda_merge.check_state(wide)
+    # any actor axis reaches the kernels (past the card's shared memory
+    # they read the vv rows from device memory)
+    for num_a in (2049, 29057):
+        cuda_merge.check_state(to_torch(rand_state(rng, 2, 8, num_a)))
+    with pytest.raises(ValueError, match="non-empty"):
+        cuda_merge.check_state(st._replace(
+            vv=torch.zeros((4, 0), dtype=torch.int32)))
     cuda_merge.check_state(st)
     # the plain version runs for CPU tensors and is what "torch" names
     assert_same(jax_gossip.gossip_round(
         rand_state(np.random.default_rng(1), 4, 8, 2),
         jax_gossip.ring_perm(4, 1), kernel="xla"),
         cuda_merge.ring_round_rows(st, 1, kernel="torch"))
+
+
+@pytest.mark.parametrize("num_a", [2049, 8193])
+def test_wide_actor_ring_round_matches_xla(num_a):
+    """Past the JAX package's fused cap (A > 2,048) its rounds take the
+    XLA path; the port's plain ring round (what a CPU tensor runs, and
+    what the kernel is held against on the card) equals it, counters near
+    2^32 included."""
+    from go_crdt_playground_tpu_torch.parallel import gossip
+
+    rng = np.random.default_rng(num_a)
+    st = big_counters(rng, rand_state(rng, 8, 40, num_a))
+    for off in (1, 3, 12):
+        want = jax_gossip.ring_gossip_round(st, off)
+        assert_same(want, gossip.ring_gossip_round(to_torch(st), off))
+        assert_same(want, cuda_merge.ring_round_rows(to_torch(st), off,
+                                                     kernel="torch"))
+    perm = np.array(jax_gossip.ring_perm(8, 5))
+    assert_same(jax_gossip.gossip_round(st, perm),
+                gossip.gossip_round(to_torch(st), perm))
 
 
 def _k3_bad(st, how):

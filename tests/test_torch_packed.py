@@ -315,10 +315,18 @@ def test_packed_kernel_dispatch_rules():
             present_bits=torch.zeros((R, 1), dtype=torch.int32)))
     with pytest.raises(ValueError, match="dots"):
         cuda_merge.check_state(dots._replace(dots=dots.dots.to(torch.int64)))
-    wide = to_torch(rand_state(np.random.default_rng(2), R, 8,
-                               cuda_merge.MAX_FUSED_ACTORS + 1))
-    with pytest.raises(ValueError, match="kernel='torch'"):
-        cuda_merge.check_state(packed.pack_awset(wide))
+    wide = to_torch(rand_state(np.random.default_rng(2), R, 8, 2049))
+    cuda_merge.check_state(packed.pack_awset(wide))
+    # dot words: up to 4,096 actors (the 12-bit actor field), as packing
+    # enforces; a wider dot-word state never reaches a kernel
+    at_cap = to_torch(rand_state(np.random.default_rng(2), R, 8,
+                                 packed.DOT_MAX_ACTORS))
+    cuda_merge.check_state(packed.pack_awset_dots(at_cap))
+    over = packed.pack_awset_dots(at_cap)
+    over = over._replace(vv=torch.zeros((R, packed.DOT_MAX_ACTORS + 1),
+                                        dtype=torch.int32))
+    with pytest.raises(ValueError, match="at most 4096 actors"):
+        cuda_merge.check_state(over)
     dst = packed.pack_awset_delta(to_torch(scenario(3, R, 16, 4)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_delta.delta_ring_round_packed(dst, 1, kernel="cuda")

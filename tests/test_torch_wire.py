@@ -10,6 +10,7 @@ manifest, not their zip bytes (numpy stamps the time into the zip).
 
 import json
 import os
+from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
@@ -447,16 +448,33 @@ def test_bit_flip_refused(tmp_path):
         ckpt.restore_checkpoint(p, device="cpu")
 
 
+class UnregisteredState(NamedTuple):
+    """A state type neither package restores typed."""
+
+    cells: np.ndarray
+    actor: np.ndarray
+
+
 def test_unknown_type_warns_and_dictionary_raises(tmp_path):
     from go_crdt_playground_tpu.ops import lattices as L
     from go_crdt_playground_tpu.utils.codec import ElementDict
 
     p = str(tmp_path / "g")
-    jax_ckpt.save_checkpoint(p, L.gcounter_init(4, 4))
+    unknown = UnregisteredState(cells=np.arange(12, dtype=np.uint32)
+                                .reshape(4, 3),
+                                actor=np.arange(4, dtype=np.uint32))
+    jax_ckpt.save_checkpoint(p, unknown)
     rec = Recorder()
     with pytest.warns(RuntimeWarning, match="unknown"):
         got = ckpt.restore_checkpoint(p, device="cpu", recorder=rec)
     assert isinstance(got.state, dict)
+    assert np.array_equal(got.state["cells"], unknown.cells)
+    assert rec.snapshot()["counters"]["restore.unknown_type"] == 1
+    # a G-Counter, unknown to the port before its lattice families, now
+    # restores typed
+    jax_ckpt.save_checkpoint(p, L.gcounter_init(4, 4))
+    got = ckpt.restore_checkpoint(p, device="cpu", recorder=rec)
+    assert type(got.state).__name__ == "GCounterState"
     assert rec.snapshot()["counters"]["restore.unknown_type"] == 1
 
     # a manifest with an element dictionary restores it beside the state
