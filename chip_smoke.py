@@ -129,6 +129,18 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      A in {2,049, 12,289, 60,000} against their plain versions, one
      launch each timed, and at A = 2,049 the gossip rounds,
      ``rounds_to_convergence`` and ``Node.ingest_batch`` on the card;
+ 16. the port's tools on the card: (a) the static gate over the port
+     (``go_crdt_playground_tpu_torch.analysis``, all 14 passes, in full,
+     ``--device cuda``): exit 0 and 0 errors, the lattice laws over the
+     registry (the AWSet and OR-Map joins on K2) and the lockset
+     exercise over a CUDA ``Node`` (K10 from racing threads) counted,
+     its wall and each protocol model's state count printed; (b)
+     tools/torch_soak_differential.py for SOAK_MINUTES: fresh random
+     shapes every iteration, K1, K2, K4, K6-K9 bitwise against their
+     plain versions and the plain versions against each other, the
+     iterations, shape ranges and kernels covered printed, any
+     divergence failing the run; (c) examples/torch_quickstart.py and
+     examples/torch_tcp_sync.py run as a user runs them (``OK``);
 and, after phase 2, phase 2b: the ingest kernel (K10, the whole entry in
 one launch) against its plain version over E x A x B x K (one block up
 to E = 4,096, the cooperative grid above), densities, padding patterns,
@@ -4594,6 +4606,117 @@ KERNELS = [
 ]
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the static gate, the differential soak and the examples
+# ---------------------------------------------------------------------------
+
+# the soak's time on the card (minutes)
+SOAK_MINUTES = 1.0
+# the examples a switching user runs first, each printing "OK"
+EXAMPLES = ("examples/torch_quickstart.py", "examples/torch_tcp_sync.py")
+
+
+def phase_static_gate(counters: Counters, smi: str) -> dict:
+    """16a: the port's analysis gate in full on cuda, in process (the
+    CLI's ``main``), to a temporary report; exit 0, 0 errors, every
+    registered pass reported, K2 and K10 launched by its runtime
+    passes."""
+    from go_crdt_playground_tpu_torch.analysis import __main__ as gate
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gate_")
+    try:
+        out = os.path.join(tmp, "report.json")
+        counters.reset()
+        t0 = time.perf_counter()
+        rc = gate.main(["--device", "cuda", "--json", "--out", out])
+        wall = time.perf_counter() - t0
+        counters.read("static gate", at_least={
+            "merge_pairwise_rows": 1, "ingest_rows_delta_fused": 1})
+        with open(out) as f:
+            report = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    passes = sorted(report["passes"])
+    if rc != 0 or report["n_errors"] or not report["ok"]:
+        raise AssertionError(f"static gate: rc {rc}, "
+                             f"{report['n_errors']} errors")
+    if passes != sorted(gate.REGISTERED_PASSES):
+        raise AssertionError(f"static gate reported passes {passes}")
+    models = report["passes"]["protomodel"]["stats"]["models"]
+    laws = report["passes"]["lattice_laws"]["stats"]["per_family"]
+    locksets = report["passes"]["locksets"]["stats"]
+    log(f"static gate (cuda, full): rc 0, {report['n_findings']} "
+        f"findings, 0 errors, {len(passes)} passes, wall {wall:.2f} s "
+        f"(report meta {report['meta']['wall_time_s']} s); models: "
+        + ", ".join(f"{n} {m['states']} states / {m['transitions']} "
+                    "transitions" for n, m in sorted(models.items()))
+        + f"; laws checked {sum(laws.values())} over {len(laws)} joins; "
+        f"lockset races {locksets['races']} [{smi}]")
+    return {"wall_s": wall, "models": models}
+
+
+def phase_soak_differential(counters: Counters, smi: str) -> dict:
+    """16b: tools/torch_soak_differential.py in process for
+    SOAK_MINUTES on the card; every kernel it covers launched, no
+    divergence."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_soak_differential",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                     "torch_soak_differential.py"))
+    soak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soak)
+    counters.reset()
+    res = soak.run(SOAK_MINUTES, device="cuda", log=lambda m: None)
+    counts = counters.read("differential soak", at_least={
+        w: 1 for w in ("ring_round_rows", "gossip_round_rows",
+                       "delta_ring_round", "ring_round_rows_packed",
+                       "ring_round_rows_dotpacked",
+                       "delta_ring_round_packed",
+                       "delta_ring_round_dotpacked")})
+    if res["divergence"] is not None:
+        raise AssertionError(f"differential soak diverged: "
+                             f"{res['divergence']}")
+    if res["iterations"] < 1:
+        raise AssertionError("differential soak ran no iteration")
+    log(f"differential soak (cuda, {SOAK_MINUTES} min): "
+        f"{res['iterations']} iterations, seeds {res['seeds'][0]}.."
+        f"{res['seeds'][1]}, R {res['R']}, E {res['E']}, A {res['A']}, "
+        f"kernels {', '.join(res['kernels'])} bitwise against their "
+        f"plain versions, 0 divergences, {res['wall_s']} s; launches "
+        + json.dumps({k: v for k, v in counts.items() if v})
+        + f" [{smi}]")
+    return res
+
+
+def phase_examples(smi: str) -> dict:
+    """16c: both examples as a user runs them, on the card (their
+    default device); each must exit 0 and print OK."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    walls = {}
+    for ex in EXAMPLES:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, os.path.join(root, ex)],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=root)
+        walls[ex] = time.perf_counter() - t0
+        last = run.stdout.strip().splitlines()[-1:] or [""]
+        if run.returncode != 0 or not last[0].endswith("OK"):
+            raise AssertionError(f"{ex} failed (rc {run.returncode}): "
+                                 f"{run.stdout[-2000:]} "
+                                 f"{run.stderr[-2000:]}")
+        log(f"example {ex}: {last[0]} ({walls[ex]:.1f} s wall) [{smi}]")
+    return walls
+
+
+def phase_tools(counters: Counters, smi: str) -> None:
+    walls = {}
+    timed_phase(walls, "16a", phase_static_gate, counters, smi)
+    timed_phase(walls, "16b", phase_soak_differential, counters, smi)
+    timed_phase(walls, "16c", phase_examples, smi)
+
+
 def timed_phase(walls: dict, name: str, fn, *args):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -4653,6 +4776,7 @@ def main() -> int:
     timed_phase(walls, "13d", phase_mesh_serve, counters, smi)
     timed_phase(walls, "14", phase_bridge, counters, errs, timings, smi)
     timed_phase(walls, "15", phase_lattices, counters, errs, timings, smi)
+    timed_phase(walls, "16", phase_tools, counters, smi)
     log("phase walls: " + json.dumps({k: round(v, 1)
                                       for k, v in walls.items()}))
 

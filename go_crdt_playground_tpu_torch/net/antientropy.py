@@ -184,7 +184,8 @@ class SyncSupervisor:
         self.seed = seed
         self._sleep = sleep
         self._clock = clock
-        # one driver at a time: run()/sync_round() XOR the start() loop
+        # race-ok: rounds run from one thread at a time (the
+        # run()/sync_round() caller XOR the start() loop)
         self._rng = random.Random(seed)
         self._lock = threading.Lock()
         # serializes checkpoint() callers (one CheckpointStore writer)
@@ -193,8 +194,10 @@ class SyncSupervisor:
         self._breakers: Dict[Addr, CircuitBreaker] = {}  # guarded-by: _lock
         self._rounds_done = 0  # guarded-by: _lock
         self._stop = threading.Event()
+        # race-ok: start()/stop() owner thread only
         self._thread: Optional[threading.Thread] = None
-        # the last error the background loop swallowed, for post-mortems
+        # race-ok: post-mortem breadcrumb (loop thread writes, a
+        # post-stop reader inspects); no control flow depends on it
         self.last_error: Optional[BaseException] = None
         for p in peers:
             self.add_peer(p)

@@ -295,6 +295,9 @@ def build_reply_payload(node, peer_vv: np.ndarray, peer_digests: np.ndarray,
     every rung, the δ fallback's included."""
     me = node._row()
     own_t = node._digest_fn(me, group_size)
+    # transfer-ok: the summary's one bounded pull (both clocks and the G
+    # group digests in one copy); the reply is built from the state the
+    # caller's node lock holds, after absorbing the peer's payload
     vv, processed, own = to_host(DigestSummary(me.vv, me.processed, own_t))
     n_mism = digest_ops.mismatched_group_count(own, peer_digests)
     if n_mism == 0:
@@ -314,10 +317,14 @@ def build_reply_payload(node, peer_vv: np.ndarray, peer_digests: np.ndarray,
         # digests claim equality, clocks disagree: this round rides the
         # δ ladder (FULL on first contact)
         mode, _, payload = node._extract_payload(np.asarray(peer_vv))
+        # transfer-ok: the δ fallback's payload in one copy, encoded under
+        # the same node-lock hold that extracted it
         payload = to_host(payload)
         body = framing.encode_payload_msg(mode, node.actor, processed,
                                           payload)
         return mode, body, _lanes(payload), 0
+    # transfer-ok: the digest-diff payload in one copy, encoded under the
+    # same node-lock hold that extracted it
     payload = to_host(digest_ops.digest_diff_payload(me, own_t, peer_digests,
                                                      group_size))
     body = framing.encode_payload_msg(MODE_DIGEST, node.actor, processed,

@@ -33,6 +33,8 @@ MAGIC = b"\xc7\xd1"
 
 MSG_HELLO = 1
 MSG_PAYLOAD = 2
+# protocol-ignore: internal — recv_frame raises it as RemoteError
+# before any dispatcher sees a frame type
 MSG_ERROR = 3
 MSG_DIGEST = 4
 
@@ -205,6 +207,9 @@ def encode_payload_msg(mode: int, src_actor: int, processed,
                        payload) -> bytes:
     """A PAYLOAD body.  Payload fields may be tensors or numpy arrays;
     tensors reach the host in one copy."""
+    # transfer-ok: one copy of the whole payload (fields already on the
+    # host pass through); the exchange that built it encodes it under
+    # its node-lock hold, as the WAL's dense record does
     payload = to_host(payload)
     out = bytearray()
     out.append(mode)
@@ -249,6 +254,9 @@ def encode_delta_wal_record(pre_vv, src_actor: int, payload, compact=None,
 
     if compact_records:
         if compact is not None:
+            # transfer-ok: the one sanctioned bounded pull of the WAL
+            # encode path (called under the node lock via
+            # _append_delta_record)
             compact = to_host(compact)
         if compact is not None and not bool(compact.overflow):
             chv = compact.ch_valid
@@ -259,6 +267,9 @@ def encode_delta_wal_record(pre_vv, src_actor: int, payload, compact=None,
                 compact.ch_idx[chv], compact.ch_da[chv], compact.ch_dc[chv],
                 compact.del_idx[dlv], compact.del_da[dlv],
                 compact.del_dc[dlv], num_elements), True
+        # transfer-ok: the dense δ in one copy, only when no fixed-K form
+        # was made or it overflowed (under the node lock via
+        # _append_delta_record; host fields pass through)
         payload = to_host(payload)
         changed = payload.changed
         deleted = payload.deleted & fresh_mask(payload.del_da,
@@ -274,6 +285,8 @@ def encode_delta_wal_record(pre_vv, src_actor: int, payload, compact=None,
                 ch, payload.ch_da[ch], payload.ch_dc[ch],
                 dl, payload.del_da[dl], payload.del_dc[dl],
                 num_elements), True
+    # transfer-ok: the dense record's one copy, and a pass-through when
+    # the host-side compaction above already pulled it
     payload = to_host(payload)
     deleted = payload.deleted & fresh_mask(payload.del_da, payload.del_dc)
     filtered = payload._replace(

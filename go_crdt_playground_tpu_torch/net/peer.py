@@ -188,12 +188,16 @@ class Node:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.recorder = recorder
         self.wal = wal  # guarded-by: _lock
-        # read-only after __init__: the device and E fix the regimes
+        # the device and E fix the regimes
+        # race-ok: read-only configuration after __init__
         self._fused_regime = ingest_ops.ingest_delta_regime(num_elements,
                                                             self.device)
+        # race-ok: read-only configuration after __init__
         self._digest_regime = digest_ops.digest_regime(num_elements,
                                                        self.device)
+        # race-ok: read-only configuration after __init__
         self.wal_compact_records = wal_compact_records
+        # race-ok: read-only configuration after __init__
         self.ingest_fused = ingest_fused
         # freshest causal-stability vector each peer actor advertised in
         # an applied payload: the peer half of deletion_frontier
@@ -213,10 +217,11 @@ class Node:
         self._state = awset_delta.init(  # guarded-by: _lock
             1, num_elements, num_actors,
             actors=np.asarray([actor], np.uint32), device=self.device)
-        # serve()/close() owner thread; _accept_loop snapshots it
+        # race-ok: serve()/close() owner thread; _accept_loop snapshots
         self._server_sock: Optional[socket.socket] = None
+        # race-ok: serve()/close() owner thread only
         self._server_thread: Optional[threading.Thread] = None
-        self._closing = False  # monotonic stop flag
+        self._closing = False  # race-ok: benign monotonic stop flag
         self.conn_timeout_s = (self.CONN_TIMEOUT_S if conn_timeout_s is None
                                else conn_timeout_s)
         self.hello_timeout_s = min(
@@ -224,6 +229,7 @@ class Node:
             else hello_timeout_s, self.conn_timeout_s)
         # the body cap of every peer-dialect read: a hostile length
         # header cannot commit a reader past the largest legal FULL body
+        # race-ok: read-only after __init__
         self._frame_cap = framing.peer_frame_cap(num_elements, num_actors)
         self._conn_slots = threading.BoundedSemaphore(
             self.MAX_CONNS if max_conns is None else max_conns)
@@ -306,15 +312,23 @@ class Node:
                 raise ValueError(
                     f"stripe hint shape {stripe_hint.shape} does not "
                     f"match batch axis {add_rows.shape[0]}")
+        prep = self._prepare_batch(add_rows, del_rows, live, stripe_hint)
         with self._lock:
             self._apply_batch_locked(add_rows, del_rows, live,
-                                     stripe_hint=stripe_hint)
+                                     stripe_hint=stripe_hint, prep=prep)
+
+    def _prepare_batch(self, add_rows: np.ndarray, del_rows: np.ndarray,
+                       live: np.ndarray, stripe_hint: Optional[np.ndarray]):
+        """Work on a batch that reads no replica state, run before the
+        node lock is taken; its result reaches ``_apply_batch_locked``
+        as ``prep``.  None here: the sequential path has none."""
+        return None
 
     # requires-lock: _lock
     def _apply_batch_locked(self, add_rows: np.ndarray, del_rows: np.ndarray,
                             live: np.ndarray,
-                            stripe_hint: Optional[np.ndarray] = None
-                            ) -> None:
+                            stripe_hint: Optional[np.ndarray] = None,
+                            prep=None) -> None:
         """The apply+log half of ``ingest_batch``: the rows reach the
         device in one copy, the node's regime applies them and returns
         the δ (compacted on the device when there is a record to write),
@@ -325,7 +339,7 @@ class Node:
         With ``ingest_fused`` off the rows are applied first and the δ
         extracted against the pre-batch vv after (two steps).  The
         replica flavors (parallel/meshtarget.py) override this seam;
-        the sequential path ignores ``stripe_hint``."""
+        the sequential path ignores ``stripe_hint`` and ``prep``."""
         num_b, num_e = add_rows.shape
         rows = torch.from_numpy(np.concatenate(
             [add_rows.reshape(-1), del_rows.reshape(-1), live])).to(
@@ -548,6 +562,9 @@ class Node:
         outside it, and the three reach the host in one copy."""
         with self._lock:
             me = self._row()
+        # transfer-ok: deliberately OUTSIDE the lock block above (only
+        # the state ref is read under it); one G-word summary pull —
+        # callers in the digest-sync exchange may still hold theirs
         return to_host(DigestSummary(me.vv, me.processed,
                                      self._digest_fn(me, group_size)))
 
@@ -651,13 +668,18 @@ class Node:
             with self._lock:
                 self.wal = saved
         if self.recorder is not None:
-            for name, n in (("wal.records", replayed),
-                            ("wal.replayed_compact", compact_n),
-                            ("wal.replayed_dense", dense_n),
-                            ("wal.bad_records", bad),
-                            ("wal.future_records", future)):
-                if n:
-                    self.recorder.count(name, n)
+            # one literal call a name: the metrics contract reads the
+            # names the soaks adjudicate off these call sites
+            if replayed:
+                self.recorder.count("wal.records", replayed)
+            if compact_n:
+                self.recorder.count("wal.replayed_compact", compact_n)
+            if dense_n:
+                self.recorder.count("wal.replayed_dense", dense_n)
+            if bad:
+                self.recorder.count("wal.bad_records", bad)
+            if future:
+                self.recorder.count("wal.future_records", future)
         return {"replayed": replayed, "bad": bad, "future": future,
                 "compact": compact_n, "dense": dense_n}
 

@@ -184,9 +184,15 @@ def _register_awset_join() -> None:
     from go_crdt_playground_tpu_torch._u32 import host
     from go_crdt_playground_tpu_torch.ops import lattices
 
+    def join(dst: AWSetState, src: AWSetState) -> AWSetState:
+        # K2 for CUDA tensors (the law pass on the card), its plain
+        # version -- this module's merge -- for CPU tensors
+        from go_crdt_playground_tpu_torch.ops import cuda_merge
+
+        return cuda_merge.merge_pairwise_rows(dst, src)
+
     lattices.register_join(lattices.JoinSpec(
-        "awset_merge", _sample_awset,
-        lambda d, s: merge_pairwise(d, s)[0],
+        "awset_merge", _sample_awset, join,
         # the observable projection only: dot metadata is order-sensitive
         # by documented design (the stale-dot overwrite)
         lambda s: {"vv": host(s.vv), "present": host(s.present)}))

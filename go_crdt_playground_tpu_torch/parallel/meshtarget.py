@@ -125,6 +125,8 @@ def apply_slot_rows(st: AWSetDeltaState, arow: torch.Tensor,
 def payload_to_host(parts) -> DeltaPayload:
     """Per-slot δ payloads (lane slices in slot order) -> one host
     payload over the whole universe, one device->host copy a slot."""
+    # transfer-ok: one copy a slot (the slots' devices differ); called
+    # under the node lock by _append_slot_record for a batch's dense δ
     host_parts = [to_host(p) for p in parts]
     first = host_parts[0]
     return DeltaPayload(**{
@@ -196,6 +198,9 @@ def build_mesh_summary(mesh: Mesh, num_elements: int, group_size: int,
 
     def fn(rows):
         digests = digests_fn(rows)
+        # transfer-ok: outside the node lock (its caller reads only the
+        # slot rows under it); one G-word summary pull a slot — callers
+        # in the digest-sync exchange may still hold theirs
         first = to_host(DigestSummary(rows[0].vv, rows[0].processed,
                                       digests[0]))
         rest = [host(d) for d in digests[1:]]
@@ -255,6 +260,7 @@ class MeshApplyTarget(Node):
         super().__init__(actor, num_elements, num_actors, **node_kwargs)
         # (group_size -> fn) collective summary reads, or False when
         # groups straddle slots
+        # race-ok: idempotent lazy init (same function either way)
         self._mesh_summary = {}
 
     def _build_mesh(self, mesh_devices, device) -> Mesh:
@@ -331,10 +337,10 @@ class MeshApplyTarget(Node):
     # requires-lock: _lock
     def _apply_batch_locked(self, add_rows: np.ndarray,
                             del_rows: np.ndarray, live: np.ndarray,
-                            stripe_hint: Optional[np.ndarray] = None
-                            ) -> None:
-        # the whole batch is one stripe on the 1-D mesh: the hint is the
-        # 2-D subclass's seam and is ignored here
+                            stripe_hint: Optional[np.ndarray] = None,
+                            prep=None) -> None:
+        # the whole batch is one stripe on the 1-D mesh: the hint and
+        # ``prep`` are the 2-D subclass's seams and are ignored here
         n = self.lane_shards
         num_b = add_rows.shape[0]
         add, dl = rows_to_device(add_rows, del_rows, live, self.device)
@@ -380,15 +386,22 @@ class MeshApplyTarget(Node):
         k = self._fused_regime[1] if self.wal_compact_records else 0
         if k:
             comps = [compact_payload(p, k, k) for p in parts]
+            # transfer-ok: two words (the lanes both sections claim over
+            # all slots) in one copy, to pick the record's form; the
+            # record is appended under the lock that ordered the batch
             counts = torch.stack([torch.stack(
                 [p.changed.sum(), p.deleted.sum()]).to(self.device)
                 for p in parts]).sum(dim=0).cpu()
             if int(counts[0]) <= k and int(counts[1]) <= k:
+                # transfer-ok: one bounded fixed-K pull a slot, the
+                # sanction of the one-slot node's per-batch compact pull
                 merged = merge_compact([to_host(c) for c in comps], k,
                                        lambda m: m * self._e_loc)
                 self._append_delta_record(pre_vv, None, merged,
                                           num_elements=self.num_elements)
                 return
+        # transfer-ok: the dense δ, one copy a slot, only past K claimed
+        # lanes (or with no device compaction), as the one-slot node
         self._append_delta_record(pre_vv, payload_to_host(parts), None)
 
     # -- read path ----------------------------------------------------------

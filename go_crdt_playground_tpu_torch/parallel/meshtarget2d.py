@@ -308,24 +308,44 @@ class Mesh2DApplyTarget(MeshApplyTarget):
             spec = (1, spec)
         return make_serve_mesh(*spec, device=device)
 
-    # requires-lock: _lock
-    def _apply_batch_locked(self, add_rows: np.ndarray,
-                            del_rows: np.ndarray, live: np.ndarray,
-                            stripe_hint: Optional[np.ndarray] = None
-                            ) -> None:
+    def _prepare_batch(self, add_rows: np.ndarray, del_rows: np.ndarray,
+                       live: np.ndarray, stripe_hint: Optional[np.ndarray]):
+        """The rows on the node's device and the planner's chunks, before
+        the node lock is taken: the plan reads the batch and the mesh's
+        shape, no replica state, so its device->host pull (the touched
+        (row, key) pairs and two words a row, in one copy) never stalls
+        the lock's other holders."""
         num_b = add_rows.shape[0]
         cap = max(1, -(-num_b // self.dp))
         # the rows reach the node's device once; the planner reads their
-        # keys from there (a few words a row), and each chunk's stripes
-        # are gathered from them on the device
+        # keys from there, and each chunk's stripes are gathered from
+        # them on the device
         add, dl = rows_to_device(add_rows, del_rows, live, self.device)
-        rows_nz, keys_nz = (x.cpu().numpy() for x in torch.nonzero(
-            add | dl, as_tuple=True))
+        nz = torch.nonzero(add | dl)
+        # transfer-ok: taken before the node lock (ingest_batch calls this
+        # outside its with-block; the batcher's loop holds no lock); the
+        # sweep reaches it by trailing name only (close -> drain ->
+        # ingest_batch).  One copy of the touched pairs and two words a row
+        host_in = torch.cat([nz.reshape(-1),
+                             add.sum(dim=1, dtype=torch.int64),
+                             dl.any(dim=1).to(torch.int64)]).cpu().numpy()
+        n_nz = nz.shape[0]
+        rows_nz, keys_nz = host_in[:2 * n_nz].reshape(n_nz, 2).T
         plans, cuts = plan_rows(
             _row_keys(rows_nz, keys_nz, num_b),
-            add.sum(dim=1, dtype=torch.int64).cpu().numpy(),
-            dl.any(dim=1).cpu().numpy(), self.num_elements, self.dp, cap,
-            stripe_hint)
+            host_in[2 * n_nz:2 * n_nz + num_b],
+            host_in[2 * n_nz + num_b:].astype(bool), self.num_elements,
+            self.dp, cap, stripe_hint)
+        return add, dl, plans, cuts
+
+    # requires-lock: _lock
+    def _apply_batch_locked(self, add_rows: np.ndarray,
+                            del_rows: np.ndarray, live: np.ndarray,
+                            stripe_hint: Optional[np.ndarray] = None,
+                            prep=None) -> None:
+        """Apply ``_prepare_batch``'s chunks (``prep``), each a striped
+        launch and a WAL record."""
+        add, dl, plans, cuts = prep
         if cuts:
             self._count("mesh.stripe.cuts", cuts)
         for plan in plans:

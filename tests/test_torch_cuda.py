@@ -997,3 +997,90 @@ def test_node_ingests_with_a_wide_actor_axis():
                   cpu.state_slice())
     for n in (gpu, cpu):
         n.close()
+
+
+# -- the port's tools on the card -------------------------------------------
+
+
+def _needs_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "full"])
+def test_static_gate_on_cuda(fast, tmp_path):
+    """The port's analysis gate on the card: exit 0, 0 errors, all 14
+    passes, the lattice laws' AWSet and OR-Map joins on K2 and the
+    lockset exercise's batches on K10."""
+    import json
+
+    from go_crdt_playground_tpu_torch.analysis import __main__ as gate
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+
+    _needs_gpu()
+    out = tmp_path / "report.json"
+    pair0 = cm.merge_pairwise_rows.launches
+    ingest0 = ci.ingest_rows_delta_fused.launches
+    argv = ["--device", "cuda", "--out", str(out)] + (["--fast"] if fast
+                                                      else [])
+    assert gate.main(argv) == 0
+    report = json.loads(out.read_text())
+    assert report["ok"] and report["n_errors"] == 0
+    assert sorted(report["passes"]) == sorted(gate.REGISTERED_PASSES)
+    assert report["meta"]["device"].startswith("cuda")
+    assert cm.merge_pairwise_rows.launches > pair0
+    assert ci.ingest_rows_delta_fused.launches > ingest0
+
+
+def _soak_module():
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parent.parent / "tools"
+            / "torch_soak_differential.py")
+    spec = importlib.util.spec_from_file_location("torch_soak_differential",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("seed0", [0, 4242])
+def test_soak_differential_on_cuda(seed0):
+    """A short run of the differential soak on the card: every kernel it
+    covers against its plain version, bitwise, at 12 fresh shapes."""
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+
+    _needs_gpu()
+    soak = _soak_module()
+    wrappers = (cm.ring_round_rows, cm.gossip_round_rows,
+                cm.ring_round_rows_packed, cm.ring_round_rows_dotpacked,
+                cd.delta_ring_round, cd.delta_ring_round_packed,
+                cd.delta_ring_round_dotpacked)
+    before = [w.launches for w in wrappers]
+    res = soak.run(10.0, device="cuda", seed0=seed0, iterations=12,
+                   log=lambda m: None)
+    assert res["divergence"] is None, res["divergence"]
+    assert res["iterations"] == 12
+    assert res["kernels"] == list(soak.KERNELS)
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart.py",
+                                  "torch_tcp_sync.py"])
+def test_example_runs_on_cuda(name):
+    """The examples as a user runs them: default device (the card)."""
+    import pathlib
+    import subprocess
+    import sys
+
+    _needs_gpu()
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, str(repo / "examples" / name)],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(repo))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+    assert "cuda" in proc.stdout

@@ -74,9 +74,20 @@ def test_gossip_verb_prints_what_the_jax_verb_prints(args, capsys):
     assert "converged in" in got
 
 
-def _imported_modules(path: Path):
+# the one sanctioned JAX import site: the differential soak's CPU mode
+# holds the plain versions against the JAX package, importing it lazily
+JAX_SIDE = (REPO / "tools" / "torch_soak_differential.py", "_jax_side")
+
+
+def _imported_modules(path: Path, skip_function: str = None):
     tree = ast.parse(path.read_text(), filename=str(path))
+    skipped = set()
     for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name == skip_function:
+            skipped |= {id(n) for n in ast.walk(node)}
+    for node in ast.walk(tree):
+        if id(node) in skipped:
+            continue
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield alias.name
@@ -86,8 +97,19 @@ def _imported_modules(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-             + sorted((REPO / "tools").glob("torch_*.py")))
+             + sorted((REPO / "tools").glob("torch_*.py"))
+             + sorted((REPO / "examples").glob("torch_*.py")))
     assert len(files) > 10
+    for part in ("analysis/__main__.py", "analysis/purity.py",
+                 "analysis/transfer_lock.py", "analysis/lattice_laws.py",
+                 "analysis/codec_symmetry.py", "analysis/locksets.py",
+                 "analysis/protomodel.py"):
+        assert PORT / part in files
+    for extra in ("tools/torch_analyze.py",
+                  "tools/torch_soak_differential.py",
+                  "examples/torch_quickstart.py",
+                  "examples/torch_tcp_sync.py"):
+        assert REPO / extra in files
     for part in ("serve/frontend.py", "shard/replica.py", "obs/metrics.py",
                  "utils/degrade.py", "parallel/mesh.py",
                  "parallel/shardmap.py", "parallel/multihost.py",
@@ -99,11 +121,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert PORT / part in files
     assert REPO / "tools" / "torch_serve_soak.py" in files
     for path in files:
-        for mod in _imported_modules(path):
+        skip = JAX_SIDE[1] if path == JAX_SIDE[0] else None
+        for mod in _imported_modules(path, skip):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "go_crdt_playground_tpu",
                                "google"), \
                 f"{path.relative_to(REPO)} imports {mod}"
+
+
+def test_soak_imports_jax_only_in_its_cpu_mode():
+    """The exception is one function, reached only with a CPU device:
+    its imports are the JAX ones, and on CUDA the soak never calls it."""
+    path, fn = JAX_SIDE
+    every = set(_imported_modules(path))
+    outside = set(_imported_modules(path, fn))
+    inside = {m.split(".")[0] for m in every - outside}
+    assert inside == {"jax", "go_crdt_playground_tpu"}
+    calls = [n for n in ast.walk(ast.parse(path.read_text()))
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+             and n.func.id == fn]
+    assert len(calls) == 1
+    assert f'jx = {fn}() if dev.type == "cpu" else None' in \
+        path.read_text()
 
 
 def test_default_device_is_cuda_and_never_falls_back(tmp_path):
@@ -270,7 +309,7 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "124 skipped" in out.stdout or "124 passed" in out.stdout, \
+    assert "130 skipped" in out.stdout or "130 passed" in out.stdout, \
         out.stdout
 
 
