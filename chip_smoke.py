@@ -13,7 +13,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      their own shapes, in every δ mode, with counters near 2^31 and 2^32
      (bitpacked) or at the dot-word cap, and the R % 64 guard; K9 also at
      offsets whose cycles are whole segments (1-16 rows) or whose gcd
-     with R is not a power of two (R = 192, 320);
+     with R is not a power of two (R = 192, 320); K4, K5 and K8 on few,
+     long rows split over blocks (the strict skip's scenarios, the
+     bridge's pair, a node's universe as a pair);
   3. entry: ``entry()`` at 256 x 256 against the plain round, bitwise;
   4. full-state: the 1,048,576 x 256 fleet (A = 256 writers) through the
      dissemination schedule and the butterfly schedule, converged, with
@@ -111,7 +113,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      (c) one pair at E = 65,536 keys, A = 256, full-state and δ v2: the
      request's wall through the server and its parts (decode, spec to
      pack, host to device, the merge entry, device to host, unpack,
-     encode), the kernel's time by CUDA events beside its bound; (d) the
+     encode), the kernel's time by CUDA events beside its bound (K5
+     also its device time queued behind a sleep, in its mode and strict
+     reference, and its chunks); (d) the
      ``serve`` verb spawned once (banner, a ping and a merge, SIGTERM);
      (e) the δ state checkpointed with its ElementDict, restored on the
      CPU and the card bitwise;
@@ -552,6 +556,70 @@ def phase_kernels(errs: dict, shapes=None):
     torch.cuda.synchronize()
     log(f"kernels: {n_checks} kernel-vs-plain checks over {len(shapes)} "
         f"shapes bitwise equal ({time.perf_counter() - t0:.1f} s)")
+    split_row_checks(errs)
+
+
+# few, long rows, where K4, K5 and K8 split a row's lanes over blocks
+# (ops/cuda_delta.row_chunks): the bridge's pair and small batches at E
+# past one chunk, ragged (4,097, 65,537) and a node's universe (2^20)
+SPLIT_CHECK_R = (1, 2, 3, 5)
+SPLIT_CHECK_E = (4097, 65_537)
+SPLIT_CHECK_A = (256, 8193)
+SPLIT_UNIVERSE = (2, 1 << 20, 256)
+SPLIT_RING = (128, 65_537, 8)
+
+
+def split_row_checks(errs: dict) -> None:
+    """K5 on every fleet.delta_scenario (the strict skip's empty δ, its
+    one payload lane in the first or the last chunk, first contact, the
+    bridge's [1, 1] pair, mixed) in the three modes at SPLIT_CHECK_R x
+    SPLIT_CHECK_E x SPLIT_CHECK_A and SPLIT_UNIVERSE, K4 alongside; K4
+    and K8 at SPLIT_RING; each bitwise to its plain version."""
+    import torch
+
+    from go_crdt_playground_tpu_torch import fleet
+    from go_crdt_playground_tpu_torch.models import awset_delta, packed
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+
+    modes = [("v2", True), ("reference", True), ("reference", False)]
+    sms = cd.sm_count(torch.cuda.current_device())
+    t0, n, geoms = time.perf_counter(), 0, set()
+
+    def check(key, fn, *args):
+        nonlocal n
+        for sem, strict in modes:
+            kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+            errs[key] = max(errs.get(key, 0), max_abs_err(
+                fn(*args, kernel="cuda", **kw), fn(*args, kernel="torch",
+                                                   **kw),
+                f"{key} split rows {args[0].vv.shape[0]} x "
+                f"{packed.num_elements(args[0])} {kw}"))
+            n += 1
+
+    shapes = [(R, E, A) for R in SPLIT_CHECK_R for E in SPLIT_CHECK_E
+              for A in SPLIT_CHECK_A] + [SPLIT_UNIVERSE]
+    for R, E, A in shapes:
+        geoms.add((R, E) + tuple(cd.row_chunks(R, E, sms)))
+        for name in fleet.DELTA_SCENARIOS:
+            arrays, perm = fleet.delta_scenario(name, R, E, A, seed=R + E)
+            st = awset_delta.from_arrays(arrays, "cuda")
+            check("K5", cd.delta_gossip_round, st,
+                  torch.from_numpy(perm).cuda())
+            if name in ("mixed", "payload_last"):
+                check("K4", cd.delta_ring_round, st, 1)
+    R, E, A = SPLIT_RING
+    geoms.add((R, E) + tuple(cd.row_chunks(R, E, sms)))
+    for name in ("mixed", "empty", "payload_last"):
+        st = awset_delta.from_arrays(
+            fleet.delta_scenario(name, R, E, A, seed=5)[0], "cuda")
+        bits = packed.pack_awset_delta(st)
+        for off in (1, 64):
+            check("K4", cd.delta_ring_round, st, off)
+            check("K8", cd.delta_ring_round_packed, bits, off)
+    torch.cuda.synchronize()
+    log(f"split rows: {n} K4/K5/K8-vs-plain checks bitwise equal, "
+        f"geometries (R, E, chunks, lanes) {sorted(geoms)} on {sms} SMs "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def ingest_slice(rng, E, A, dot_base, own_clock, wild_actors, device):
@@ -3992,18 +4060,34 @@ def bridge_timed(c: BridgeCheck, smi: str, tmp: str) -> dict:
         if reply != served:
             raise AssertionError(f"bridge timed {label}: the step-by-step "
                                  "reply differs from the server's")
+        split = ""
         if delta:
             kernel_ms = cuda_time_ms(lambda: cd.delta_gossip_round(
                 state, [1, 1], delta_semantics=sem,
                 strict_reference_semantics=strict), 20)
+            # the kernel alone, this kind's mode and strict reference:
+            # launches queued behind a sleeping stream
+            perm = torch.tensor([1, 1], device="cuda")
+            device_ms = {mode: queued_device_ms(
+                lambda mode=mode: cd._launch(state, perm, 0,
+                                             cm.PARTNER_GATHER, mode), 200)
+                for mode in (cd.kernel_mode(sem, strict), "reference")}
+            geom = cd.row_chunks(2, num_e, cd.sm_count(
+                torch.cuda.current_device()))
+            split = (", on the device (queued) " + ", ".join(
+                f"{m} {v * 1e3:.3f} us" for m, v in device_ms.items())
+                + f", {geom.chunks} chunks of {geom.lanes} lanes a row")
         else:
             one = type(state)(*(x[:1] for x in state))
             two = type(state)(*(x[1:] for x in state))
             kernel_ms = cuda_time_ms(lambda: cm.merge_pairwise(one, two), 20)
+            device_ms, geom = None, None
         kind = "delta" if delta else "merge"
         bound_ms, bound_by, nbytes = bridge_bound(kind, num_e, num_a)
         out[label] = {"request_ms": wall_ms, "parts_ms": parts,
-                      "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+                      "kernel_ms": kernel_ms, "device_ms": device_ms,
+                      "chunks": geom and list(geom),
+                      "bound_ms": bound_ms,
                       "bound_by": bound_by, "request_bytes": len(body),
                       "reply_bytes": len(served)}
         log(f"bridge request at E = {num_e} keys, A = {num_a}, {label} "
@@ -4011,7 +4095,7 @@ def bridge_timed(c: BridgeCheck, smi: str, tmp: str) -> dict:
             f"through the server; parts in process "
             + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
             + f" ms; {'K5' if delta else 'K3'} {kernel_ms * 1e3:.3f} us "
-            f"a launch (CUDA events), bound {bound_ms * 1e3:.3f} us "
+            f"a call (CUDA events){split}, bound {bound_ms * 1e3:.3f} us "
             f"({bound_by}, {nbytes} B) [{smi}]")
         if delta:   # (e): the state checkpointed with its dictionary
             path = os.path.join(tmp, "bridge.ckpt")
@@ -4671,7 +4755,8 @@ def phase_soak_differential(counters: Counters, smi: str) -> dict:
     res = soak.run(SOAK_MINUTES, device="cuda", log=lambda m: None)
     counts = counters.read("differential soak", at_least={
         w: 1 for w in ("ring_round_rows", "gossip_round_rows",
-                       "delta_ring_round", "ring_round_rows_packed",
+                       "delta_ring_round", "delta_gossip_round",
+                       "ring_round_rows_packed",
                        "ring_round_rows_dotpacked",
                        "delta_ring_round_packed",
                        "delta_ring_round_dotpacked")})
@@ -4682,7 +4767,8 @@ def phase_soak_differential(counters: Counters, smi: str) -> dict:
         raise AssertionError("differential soak ran no iteration")
     log(f"differential soak (cuda, {SOAK_MINUTES} min): "
         f"{res['iterations']} iterations, seeds {res['seeds'][0]}.."
-        f"{res['seeds'][1]}, R {res['R']}, E {res['E']}, A {res['A']}, "
+        f"{res['seeds'][1]}, R {res['R']}, E {res['E']}, A {res['A']} "
+        f"(K5's split rows: R {res['k5_R']}, E {res['k5_E']}), "
         f"kernels {', '.join(res['kernels'])} bitwise against their "
         f"plain versions, 0 divergences, {res['wall_s']} s; launches "
         + json.dumps({k: v for k, v in counts.items() if v})
@@ -4803,6 +4889,8 @@ def main() -> int:
                     BRIDGE_WRAPPERS[key]],
                 bridge_shape=[BRIDGE_TIMED_E, BRIDGE_TIMED_A],
                 bridge_ms=timed["kernel_ms"],
+                bridge_device_ms=timed["device_ms"],
+                bridge_chunks=timed["chunks"],
                 bridge_bound_ms=timed["bound_ms"],
                 bridge_request_ms=timed["request_ms"])
         for leg in timings["ormap"].values():

@@ -18,7 +18,7 @@
 //                   when the row's δ is empty (and not first contact);
 //   reference_loose reference arbitration with an unconditional vv join.
 // The per-lane decision (delta_lane) and the per-slot vv/processed
-// epilogue (vv_slot) exist once, below, and both kernels call them.
+// epilogue (vv_slot) exist once, below, and every kernel calls them.
 //
 // Bound: memory streaming.  At least one read and one write of the state,
 // per row at E = A = 256: 2 x 6,656 B (bool), 2 x 6,208 B (bits), 2 x
@@ -35,6 +35,21 @@
 // dst row and the partner row separately (3 x the state per round), and
 // each block's three dependent phases (vv rows, lanes, epilogue) leave no
 // load in flight between them.
+//
+// delta_rows_split (the same entries at few, long rows: the Merger
+// bridge's two-row δ pair, K8's packed rings from R = 128): a block per
+// row leaves all but R of the card's SMs idle, and each thread walks E /
+// 256 lanes of dependent loads, so the launch is bound by latency on R
+// SMs (on an H100, 125-207 us against a 1.06 us bound for the bridge's
+// pair at E = 65,536).  The rows' lanes are cut into chunks of whole
+// 32-lane words (ops/cuda_delta.row_chunks: about four blocks an SM in
+// all, no chunk under 512 lanes), a block a chunk: 4.5 us (v2) and 6.5
+// (strict) at that pair, launch latency and the grid barrier the rest.  The reference kernel tiles E the
+// same way (block_e = 512) and carries the strict empty-δ bit across its
+// E steps in scratch; here the chunks run at once, so strict reference
+// writes a bit per chunk, syncs the grid (a cooperative launch) and ORs
+// a row's bits before its vv epilogue; the other modes join the vv
+// unconditionally and chunk 0 writes it.  One launch either way.
 //
 // delta_ring_walk (K9): the ring's cycles, walked.  Under r -> (r + o) mod
 // R the rows form g = gcd(o, R) cycles of n = R / g rows; position j of
@@ -56,7 +71,11 @@
 // word.  Any R and E; A up to the dot word's 4,096 actors, where a wide
 // row's slot (vv, processed, the actor) is 32.8 KB and a warp's three
 // slots 98 KB: one warp a block, opted in past 48 KB.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -182,8 +201,84 @@ __device__ __forceinline__ void vv_slot(uint32_t x, uint32_t y,
 
 // ---------------------------------------------------------------------------
 // delta_rows: a block per row (K4, K5, K8; the dot-word layout stays
-// reachable through crdt_delta_round for comparison with K9)
+// reachable through crdt_delta_round for comparison with K9), and
+// delta_rows_split: a row's lanes over several blocks
 // ---------------------------------------------------------------------------
+
+// The dst and partner vv rows every HasDot of row r reads: staged in shared
+// memory (kSmem), else in place in device memory.  The caller syncs.
+template <bool kSmem>
+__device__ __forceinline__ void stage_vv(uint32_t* smem,
+                                         const uint32_t* __restrict__ vv,
+                                         long long r, long long p, int num_a,
+                                         const uint32_t*& dvv,
+                                         const uint32_t*& svv) {
+  dvv = kSmem ? smem : vv + r * num_a;
+  svv = kSmem ? smem + num_a : vv + p * num_a;
+  if (kSmem) {
+    for (int a = threadIdx.x; a < num_a; a += blockDim.x) {
+      smem[a] = vv[r * num_a + a];
+      smem[num_a + a] = vv[p * num_a + a];
+    }
+  }
+}
+
+// Lanes [e_lo, e_hi) of row r against partner row p, the block's threads
+// striding; e_lo is a multiple of 32 and, with bit layouts, so is e_hi
+// (store_member's ballot writes whole words).  Returns whether any of this
+// thread's lanes carries payload.
+template <int L>
+__device__ __forceinline__ int row_lanes(const Lanes& in, const OutLanes& out,
+                                         long long r, long long p,
+                                         long long e_lo, long long e_hi,
+                                         long long num_e, const uint32_t* dvv,
+                                         const uint32_t* svv, int num_a,
+                                         bool fc, int mode) {
+  int nonempty = 0;
+  const long long d0 = r * num_e, s0 = p * num_e;
+  for (long long e = e_lo + threadIdx.x; e < e_hi; e += blockDim.x) {
+    const bool valid = e < num_e;
+    bool p_out = false, d_out = false;
+    if (valid) {
+      const long long i = d0 + e, j = s0 + e;
+      LaneIn x;
+      x.dp = crdt::load_member<L>(in.present, r, e, num_e);
+      x.sp = crdt::load_member<L>(in.present, p, e, num_e);
+      x.dd = crdt::load_member<L>(in.deleted, r, e, num_e);
+      x.sd = crdt::load_member<L>(in.deleted, p, e, num_e);
+      crdt::load_dot<L>(in.dot_actor, in.dot_counter, i, x.da, x.dc);
+      crdt::load_dot<L>(in.dot_actor, in.dot_counter, j, x.sa, x.sc);
+      crdt::load_dot<L>(in.del_dot_actor, in.del_dot_counter, i, x.dxa,
+                        x.dxc);
+      crdt::load_dot<L>(in.del_dot_actor, in.del_dot_counter, j, x.sxa,
+                        x.sxc);
+      const LaneOut o = delta_lane(x, dvv, svv, num_a, fc, mode);
+      p_out = o.present;
+      d_out = o.deleted;
+      nonempty |= o.payload;
+      crdt::store_dot<L>(out.dot_actor, out.dot_counter, i, o.a, o.c);
+      crdt::store_dot<L>(out.del_dot_actor, out.del_dot_counter, i, o.xa,
+                         o.xc);
+    }
+    crdt::store_member<L>(out.present, r, e, valid, p_out, num_e);
+    crdt::store_member<L>(out.deleted, r, e, valid, d_out, num_e);
+  }
+  return nonempty;
+}
+
+// Row r's vv and processed, the block's threads striding over the A slots.
+__device__ __forceinline__ void row_epilogue(
+    const uint32_t* dvv, const uint32_t* svv,
+    const uint32_t* __restrict__ proc, long long r, long long p,
+    uint32_t s_actor, bool join, int mode, uint32_t* __restrict__ ovv,
+    uint32_t* __restrict__ oproc, int num_a) {
+  for (int a = threadIdx.x; a < num_a; a += blockDim.x) {
+    const uint32_t sproc = mode == MODE_V2 ? proc[p * num_a + a] : 0u;
+    vv_slot(dvv[a], svv[a], proc[r * num_a + a], sproc,
+            static_cast<uint32_t>(a) == s_actor, join, mode,
+            ovv[r * num_a + a], oproc[r * num_a + a]);
+  }
+}
 
 // kSmem: the vv rows staged in shared memory, else read from device
 // memory (an actor axis past the shared-memory limit, crdt::vv_rows_in_smem).
@@ -199,94 +294,171 @@ __global__ void delta_rows(
   for (long long r = blockIdx.x; r < num_r; r += gridDim.x) {
     const long long p =
         crdt::partner_row(r, partner_mode, offset, perm, num_r);
-    const uint32_t* dvv_s = kSmem ? smem : vv + r * num_a;
-    const uint32_t* svv_s = kSmem ? smem + num_a : vv + p * num_a;
-    if (kSmem) {
-      for (int a = threadIdx.x; a < num_a; a += blockDim.x) {
-        smem[a] = vv[r * num_a + a];
-        smem[num_a + a] = vv[p * num_a + a];
-      }
-    }
+    const uint32_t *dvv_s, *svv_s;
+    stage_vv<kSmem>(smem, vv, r, p, num_a, dvv_s, svv_s);
     __syncthreads();
     const uint32_t s_actor = actor[p];
     // first contact: the receiver's counter for the sender's actor is 0
     const bool fc = crdt::clock_at(dvv_s, s_actor, num_a) == 0u;
-    int nonempty = 0;
-    const long long d0 = r * num_e, s0 = p * num_e;
-    for (long long e = threadIdx.x; e < e_end; e += blockDim.x) {
-      const bool valid = e < num_e;
-      bool p_out = false, d_out = false;
-      if (valid) {
-        const long long i = d0 + e, j = s0 + e;
-        LaneIn x;
-        x.dp = crdt::load_member<L>(in.present, r, e, num_e);
-        x.sp = crdt::load_member<L>(in.present, p, e, num_e);
-        x.dd = crdt::load_member<L>(in.deleted, r, e, num_e);
-        x.sd = crdt::load_member<L>(in.deleted, p, e, num_e);
-        crdt::load_dot<L>(in.dot_actor, in.dot_counter, i, x.da, x.dc);
-        crdt::load_dot<L>(in.dot_actor, in.dot_counter, j, x.sa, x.sc);
-        crdt::load_dot<L>(in.del_dot_actor, in.del_dot_counter, i, x.dxa,
-                          x.dxc);
-        crdt::load_dot<L>(in.del_dot_actor, in.del_dot_counter, j, x.sxa,
-                          x.sxc);
-        const LaneOut o = delta_lane(x, dvv_s, svv_s, num_a, fc, mode);
-        p_out = o.present;
-        d_out = o.deleted;
-        nonempty |= o.payload;
-        crdt::store_dot<L>(out.dot_actor, out.dot_counter, i, o.a, o.c);
-        crdt::store_dot<L>(out.del_dot_actor, out.del_dot_counter, i, o.xa,
-                           o.xc);
-      }
-      crdt::store_member<L>(out.present, r, e, valid, p_out, num_e);
-      crdt::store_member<L>(out.deleted, r, e, valid, d_out, num_e);
-    }
+    const int nonempty = row_lanes<L>(in, out, r, p, 0, e_end, num_e, dvv_s,
+                                      svv_s, num_a, fc, mode);
     // the barrier also orders the lane loop before the vv epilogue
     const int any_payload = __syncthreads_or(nonempty);
     const bool join = mode != MODE_REFERENCE || fc || any_payload;
-    for (int a = threadIdx.x; a < num_a; a += blockDim.x) {
-      const uint32_t sproc = mode == MODE_V2 ? proc[p * num_a + a] : 0u;
-      vv_slot(dvv_s[a], svv_s[a], proc[r * num_a + a], sproc,
-              static_cast<uint32_t>(a) == s_actor, join, mode,
-              ovv[r * num_a + a], oproc[r * num_a + a]);
-    }
+    row_epilogue(dvv_s, svv_s, proc, r, p, s_actor, join, mode, ovv, oproc,
+                 num_a);
     __syncthreads();  // the next row overwrites the staged vv rows
   }
 }
 
+// delta_rows_split: item i = (row i / chunks, chunk i % chunks) takes the
+// row's lanes [c chunk_lanes, (c + 1) chunk_lanes) (chunk_lanes a multiple
+// of 32, so no two blocks write one membership word), blocks striding over
+// the items.  Each item stages both vv rows and computes first contact
+// itself.  v2 and reference_loose join the vv unconditionally, so chunk
+// 0's block writes the row's epilogue and the launch is an ordinary one.
+// Strict reference needs the OR of every chunk's payload bit first (the
+// reference's _strict_vv_epilogue carries it across its E steps): each
+// item writes its bit to flags[i], the grid syncs (a cooperative launch),
+// and blocks striding over the rows OR a row's bits and write its
+// epilogue from the input vv and processed.  Every item writes its flag,
+// so the per-call flag buffer needs no zeroing.
 template <int L, bool kSmem>
-int launch_rows(const void* vv, const void* processed, const Lanes& in,
-                const void* actor, const void* perm, long long offset,
-                int partner_mode, int mode, void* ovv, void* oprocessed,
-                const OutLanes& out, long long num_r, long long num_e,
-                int num_a, size_t smem, void* stream) {
-  delta_rows<L, kSmem><<<crdt::grid_for(num_r), crdt::kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(vv),
-      static_cast<const uint32_t*>(processed), in,
-      static_cast<const uint32_t*>(actor),
-      static_cast<const long long*>(perm), offset, partner_mode, mode,
-      static_cast<uint32_t*>(ovv), static_cast<uint32_t*>(oprocessed), out,
-      num_r, num_e, num_a);
+__global__ void delta_rows_split(
+    const uint32_t* __restrict__ vv, const uint32_t* __restrict__ proc,
+    Lanes in, const uint32_t* __restrict__ actor,
+    const long long* __restrict__ perm, long long offset, int partner_mode,
+    int mode, uint32_t* __restrict__ ovv, uint32_t* __restrict__ oproc,
+    OutLanes out, long long num_r, long long num_e, int num_a,
+    long long chunks, long long chunk_lanes, int* __restrict__ flags) {
+  extern __shared__ uint32_t smem[];
+  const long long e_end = crdt::lane_end<L>(num_e);
+  const bool strict = mode == MODE_REFERENCE;
+  for (long long i = blockIdx.x; i < num_r * chunks; i += gridDim.x) {
+    const long long r = i / chunks, c = i - r * chunks;
+    const long long p =
+        crdt::partner_row(r, partner_mode, offset, perm, num_r);
+    const uint32_t *dvv_s, *svv_s;
+    stage_vv<kSmem>(smem, vv, r, p, num_a, dvv_s, svv_s);
+    __syncthreads();
+    const uint32_t s_actor = actor[p];
+    const bool fc = crdt::clock_at(dvv_s, s_actor, num_a) == 0u;
+    const long long lo = c * chunk_lanes;
+    const long long hi = lo + chunk_lanes < e_end ? lo + chunk_lanes : e_end;
+    const int nonempty = row_lanes<L>(in, out, r, p, lo, hi, num_e, dvv_s,
+                                      svv_s, num_a, fc, mode);
+    const int any_payload = __syncthreads_or(nonempty);
+    if (strict) {
+      if (threadIdx.x == 0) flags[i] = any_payload;
+    } else if (c == 0) {
+      row_epilogue(dvv_s, svv_s, proc, r, p, s_actor, true, mode, ovv,
+                   oproc, num_a);
+    }
+    __syncthreads();  // the next item overwrites the staged vv rows
+  }
+  if (!strict) return;
+  cg::this_grid().sync();
+  for (long long r = blockIdx.x; r < num_r; r += gridDim.x) {
+    const long long p =
+        crdt::partner_row(r, partner_mode, offset, perm, num_r);
+    const uint32_t* dvv = vv + r * num_a;
+    const uint32_t* svv = vv + p * num_a;
+    const uint32_t s_actor = actor[p];
+    const bool fc = crdt::clock_at(dvv, s_actor, num_a) == 0u;
+    int seen = 0;
+    for (long long c = threadIdx.x; c < chunks; c += blockDim.x) {
+      seen |= flags[r * chunks + c];
+    }
+    const bool join = __syncthreads_or(seen) || fc;
+    row_epilogue(dvv, svv, proc, r, p, s_actor, join, mode, ovv, oproc,
+                 num_a);
+  }
+}
+
+// The launch arguments both kernels share.
+struct RowsArgs {
+  const uint32_t* vv;
+  const uint32_t* proc;
+  Lanes in;
+  const uint32_t* actor;
+  const long long* perm;
+  long long offset;
+  int partner_mode, mode;
+  uint32_t* ovv;
+  uint32_t* oproc;
+  OutLanes out;
+  long long num_r, num_e;
+  int num_a;
+};
+
+template <int L, bool kSmem>
+int launch_rows(const RowsArgs& a, size_t smem, cudaStream_t stream) {
+  delta_rows<L, kSmem><<<crdt::grid_for(a.num_r), crdt::kThreads, smem,
+                         stream>>>(
+      a.vv, a.proc, a.in, a.actor, a.perm, a.offset, a.partner_mode, a.mode,
+      a.ovv, a.oproc, a.out, a.num_r, a.num_e, a.num_a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int L>
-int launch(const void* vv, const void* processed, const Lanes& in,
-           const void* actor, const void* perm, long long offset,
-           int partner_mode, int mode, void* ovv, void* oprocessed,
-           const OutLanes& out, long long num_r, long long num_e, int num_a,
-           void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(num_a) * sizeof(uint32_t);
-  const int staged = crdt::vv_rows_in_smem(delta_rows<L, true>, smem);
-  if (staged < 0) return -staged;
-  if (staged) {
-    return launch_rows<L, true>(vv, processed, in, actor, perm, offset,
-                                partner_mode, mode, ovv, oprocessed, out,
-                                num_r, num_e, num_a, smem, stream);
+// The split launch: strict reference cooperatively, its grid capped at the
+// blocks the card holds at once for this instantiation and shared memory
+// (cudaLaunchCooperativeKernel refuses more); the other modes one block an
+// item.
+template <int L, bool kSmem>
+int launch_split(RowsArgs a, long long chunks, long long chunk_lanes,
+                 int* flags, size_t smem, cudaStream_t stream) {
+  const long long items = a.num_r * chunks;
+  if (a.mode != MODE_REFERENCE) {
+    delta_rows_split<L, kSmem><<<crdt::grid_for(items), crdt::kThreads, smem,
+                                 stream>>>(
+        a.vv, a.proc, a.in, a.actor, a.perm, a.offset, a.partner_mode,
+        a.mode, a.ovv, a.oproc, a.out, a.num_r, a.num_e, a.num_a, chunks,
+        chunk_lanes, flags);
+    return static_cast<int>(cudaGetLastError());
   }
-  return launch_rows<L, false>(vv, processed, in, actor, perm, offset,
-                               partner_mode, mode, ovv, oprocessed, out,
-                               num_r, num_e, num_a, 0, stream);
+  if (flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, delta_rows_split<L, kSmem>, crdt::kThreads, smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  if (resident < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const unsigned blocks =
+      static_cast<unsigned>(items < resident ? items : resident);
+  void* args[] = {&a.vv,     &a.proc, &a.in,           &a.actor,
+                  &a.perm,   &a.offset, &a.partner_mode, &a.mode,
+                  &a.ovv,    &a.oproc, &a.out,          &a.num_r,
+                  &a.num_e,  &a.num_a, &chunks,         &chunk_lanes,
+                  &flags};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(delta_rows_split<L, kSmem>),
+      dim3(blocks), dim3(crdt::kThreads), args, smem, stream));
+}
+
+// chunks == 1: a block per row (delta_rows); else delta_rows_split.  The
+// vv rows sit in shared memory where the card's opt-in limit allows.
+template <int L>
+int launch(const RowsArgs& a, long long chunks, long long chunk_lanes,
+           int* flags, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const size_t smem = 2 * static_cast<size_t>(a.num_a) * sizeof(uint32_t);
+  if (chunks <= 1) {
+    const int staged = crdt::vv_rows_in_smem(delta_rows<L, true>, smem);
+    if (staged < 0) return -staged;
+    return staged ? launch_rows<L, true>(a, smem, s)
+                  : launch_rows<L, false>(a, 0, s);
+  }
+  const int staged = crdt::vv_rows_in_smem(delta_rows_split<L, true>, smem);
+  if (staged < 0) return -staged;
+  return staged
+             ? launch_split<L, true>(a, chunks, chunk_lanes, flags, smem, s)
+             : launch_split<L, false>(a, chunks, chunk_lanes, flags, 0, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -659,18 +831,32 @@ int launch_walk(const DotRows& in, const DotOut& out, const Walk& walk,
 
 }  // namespace
 
-// layout: crdt::Layout.  With LAYOUT_DOTWORD the dot words go in the
-// dot_actor and del_dot_actor slots and the counter slots are unused.
-extern "C" int crdt_delta_round(
-    const void* vv, const void* processed, const void* present,
-    const void* dot_actor, const void* dot_counter, const void* deleted,
-    const void* del_dot_actor, const void* del_dot_counter,
-    const void* actor, const void* perm, long long offset, int partner_mode,
-    int mode, void* ovv, void* oprocessed, void* opresent,
-    void* odot_actor, void* odot_counter, void* odeleted,
-    void* odel_dot_actor, void* odel_dot_counter,
-    long long num_r, long long num_e, int num_a, int layout, void* stream) {
-  if (num_r <= 0) return 0;
+namespace {
+
+int dispatch(int layout, const RowsArgs& a, long long chunks,
+             long long chunk_lanes, int* flags, void* stream) {
+  switch (layout) {
+    case crdt::LAYOUT_BOOL:
+      return launch<crdt::LAYOUT_BOOL>(a, chunks, chunk_lanes, flags, stream);
+    case crdt::LAYOUT_BITS:
+      return launch<crdt::LAYOUT_BITS>(a, chunks, chunk_lanes, flags, stream);
+    case crdt::LAYOUT_DOTWORD:
+      return launch<crdt::LAYOUT_DOTWORD>(a, chunks, chunk_lanes, flags,
+                                          stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+RowsArgs rows_args(const void* vv, const void* processed, const void* present,
+                   const void* dot_actor, const void* dot_counter,
+                   const void* deleted, const void* del_dot_actor,
+                   const void* del_dot_counter, const void* actor,
+                   const void* perm, long long offset, int partner_mode,
+                   int mode, void* ovv, void* oprocessed, void* opresent,
+                   void* odot_actor, void* odot_counter, void* odeleted,
+                   void* odel_dot_actor, void* odel_dot_counter,
+                   long long num_r, long long num_e, int num_a) {
   const Lanes in{present,
                  static_cast<const uint32_t*>(dot_actor),
                  static_cast<const uint32_t*>(dot_counter),
@@ -683,23 +869,77 @@ extern "C" int crdt_delta_round(
                      odeleted,
                      static_cast<uint32_t*>(odel_dot_actor),
                      static_cast<uint32_t*>(odel_dot_counter)};
-  switch (layout) {
-    case crdt::LAYOUT_BOOL:
-      return launch<crdt::LAYOUT_BOOL>(vv, processed, in, actor, perm, offset,
-                                       partner_mode, mode, ovv, oprocessed,
-                                       out, num_r, num_e, num_a, stream);
-    case crdt::LAYOUT_BITS:
-      return launch<crdt::LAYOUT_BITS>(vv, processed, in, actor, perm, offset,
-                                       partner_mode, mode, ovv, oprocessed,
-                                       out, num_r, num_e, num_a, stream);
-    case crdt::LAYOUT_DOTWORD:
-      return launch<crdt::LAYOUT_DOTWORD>(vv, processed, in, actor, perm,
-                                          offset, partner_mode, mode, ovv,
-                                          oprocessed, out, num_r, num_e,
-                                          num_a, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  return RowsArgs{static_cast<const uint32_t*>(vv),
+                  static_cast<const uint32_t*>(processed),
+                  in,
+                  static_cast<const uint32_t*>(actor),
+                  static_cast<const long long*>(perm),
+                  offset,
+                  partner_mode,
+                  mode,
+                  static_cast<uint32_t*>(ovv),
+                  static_cast<uint32_t*>(oprocessed),
+                  out,
+                  num_r,
+                  num_e,
+                  num_a};
+}
+
+}  // namespace
+
+// layout: crdt::Layout.  With LAYOUT_DOTWORD the dot words go in the
+// dot_actor and del_dot_actor slots and the counter slots are unused.
+// A block per row (delta_rows).
+extern "C" int crdt_delta_round(
+    const void* vv, const void* processed, const void* present,
+    const void* dot_actor, const void* dot_counter, const void* deleted,
+    const void* del_dot_actor, const void* del_dot_counter,
+    const void* actor, const void* perm, long long offset, int partner_mode,
+    int mode, void* ovv, void* oprocessed, void* opresent,
+    void* odot_actor, void* odot_counter, void* odeleted,
+    void* odel_dot_actor, void* odel_dot_counter,
+    long long num_r, long long num_e, int num_a, int layout, void* stream) {
+  if (num_r <= 0) return 0;
+  return dispatch(
+      layout,
+      rows_args(vv, processed, present, dot_actor, dot_counter, deleted,
+                del_dot_actor, del_dot_counter, actor, perm, offset,
+                partner_mode, mode, ovv, oprocessed, opresent, odot_actor,
+                odot_counter, odeleted, odel_dot_actor, odel_dot_counter,
+                num_r, num_e, num_a),
+      1, 0, nullptr, stream);
+}
+
+// crdt_delta_round with each row's lanes split into `chunks` chunks of
+// `chunk_lanes` lanes (a multiple of 32; the last chunk ragged), the
+// geometry of ops/cuda_delta.row_chunks; chunks == 1 is crdt_delta_round.
+// Strict reference mode (mode 1) with chunks > 1 needs `flags`, an
+// int32[R * chunks] buffer of the call's own (no zeroing needed).
+extern "C" int crdt_delta_round_split(
+    const void* vv, const void* processed, const void* present,
+    const void* dot_actor, const void* dot_counter, const void* deleted,
+    const void* del_dot_actor, const void* del_dot_counter,
+    const void* actor, const void* perm, long long offset, int partner_mode,
+    int mode, void* ovv, void* oprocessed, void* opresent,
+    void* odot_actor, void* odot_counter, void* odeleted,
+    void* odel_dot_actor, void* odel_dot_counter,
+    long long num_r, long long num_e, int num_a, int layout,
+    long long chunks, long long chunk_lanes, void* flags, void* stream) {
+  if (num_r <= 0) return 0;
+  if (chunks < 1 ||
+      (chunks > 1 && (chunk_lanes < 32 || chunk_lanes % 32 ||
+                      (chunks - 1) * chunk_lanes >= num_e ||
+                      chunks * chunk_lanes < num_e))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return dispatch(
+      layout,
+      rows_args(vv, processed, present, dot_actor, dot_counter, deleted,
+                del_dot_actor, del_dot_counter, actor, perm, offset,
+                partner_mode, mode, ovv, oprocessed, opresent, odot_actor,
+                odot_counter, odeleted, odel_dot_actor, odel_dot_counter,
+                num_r, num_e, num_a),
+      chunks, chunk_lanes, static_cast<int*>(flags), stream);
 }
 
 // K9: the dot-word ring round on delta_ring_walk.  offset is already in

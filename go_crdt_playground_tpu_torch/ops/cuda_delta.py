@@ -16,8 +16,11 @@ Kernels and the Pallas kernels they replace
                                        kernel: warps walk segments of the
                                        ring's cycles (``ring_segments``).
 
-All take the three δ semantics of the JAX package: v2, reference
-(strict: the empty-δ vv skip) and reference_loose.  Dispatch, checks and
+K4, K5 and K8 run a block per row, or, where R rows would leave most
+SMs idle (the Merger bridge's two-row pair), each row's lanes split over
+blocks (``row_chunks``).  All take the three δ semantics of the JAX
+package: v2, reference (strict: the empty-δ vv skip) and
+reference_loose.  Dispatch, checks and
 launch counting follow ops/cuda_merge.py; the plain version is
 ``delta_round_plain`` below on whole [R, E] tensors, built from
 ops/delta.py (the packed entries unpack, run it and pack).
@@ -39,7 +42,8 @@ from go_crdt_playground_tpu_torch.ops import delta as delta_ops
 from go_crdt_playground_tpu_torch.ops.cuda_merge import (
     LAYOUT_BITS, LAYOUT_DOTWORD, PARTNER_GATHER,
     PARTNER_RING, _count_lock, as_index, check_ring_rows, check_state,
-    layout_of, out_like, ptr, ring_index, stream_of, use_kernel)
+    device_guard, layout_of, out_like, ptr, ring_index, stream_of,
+    use_kernel)
 
 MODES = {"v2": 0, "reference": 1, "reference_loose": 2}
 # K9's segment length L: a segment reads L + 1 rows for L outputs, so a
@@ -121,6 +125,52 @@ def segment_rows(geom: RingSegments, q: int) -> List[int]:
             for m in range(length + 1)]
 
 
+# delta_rows_split's geometry (row_chunks): the blocks a launch aims at
+# per SM, the fewest lanes a chunk takes, and the longest row that stays
+# one block (four passes of its 256 threads; the serve tier's E = 1,024).
+# Tuned on an H100 (tools/torch_delta_ab.py --legs pair, its sweep): 4 x
+# 512 was fastest or tied at the bridge pair, 2 x 2^20 and R = 32, 128
+# at E = 65,536; 256-lane chunks slowed strict reference at the pair.
+FILL_BLOCKS_PER_SM = 4
+MIN_CHUNK_LANES = 512
+WHOLE_ROW_LANES = 1024
+
+
+class RowChunks(NamedTuple):
+    """How K4, K5 and K8 cut a row's E lanes over blocks: ``chunks`` a
+    row, ``lanes`` a chunk (a multiple of 32, the last chunk ragged).
+    chunks == 1 is a block per row (``lanes`` = E)."""
+    chunks: int
+    lanes: int
+
+
+def row_chunks(num_r: int, num_e: int, num_sms: int,
+               fill: int = FILL_BLOCKS_PER_SM,
+               min_lanes: int = MIN_CHUNK_LANES) -> RowChunks:
+    """The split of R rows of E lanes over a card of ``num_sms`` SMs:
+    one block a row where R fills ``fill`` blocks an SM or a row holds at
+    most WHOLE_ROW_LANES lanes; else enough chunks a row for R x chunks
+    to reach ``fill`` x SMs, each of whole 32-lane words (no two blocks
+    write one membership word) and at least ``min_lanes``."""
+    if num_r < 1 or num_e < 0 or num_sms < 1:
+        raise ValueError(f"need R >= 1, E >= 0 and SMs >= 1, got R={num_r},"
+                         f" E={num_e}, SMs={num_sms}")
+    target = fill * num_sms
+    if num_r >= target or num_e <= WHOLE_ROW_LANES:
+        return RowChunks(1, num_e)
+    want = -(-target // num_r)
+    lanes = max(min_lanes, -(-num_e // want))
+    lanes = -(-lanes // 32) * 32
+    chunks = -(-num_e // lanes)
+    return RowChunks(chunks, lanes) if chunks > 1 else RowChunks(1, num_e)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _delta_lanes(state):
     """The six E-shaped lane pointers' tensors in the kernel's order;
     the dot-word layout fills the counter slots with None."""
@@ -143,27 +193,47 @@ def _lib() -> ctypes.CDLL:
         [_P] * 10 + [_I64, _I32, _I32] + [_P] * 8
         + [_I64, _I64, _I32, _I32, _P])
     lib.crdt_delta_round.restype = ctypes.c_int
+    lib.crdt_delta_round_split.argtypes = (
+        [_P] * 10 + [_I64, _I32, _I32] + [_P] * 8
+        + [_I64, _I64, _I32, _I32, _I64, _I64, _P, _P])
+    lib.crdt_delta_round_split.restype = ctypes.c_int
     lib.crdt_delta_ring_dotword.argtypes = (
         [_P] * 13 + [_I64] * 4 + [_I32, _I32, _I64, _I64, _I32, _P])
     lib.crdt_delta_ring_dotword.restype = ctypes.c_int
     return lib
 
 
-def _launch(state, perm, offset: int, partner_mode: int, mode: str):
+def _launch(state, perm, offset: int, partner_mode: int, mode: str,
+            lib: ctypes.CDLL = None, geom: RowChunks = None):
+    """One launch of K4/K5/K8's kernel (``lib``: a build of csrc/delta.cu,
+    the package's by default; ``geom``: row_chunks for the card's SMs by
+    default): a block per row through ``crdt_delta_round``, or split rows
+    through ``crdt_delta_round_split``, whose strict reference mode takes
+    a flag buffer of the call's own."""
     check_state(state)
     num_r, num_a = state.vv.shape
+    num_e = packed.num_elements(state)
+    dev = state.vv.device
+    geom = geom or row_chunks(num_r, num_e, sm_count(dev.index))
     outs = out_like(state)
-    lib = _lib()
-    with torch.cuda.device(state.vv.device):
-        rc = lib.crdt_delta_round(
-            ptr(state.vv), ptr(state.processed),
-            *map(ptr, _delta_lanes(state)), ptr(state.actor),
-            ptr(perm), offset, partner_mode, MODES[mode],
-            ptr(outs.vv), ptr(outs.processed),
-            *map(ptr, _delta_lanes(outs)),
-            num_r, packed.num_elements(state), num_a, layout_of(state),
-            stream_of(state.vv))
-    _build.check(lib, rc, "crdt_delta_round")
+    lib = lib or _lib()
+    args = (ptr(state.vv), ptr(state.processed),
+            *map(ptr, _delta_lanes(state)), ptr(state.actor), ptr(perm),
+            offset, partner_mode, MODES[mode], ptr(outs.vv),
+            ptr(outs.processed), *map(ptr, _delta_lanes(outs)), num_r,
+            num_e, num_a, layout_of(state))
+    with device_guard(dev):
+        if geom.chunks == 1:
+            what = "crdt_delta_round"
+            rc = lib.crdt_delta_round(*args, stream_of(state.vv))
+        else:
+            what = "crdt_delta_round_split"
+            flags = (torch.empty(num_r * geom.chunks, dtype=torch.int32,
+                                 device=dev)
+                     if mode == "reference" else None)
+            rc = lib.crdt_delta_round_split(*args, geom.chunks, geom.lanes,
+                                            ptr(flags), stream_of(state.vv))
+    _build.check(lib, rc, what)
     return outs
 
 

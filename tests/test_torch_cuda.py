@@ -1057,8 +1057,8 @@ def test_soak_differential_on_cuda(seed0):
     soak = _soak_module()
     wrappers = (cm.ring_round_rows, cm.gossip_round_rows,
                 cm.ring_round_rows_packed, cm.ring_round_rows_dotpacked,
-                cd.delta_ring_round, cd.delta_ring_round_packed,
-                cd.delta_ring_round_dotpacked)
+                cd.delta_ring_round, cd.delta_gossip_round,
+                cd.delta_ring_round_packed, cd.delta_ring_round_dotpacked)
     before = [w.launches for w in wrappers]
     res = soak.run(10.0, device="cuda", seed0=seed0, iterations=12,
                    log=lambda m: None)
@@ -1084,3 +1084,146 @@ def test_example_runs_on_cuda(name):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
     assert "cuda" in proc.stdout
+
+
+# -- K4, K5, K8 on few, long rows: the lanes split over blocks ----------------
+
+SPLIT_E = [31, 4097, 65_536, 65_537, 1 << 20]
+SPLIT_A = [5, 256, 8193, 29057]
+
+
+def _scenario_on_gpu(name, R, E, A, seed):
+    from go_crdt_playground_tpu_torch import fleet
+
+    _needs_gpu()
+    arrays, perm = fleet.delta_scenario(name, R, E, A, seed)
+    return (awset_delta.from_arrays(arrays, device="cuda"),
+            torch.from_numpy(perm).cuda())
+
+
+@pytest.mark.parametrize("A", SPLIT_A)
+@pytest.mark.parametrize("E", SPLIT_E)
+def test_k5_split_rows_match_plain(E, A):
+    """K5 at R in {1, 2, 3, 5} on every fleet.delta_scenario (the strict
+    skip with an empty δ, its one payload lane in the first or the last
+    chunk, first contact, the bridge's [1, 1] pair, mixed histories) in
+    the three modes, bitwise to the plain version: rows split over
+    blocks from E = 4,097, vv rows in shared memory, opted in (A =
+    8,193) and in device memory (A = 29,057)."""
+    from go_crdt_playground_tpu_torch import fleet
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+
+    for R in (1, 2, 3, 5):
+        for name in fleet.DELTA_SCENARIOS:
+            st, perm = _scenario_on_gpu(name, R, E, A, seed=R + E + A)
+            for sem, strict in MODES:
+                kw = dict(delta_semantics=sem,
+                          strict_reference_semantics=strict)
+                assert _equal(
+                    cd.delta_gossip_round(st, perm, kernel="cuda", **kw),
+                    cd.delta_gossip_round(st, perm, kernel="torch", **kw)), \
+                    (R, name, sem, strict)
+    torch.cuda.synchronize()
+
+
+def test_k4_k8_split_rows_match_plain():
+    """K4 and K8 at R = 128, E = 65,537 (five chunks a row on an H100),
+    three modes, three ring offsets, mixed, empty and last-chunk-payload
+    states, bitwise to the plain versions."""
+    from go_crdt_playground_tpu_torch.models import packed
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+
+    R, E = 128, 65_537
+    for name in ("mixed", "empty", "payload_last"):
+        st, _ = _scenario_on_gpu(name, R, E, 8, seed=5)
+        assert cd.row_chunks(R, E, cd.sm_count(0)).chunks > 1
+        bits = packed.pack_awset_delta(st)
+        for sem, strict in MODES:
+            kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+            for off in (1, 64, 127):
+                assert _equal(
+                    cd.delta_ring_round(st, off, kernel="cuda", **kw),
+                    cd.delta_ring_round(st, off, kernel="torch", **kw)), \
+                    ("K4", name, sem, off)
+                assert _equal(
+                    cd.delta_ring_round_packed(bits, off, kernel="cuda",
+                                               **kw),
+                    cd.delta_ring_round_packed(bits, off, kernel="torch",
+                                               **kw)), ("K8", name, sem, off)
+    torch.cuda.synchronize()
+
+
+def test_k5_split_rows_raise_on_a_bad_geometry():
+    """A geometry that leaves lanes uncovered is refused by the launch and
+    raised through the wrapper: no path falls back."""
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+    from go_crdt_playground_tpu_torch.ops.cuda_merge import PARTNER_GATHER
+
+    st, perm = _scenario_on_gpu("mixed", 2, 4097, 5, seed=1)
+    for mode in cd.MODES:
+        with pytest.raises(RuntimeError, match="crdt_delta_round_split"):
+            cd._launch(st, perm, 0, PARTNER_GATHER, mode,
+                       geom=cd.RowChunks(2, 512))
+
+
+def test_k5_is_one_kernel_a_call_without_memset():
+    """The bridge's pair (R = 2, E = 65,536) split over blocks: each K5
+    call is one device kernel (delta_rows_split) in every mode, and no
+    memset runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from go_crdt_playground_tpu_torch.ops import cuda_delta as cd
+
+    st, perm = _scenario_on_gpu("pair", 2, 65_536, 256, seed=3)
+    for sem, strict in MODES:
+        kw = dict(delta_semantics=sem, strict_reference_semantics=strict)
+        cd.delta_gossip_round(st, perm, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                cd.delta_gossip_round(st, perm, **kw)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum("delta_rows_split" in n for n in names) == 4, names
+        assert not any("delta_rows<" in n or "memset" in n.lower()
+                       for n in names), names
+
+
+def test_k5_from_two_threads_on_their_own_streams():
+    """Two threads, each on its own stream, run the bridge's one-pair δ
+    merge (strict reference, rows split) at once, 30 times each; every
+    result equals the CPU plain version of its own pair."""
+    import threading
+
+    from go_crdt_playground_tpu_torch.ops import delta as delta_ops
+
+    _needs_gpu()
+    pairs = []
+    for seed in (11, 12):
+        st, _ = _scenario_on_gpu("mixed", 2, 65_536, 256, seed)
+        cpu = type(st)(*(x.cpu() for x in st))
+        want = delta_ops.delta_merge_one_into(cpu, 0, cpu, 1, "reference",
+                                              True)
+        pairs.append((st, type(want)(*(x.cuda() for x in want))))
+    errors = []
+
+    def run(st, want):
+        stream = torch.cuda.Stream()
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(30):
+                    got = delta_ops.delta_merge_one_into(st, 0, st, 1,
+                                                         "reference", True)
+                    stream.synchronize()
+                    if not _equal(got, want):
+                        errors.append("differs")
+        except Exception as exc:  # reported on the main thread
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=run, args=p) for p in pairs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors

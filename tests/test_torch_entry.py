@@ -309,7 +309,7 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "130 skipped" in out.stdout or "130 passed" in out.stdout, \
+    assert "154 skipped" in out.stdout or "154 passed" in out.stdout, \
         out.stdout
 
 

@@ -120,3 +120,23 @@ def test_cuda_is_the_default_and_needs_a_gpu():
         pytest.skip("a GPU is present: the default device is served")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         soak.main(["1", "--iterations", "1"])
+
+
+@pytest.mark.parametrize("seed", range(0, 40, 5))
+def test_k5_leg_draws_few_long_rows_of_its_own(seed):
+    """The card's K5 leg draws R 1-8, E 8-70,000, A 2-256 and a perm of
+    rows in range, the same from the same seed, from a stream that
+    leaves the reference draws (``draw``) as they were."""
+    before = soak.draw(seed)
+    k = soak.draw_k5(seed)
+    assert 1 <= k["R"] <= 8 and 8 <= k["E"] <= 70_000 and 2 <= k["A"] <= 256
+    assert k["perm"].shape == (k["R"],)
+    assert ((k["perm"] >= 0) & (k["perm"] < k["R"])).all()
+    assert k["delta"]["present"].shape == (k["R"], k["E"])
+    again = soak.draw_k5(seed)
+    for name, v in k["delta"].items():
+        assert np.array_equal(v, again["delta"][name]), name
+    after = soak.draw(seed)
+    assert np.array_equal(before["perm"], after["perm"])
+    for name, v in before["delta"].items():
+        assert np.array_equal(v, after["delta"][name]), name

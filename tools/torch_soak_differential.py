@@ -21,7 +21,12 @@ On a CUDA device each iteration
     ``ring_round_rows``, K6 ``ring_round_rows_packed``, K7
     ``ring_round_rows_dotpacked``, K2 ``gossip_round_rows`` (random and
     butterfly permutations), K4 ``delta_ring_round`` (v2 and strict), K8
-    ``delta_ring_round_packed`` and K9 ``delta_ring_round_dotpacked``.
+    ``delta_ring_round_packed`` and K9 ``delta_ring_round_dotpacked``;
+  * holds K5 ``delta_gossip_round`` against its plain version in the
+    three δ modes on few, long rows, where the kernel splits a row's
+    lanes over blocks (R 1-8, E 8-70,000, A 2-256, a random perm with
+    repeats and self-partners), drawn by ``draw_k5`` from a generator of
+    its own, so ``draw(seed)`` stays the reference tool's.
 
 On the CPU (``--device cpu``) the same plain versions are held against
 the JAX package's XLA rounds and its Pallas kernels in interpret mode;
@@ -47,7 +52,7 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 # the kernels an iteration holds against their plain versions on CUDA
-KERNELS = ("K1", "K2", "K4", "K6", "K7", "K8", "K9")
+KERNELS = ("K1", "K2", "K4", "K5", "K6", "K7", "K8", "K9")
 
 
 class Divergence(AssertionError):
@@ -101,6 +106,18 @@ def draw(seed: int) -> dict:
     delta = _rand_delta_state(rng, num_r, num_e, num_a)
     return {"R": num_r, "E": num_e, "A": num_a, "offset": offset,
             "full": full, "perm": perm, "stage": stage, "delta": delta}
+
+
+def draw_k5(seed: int) -> dict:
+    """The K5 leg's shape, δ state and perm from ``seed``, on a stream of
+    its own (``draw(seed)`` is untouched)."""
+    rng = np.random.default_rng([seed, 5])
+    num_r = int(rng.integers(1, 9))
+    num_e = int(rng.integers(8, 70_001))
+    num_a = int(rng.integers(2, 257))
+    return {"R": num_r, "E": num_e, "A": num_a,
+            "delta": _rand_delta_state(rng, num_r, num_e, num_a),
+            "perm": rng.integers(0, num_r, num_r)}
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +265,24 @@ def one_iteration(seed: int, device, jx=None) -> dict:
     if jx is not None:
         _against_jax(jx, d, want, ring_p, bits_p, dots_p, perm_p, dring_p,
                      dbits_p, ddots_p, swant)
-    return {"R": num_r, "E": num_e, "A": d["A"]}
+    shape = {"R": num_r, "E": num_e, "A": d["A"]}
+    if on_card:
+        k = draw_k5(seed)
+        kst = awset_delta.from_arrays(k["delta"], device=device)
+        kperm = torch.from_numpy(k["perm"]).to(device)
+        for sem, strict in (("v2", True), ("reference", True),
+                            ("reference", False)):
+            kw = {"delta_semantics": sem,
+                  "strict_reference_semantics": strict}
+            assert_equal(
+                cuda_delta.delta_gossip_round(kst, kperm, kernel="torch",
+                                              **kw),
+                cuda_delta.delta_gossip_round(kst, kperm, kernel="cuda",
+                                              **kw),
+                f"K5 split rows R={k['R']} E={k['E']} A={k['A']} {sem} "
+                f"strict={strict}")
+        shape["k5"] = [k["R"], k["E"], k["A"]]
+    return shape
 
 
 def _against_jax(jx, d, want, ring_p, bits_p, dots_p, perm_p, dring_p,
@@ -338,6 +372,12 @@ def run(minutes: float, device="cuda", seed0=None, iterations=None,
         if shapes else None,
         "A": [min(s["A"] for s in shapes), max(s["A"] for s in shapes)]
         if shapes else None,
+        "k5_R": [min(s["k5"][0] for s in shapes),
+                 max(s["k5"][0] for s in shapes)]
+        if shapes and dev.type == "cuda" else None,
+        "k5_E": [min(s["k5"][1] for s in shapes),
+                 max(s["k5"][1] for s in shapes)]
+        if shapes and dev.type == "cuda" else None,
         "kernels": list(KERNELS) if dev.type == "cuda" else [],
         "against": ("plain versions" if dev.type == "cuda"
                     else "JAX XLA and Pallas (interpret)"),
