@@ -145,6 +145,21 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      iterations, shape ranges and kernels covered printed, any
      divergence failing the run; (c) examples/torch_quickstart.py and
      examples/torch_tcp_sync.py run as a user runs them (``OK``);
+ 17. the fault soaks on the card: (a) tools/torch_crash_soak.py --quick
+     --device cuda --detect-races (3 CUDA worker processes with durable
+     dirs, SIGKILLed at kill rates 0 and 0.25, torn WAL tails and a
+     bit-flipped newest checkpoint, restarts handed to warm spares):
+     every run converged, no δ loss outside the documented windows,
+     kills, the checkpoint fallback, both WAL record modes written and
+     records replayed, no lockset race and no unexpected worker exit;
+     then one restart on a checkpoint and a WAL tail timed from the spawn
+     of a fresh process and from the hand-off to a warm spare; (b)
+     tools/torch_chaos_soak.py's severity curve (--quick --detect-races)
+     on CUDA nodes, converged at each severity with no race, and its
+     digest chaos leg at the full fleet (6 x 60) with the fault census
+     equal to SYNC_CURVE.json's, K11 counted; (c) tools/torch_fleet_soak.py
+     --device cuda: 8 CUDA worker processes through lossy proxies on one
+     union and one vv, with lost exchanges and cut connections;
 and, after phase 2, phase 2b: the ingest kernel (K10, the whole entry in
 one launch) against its plain version over E x A x B x K (one block up
 to E = 4,096, the cooperative grid above), densities, padding patterns,
@@ -163,6 +178,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -237,6 +253,41 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def load_tool(name: str):
+    """Import ``tools/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_tool(argv, timeout: int):
+    """Run a tool in a session of its own; on timeout kill the whole
+    group (the tool and the worker processes it spawned).  Returns the
+    completed process, its output captured."""
+    proc = subprocess.Popen([sys.executable, *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"{argv[0]} timed out after {timeout} s: "
+                             f"{out[-3000:]} {err[-3000:]}") from None
+    finally:
+        # a worker left behind by a tool that died is killed too
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
 
 
 def max_abs_err(got, want, what: str) -> int:
@@ -2145,126 +2196,6 @@ def phase_serve_soak(smi: str):
     log("serve soak: " + json.dumps(res))
 
 
-def wait_served(nodes, timeout: float = 10.0) -> None:
-    """Wait until no node is serving an exchange.  A server records its
-    counters after its last send, so a count read as soon as the client
-    returns could miss the server's half."""
-    deadline = time.monotonic() + timeout
-    while any(n._conn_slots._value < n._conn_slots._initial_value
-              for n in nodes):
-        if time.monotonic() > deadline:
-            raise AssertionError("a served exchange did not finish")
-        time.sleep(0.0005)
-
-
-def sync_traffic_leg(sync_mode: str, n_nodes: int, n_elements: int,
-                     ops_per_round: int, traffic_rounds: int, seed: int,
-                     quiescent_rounds: int = 4, settle_rounds: int = 20,
-                     device="cuda"):
-    """tools/chaos_soak.py's ``run_traffic_leg`` on the port's nodes: a
-    clean-network fleet, each node serving on 127.0.0.1 and driven by a
-    ``SyncSupervisor`` (fanout 1, no pacing) in lockstep rounds, under a
-    seeded op stream.  Phases: seed state and converge (first-contact
-    FULLs land here), ``traffic_rounds`` rounds each after
-    ``ops_per_round`` ops, settle rounds until converged, then
-    ``quiescent_rounds`` rounds of a converged fleet.  Returns the tool's
-    numbers and every node's final state (on the CPU)."""
-    from go_crdt_playground_tpu_torch.net import digestsync
-    from go_crdt_playground_tpu_torch.net.antientropy import SyncSupervisor
-    from go_crdt_playground_tpu_torch.net.peer import Node
-    from go_crdt_playground_tpu_torch.utils.backoff import BackoffPolicy
-
-    if sync_mode == "digest":
-        digestsync.warm(Node(0, n_elements, n_nodes, device=device))
-    tallies = [Tally() for _ in range(n_nodes)]
-    nodes = [Node(i, n_elements, n_nodes, recorder=tallies[i], device=device)
-             for i in range(n_nodes)]
-    supervisors = []
-    rng = np.random.default_rng(seed)
-
-    def total(*names):
-        return sum(t.counter(n) for t in tallies for n in names)
-
-    def fleet_bytes():
-        # every byte once, at its sender
-        return total("sync.bytes_sent", "digest.bytes_sent")
-
-    try:
-        addrs = [n.serve() for n in nodes]
-        policy = BackoffPolicy(base_s=0.005, cap_s=0.05, max_retries=2)
-        for i in range(n_nodes):
-            supervisors.append(SyncSupervisor(
-                nodes[i], [addrs[j] for j in range(n_nodes) if j != i],
-                policy=policy, sync_timeout_s=5.0, fanout=1, interval_s=0.0,
-                sync_mode=sync_mode, recorder=tallies[i],
-                seed=seed * 100 + i))
-
-        def lockstep():
-            for sup in supervisors:
-                sup.sync_round()
-            wait_served(nodes)
-
-        def converged():
-            m0 = set(nodes[0].members().tolist())
-            vv0 = nodes[0].vv()
-            return all(set(n.members().tolist()) == m0
-                       and np.array_equal(n.vv(), vv0) for n in nodes[1:])
-
-        def inject(n_ops):
-            for _ in range(n_ops):
-                node = nodes[int(rng.integers(n_nodes))]
-                if rng.random() < 0.35:
-                    members = node.members()
-                    if len(members):
-                        node.delete(int(rng.choice(members)))
-                        continue
-                node.add(int(rng.integers(n_elements)))
-
-        inject(2 * n_nodes)
-        for _ in range(settle_rounds):
-            lockstep()
-            if converged():
-                break
-        if not converged():
-            raise AssertionError(f"sync fleet ({sync_mode}, {device}) failed "
-                                 "to converge on its seed state")
-        b0 = fleet_bytes()
-        measured = 0
-        for _ in range(traffic_rounds):
-            inject(ops_per_round)
-            lockstep()
-            measured += 1
-        settle = 0
-        while not converged() and settle < settle_rounds:
-            lockstep()
-            measured += 1
-            settle += 1
-        conv = converged()
-        divergent_bytes = fleet_bytes() - b0
-        bq, lanes0 = fleet_bytes(), total("digest.lanes_sent")
-        q0, fb0 = total("digest.quiescent"), total("digest.fallback_delta")
-        for _ in range(quiescent_rounds):
-            lockstep()
-        stats = {
-            "sync_mode": sync_mode, "converged": conv, "rounds": measured,
-            "settle_rounds": settle, "bytes": divergent_bytes,
-            "bytes_per_round": round(divergent_bytes / max(1, measured), 1),
-            "quiescent_bytes_per_round": round(
-                (fleet_bytes() - bq) / max(1, quiescent_rounds), 1),
-            "quiescent_state_lanes": total("digest.lanes_sent") - lanes0,
-            "quiescent_exchanges": total("digest.quiescent") - q0,
-            "delta_fallbacks": total("digest.fallback_delta") - fb0,
-        }
-        states = [type(s)(*(x.cpu() for x in s))
-                  for s in (n.state_slice() for n in nodes)]
-        return stats, states
-    finally:
-        for sup in supervisors:
-            sup.stop(timeout=1.0)
-        for n in nodes:
-            n.close()
-
-
 def digest_bounds(E: int, gs: int, fingerprints: bool = False):
     """K11's least time: bytes (two bool bytes and two uint32 words read
     a lane; a uint32 written a group, or a lane for the fingerprints
@@ -2348,7 +2279,9 @@ def phase_sync_fleet(counters: Counters, smi: str):
     size) on CUDA nodes in both sync modes at both op rates, and the same
     legs on CPU nodes: converged, no state lanes and no δ fallback in the
     quiescent rounds of the digest regime, the same numbers and final
-    states as the CPU fleet."""
+    states as the CPU fleet.  The legs are the tool's
+    (tools/torch_chaos_soak.run_traffic_leg)."""
+    soak = load_tool("torch_chaos_soak")
     legs = []
     for rate in SYNC_RATES:
         pair = {}
@@ -2357,12 +2290,12 @@ def phase_sync_fleet(counters: Counters, smi: str):
                     SYNC_QUIESCENT, SYNC_SETTLE)
             counters.reset()
             t0 = time.perf_counter()
-            gpu, gpu_states = sync_traffic_leg(*args, device="cuda")
+            gpu, gpu_states = soak.run_traffic_leg(*args, device="cuda")
             wall = time.perf_counter() - t0
             counters.read(f"sync fleet {mode} {rate} ops/round",
                           at_least={"state_group_digests": 1}
                           if mode == "digest" else None)
-            cpu, cpu_states = sync_traffic_leg(*args, device="cpu")
+            cpu, cpu_states = soak.run_traffic_leg(*args, device="cpu")
             if not gpu["converged"]:
                 raise AssertionError(f"sync fleet {mode} {rate}: not "
                                      "converged")
@@ -2879,9 +2812,7 @@ def run_checked_tool(argv, timeout: int, what: str) -> dict:
     try:
         out = f"{tmp}/out.json"
         t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, *argv, "--out", out],
-                             capture_output=True, text=True,
-                             timeout=timeout)
+        run = run_tool([*argv, "--out", out], timeout)
         wall = time.perf_counter() - t0
         if run.returncode not in (0, 1) or not os.path.exists(out):
             raise AssertionError(f"{what} failed (rc {run.returncode}): "
@@ -4694,8 +4625,10 @@ KERNELS = [
 # phase 16: the static gate, the differential soak and the examples
 # ---------------------------------------------------------------------------
 
-# the soak's time on the card (minutes)
-SOAK_MINUTES = 1.0
+# the soak's time on the card (minutes): half a minute since the fault
+# soaks joined (phase 17), to keep the script within its budget; every
+# kernel the soak covers still launches in each iteration
+SOAK_MINUTES = 0.5
 # the examples a switching user runs first, each printing "OK"
 EXAMPLES = ("examples/torch_quickstart.py", "examples/torch_tcp_sync.py")
 
@@ -4743,14 +4676,7 @@ def phase_soak_differential(counters: Counters, smi: str) -> dict:
     """16b: tools/torch_soak_differential.py in process for
     SOAK_MINUTES on the card; every kernel it covers launched, no
     divergence."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "torch_soak_differential",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                     "torch_soak_differential.py"))
-    soak = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(soak)
+    soak = load_tool("torch_soak_differential")
     counters.reset()
     res = soak.run(SOAK_MINUTES, device="cuda", log=lambda m: None)
     counts = counters.read("differential soak", at_least={
@@ -4801,6 +4727,273 @@ def phase_tools(counters: Counters, smi: str) -> None:
     timed_phase(walls, "16a", phase_static_gate, counters, smi)
     timed_phase(walls, "16b", phase_soak_differential, counters, smi)
     timed_phase(walls, "16c", phase_examples, smi)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the fault soaks on the card
+# ---------------------------------------------------------------------------
+
+# the restart leg's durable dir: tools/torch_crash_soak.py --quick's node
+# shape, acked adds before and after its one checkpoint
+RESTART_NODES, RESTART_ELEMENTS = 3, 24
+RESTART_CHECKPOINTED, RESTART_TAIL = (0, 1, 2), (3, 4)
+
+
+def crash_sweep_checks(art: dict) -> list:
+    """17a's verdict on the crash soak's artifact: each check that fails,
+    by name.  The tool's own exit rule, and no unexpected worker exit (a
+    worker dead of a CUDA fault and respawned must not pass)."""
+    curve = art["curve"]
+    faulted = [e for e in curve if e["kill_rate"] > 0]
+    modes = art["wal_record_modes"]
+    checks = {
+        "converged": all(e["converged_runs"] == e["seeds"] for e in curve),
+        "delta_loss": all(e["delta_loss_violations"] == 0 for e in curve),
+        "kills": bool(faulted) and all(e["kills"] > 0 for e in faulted),
+        "fallback": any(e["corruption_injected"]
+                        and e["restore_counters"].get("restore.fallbacks",
+                                                      0) > 0
+                        for e in faulted),
+        "compact_records": modes.get("wal.compact_records", 0) > 0,
+        "dense_records": modes.get("wal.dense_records", 0) > 0,
+        "replays": (modes.get("wal.replayed_compact", 0)
+                    + modes.get("wal.replayed_dense", 0)) > 0,
+        "races": art.get("race_detection", {}).get("races") == [],
+        "unexpected_exits": all(e["unexpected_exits"] == 0 for e in curve),
+    }
+    return [name for name, ok in checks.items() if not ok]
+
+
+def first_status(proc, status_path: str, what: str) -> dict:
+    """Poll for ``status.json`` written by ``proc``; fails if the worker
+    exits or two minutes pass first."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            with open(status_path) as f:
+                st = json.load(f)
+            if st["pid"] == proc.pid:
+                return st
+        except (OSError, ValueError):
+            pass
+        if proc.poll() is not None:
+            raise AssertionError(f"{what}: worker exited rc "
+                                 f"{proc.returncode}")
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError(f"{what}: no status in 120 s")
+        time.sleep(0.005)
+
+
+def stop_worker(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def restart_seconds(device: str = "cuda") -> dict:
+    """A crash-soak worker restarted on a durable dir that holds a
+    checkpoint and a WAL tail (RESTART_CHECKPOINTED in generation 1,
+    RESTART_TAIL after it, all acked): seconds to the restored
+    incarnation's first ``status.json`` from the spawn of a fresh
+    process (``cold_s``) and from the hand-off to a warm spare
+    (``spare_s``, how the soak restarts).  Each status must show the
+    checkpoint's generation, the tail replayed, every acked add a member
+    and none lost."""
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.utils.checkpoint import CheckpointStore
+
+    soak = load_tool("torch_crash_soak")
+    root = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    d = os.path.join(root, "node-0")
+    procs = []
+    out = {}
+    try:
+        node = Node.restore_durable(
+            d, device=device, fallback_init=lambda: Node(
+                0, RESTART_ELEMENTS, RESTART_NODES, device=device))
+        for e in RESTART_CHECKPOINTED:
+            node.add(e)
+        node.save_durable(CheckpointStore(d))
+        for e in RESTART_TAIL:
+            node.add(e)
+        node.wal.close()
+        node.close()
+        acked = [*RESTART_CHECKPOINTED, *RESTART_TAIL]
+        with open(os.path.join(d, "progress.txt"), "w") as f:
+            f.writelines(f"{e}\n" for e in acked)
+        snapshot = os.path.join(root, "snapshot")
+        shutil.copytree(d, snapshot)
+        argv = soak.worker_argv(d, 0, RESTART_NODES, RESTART_ELEMENTS,
+                                soak._free_port(), "", device)
+        spare = subprocess.Popen(
+            soak.spare_argv(root, RESTART_NODES, RESTART_ELEMENTS, device),
+            stdin=subprocess.PIPE, stdout=subprocess.DEVNULL)
+        procs.append(spare)
+        t0 = time.perf_counter()
+        cold = subprocess.Popen(argv, stdout=subprocess.DEVNULL)
+        procs.append(cold)
+        out["cold"] = first_status(cold, os.path.join(d, "status.json"),
+                                   "cold restart")
+        out["cold_s"] = time.perf_counter() - t0
+        stop_worker(cold)
+        shutil.rmtree(d)
+        shutil.copytree(snapshot, d)
+        while not soak.spare_ready(root, spare.pid):
+            if spare.poll() is not None or time.perf_counter() - t0 > 120:
+                raise AssertionError("restart: the spare never got warm")
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        spare.stdin.write((json.dumps(argv[2:]) + "\n").encode())
+        spare.stdin.close()
+        out["spare"] = first_status(spare, os.path.join(d, "status.json"),
+                                    "spare restart")
+        out["spare_s"] = time.perf_counter() - t0
+    finally:
+        for proc in procs:
+            stop_worker(proc)
+        shutil.rmtree(root, ignore_errors=True)
+    for key in ("cold", "spare"):
+        st = out[key]
+        if (st["generation"] < 1
+                or st["counters"].get("wal.records", 0) != len(RESTART_TAIL)
+                or st["lost_acks"] or not set(acked) <= set(st["members"])):
+            raise AssertionError(f"restart ({key}): restored incarnation "
+                                 f"{st}")
+    return {"cold_s": out["cold_s"], "spare_s": out["spare_s"],
+            "replayed": len(RESTART_TAIL)}
+
+
+def phase_crash_soak(smi: str) -> dict:
+    """17a: tools/torch_crash_soak.py --quick --device cuda --detect-races
+    (3 CUDA worker processes, SIGKILLs, storage faults, restarts): every
+    check of crash_sweep_checks; then one restart timed."""
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "torch_crash_soak.py")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_crash_")
+    try:
+        out = os.path.join(tmp, "crash.json")
+        t0 = time.perf_counter()
+        run = run_tool([tool, "--quick", "--device", "cuda",
+                        "--detect-races", "--out", out], 900)
+        wall = time.perf_counter() - t0
+        if not os.path.exists(out):
+            raise AssertionError(f"crash soak failed (rc {run.returncode}):"
+                                 f" {run.stdout[-3000:]} "
+                                 f"{run.stderr[-3000:]}")
+        with open(out) as f:
+            art = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs = [json.loads(line) for line in run.stdout.splitlines()
+            if line.startswith("{")]
+    failed = crash_sweep_checks(art)
+    if failed or run.returncode != 0:
+        raise AssertionError(f"crash soak (rc {run.returncode}): checks "
+                             f"failed {failed}: " + json.dumps(art))
+    restart = restart_seconds()
+    for e in art["curve"]:
+        walls = [(r["elapsed_s"], r["start_s"]) for r in runs
+                 if r["kill_rate"] == e["kill_rate"]]
+        log(f"crash soak kill rate {e['kill_rate']:g} ({e['seeds']} seed, "
+            f"{art['fleet']['nodes']} CUDA workers x "
+            f"{art['fleet']['elements']} elements): recovery rounds "
+            f"{e['recovery_rounds_median']}, kills {e['kills']}, unexpected "
+            f"exits {e['unexpected_exits']}, δ-loss violations "
+            f"{e['delta_loss_violations']}, storage faults "
+            f"{json.dumps(e['storage_faults'])}, restore counters "
+            f"{json.dumps(e['restore_counters'])}, run wall (and the "
+            f"spares' start) {walls} s [{smi}]")
+    log(f"crash soak (--quick --detect-races, cuda): converged at every "
+        f"rate, WAL record modes {json.dumps(art['wal_record_modes'])}, "
+        f"races {art['race_detection']['races']}, artifact device "
+        f"{art['device']!r}, tool wall {wall:.1f} s; one restart (gen 1 + "
+        f"{restart['replayed']} WAL records) {restart['cold_s']:.3f} s from "
+        f"the spawn of a fresh process to its first status, "
+        f"{restart['spare_s']:.3f} s from the hand-off to a warm spare "
+        f"[{smi}]")
+    return {"wall_s": wall, "restart": restart, "curve": art["curve"]}
+
+
+def phase_chaos_soak(counters: Counters, smi: str) -> dict:
+    """17b: tools/torch_chaos_soak.py on CUDA nodes, in process: the
+    severity curve (--quick --detect-races), converged at each severity
+    with no race; then the digest chaos leg at its full fleet (6 x 60),
+    converged with the fault census equal to SYNC_CURVE.json's and K11
+    launched."""
+    soak = load_tool("torch_chaos_soak")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    try:
+        curve_out = os.path.join(tmp, "curve.json")
+        t0 = time.perf_counter()
+        rc = soak.main(["--quick", "--device", "cuda", "--detect-races",
+                        "--out", curve_out])
+        curve_wall = time.perf_counter() - t0
+        with open(curve_out) as f:
+            art = json.load(f)
+        leg_out = os.path.join(tmp, "leg.json")
+        counters.reset()
+        t0 = time.perf_counter()
+        leg_rc = soak.main(["--chaos-leg", "--device", "cuda",
+                            "--out", leg_out])
+        leg_wall = time.perf_counter() - t0
+        counts = counters.read("digest chaos leg",
+                               at_least={"state_group_digests": 1})
+        with open(leg_out) as f:
+            leg = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [e for e in art["curve"]
+           if e["converged_runs"] != e["seeds"] or e["races"]]
+    if rc != 0 or bad or art["race_detection"]["races"]:
+        raise AssertionError(f"severity curve (rc {rc}): " + json.dumps(art))
+    if leg_rc != 0 or not leg["converged"] or leg["census_equal"] is not True:
+        raise AssertionError(f"digest chaos leg (rc {leg_rc}): "
+                             + json.dumps(leg))
+    for e in art["curve"]:
+        log(f"chaos severity {e['drop_rate']:g} ({art['fleet']['nodes']} "
+            f"CUDA nodes x {art['fleet']['elements']}, detect races): "
+            f"rounds {e['rounds_median']}, census "
+            f"{json.dumps(e['faults_injected'])}, breaker "
+            f"{json.dumps(e['breaker_transitions'])}, retries "
+            f"{e['retries']}, races {e['races']} [{smi}]")
+    log(f"severity curve wall {curve_wall:.2f} s; digest chaos leg "
+        f"(6 x 60, seed 11, severity {leg['severity']}): converged in "
+        f"{leg['rounds']} rounds, census equal to SYNC_CURVE.json's "
+        f"{json.dumps(leg['faults'])}, {leg['digest_exchanges']} digest "
+        f"exchanges, K11 launches {counts['state_group_digests']} "
+        f"(lane_fingerprints {counts['lane_fingerprints']}), rounds wall "
+        f"{leg['wall_s']} s, leg wall {leg_wall:.2f} s [{smi}]")
+    return {"curve_wall_s": curve_wall, "leg_wall_s": leg_wall,
+            "leg_rounds": leg["rounds"]}
+
+
+def phase_process_fleet(smi: str) -> dict:
+    """17c: tools/torch_fleet_soak.py --device cuda: 8 CUDA worker
+    processes gossiping through lossy proxies hold one union and one vv,
+    with at least 10 lost exchanges, 10 cut and 100 proxied
+    connections."""
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "torch_fleet_soak.py")
+    res = run_checked_tool([tool, "--device", "cuda"], 600, "process fleet")
+    if res["failures"] or res["workers"] != 8 or res["lost"] < 10:
+        raise AssertionError("process fleet: " + json.dumps(res))
+    log(f"process fleet ({res['workers']} CUDA workers x {res['elements']} "
+        f"elements, lossy proxies): one union ({len(res['expected'])} "
+        f"members) and one vv {res['vv'][0]} on every worker; lost "
+        f"exchanges {res['lost']}, cut {res['dropped']} of {res['total']} "
+        f"connections; workers up in {res['workers_up_s']} s, soak wall "
+        f"{res['wall_s']} s, tool wall {res['tool_wall_s']:.1f} s [{smi}]")
+    return res
+
+
+def phase_fault_soaks(counters: Counters, smi: str) -> None:
+    walls = {}
+    timed_phase(walls, "17a", phase_crash_soak, smi)
+    timed_phase(walls, "17b", phase_chaos_soak, counters, smi)
+    timed_phase(walls, "17c", phase_process_fleet, smi)
 
 
 def timed_phase(walls: dict, name: str, fn, *args):
@@ -4863,6 +5056,7 @@ def main() -> int:
     timed_phase(walls, "14", phase_bridge, counters, errs, timings, smi)
     timed_phase(walls, "15", phase_lattices, counters, errs, timings, smi)
     timed_phase(walls, "16", phase_tools, counters, smi)
+    timed_phase(walls, "17", phase_fault_soaks, counters, smi)
     log("phase walls: " + json.dumps({k: round(v, 1)
                                       for k, v in walls.items()}))
 

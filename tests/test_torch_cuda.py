@@ -1227,3 +1227,82 @@ def test_k5_from_two_threads_on_their_own_streams():
     for t in threads:
         t.join()
     assert not errors, errors
+
+
+# -- elastic recovery on the card ----------------------------------------------
+
+
+def test_cuda_crash_restore_resync(tmp_path):
+    """tests/test_elastic.py's crash-restore-resync scenario on CUDA nodes
+    beside CPU nodes driven through the same steps: node 1 checkpointed,
+    crashed after one more write, restored on the card from its
+    checkpoint and healed by exchanges; every check holds the spec
+    world's members and the CPU fleet's members and vv."""
+    _needs_gpu()
+    from go_crdt_playground_tpu_torch.models.spec import (AWSetDelta,
+                                                          VersionVector)
+    from go_crdt_playground_tpu_torch.net.peer import Node
+
+    E, A = 16, 3
+    specs = [AWSetDelta(actor=i, version_vector=VersionVector([0] * A),
+                        delta_semantics="v2") for i in range(A)]
+    fleets = {dev: [Node(i, E, A, device=dev) for i in range(A)]
+              for dev in ("cuda", "cpu")}
+    addrs = {dev: [n.serve() for n in nodes] for dev, nodes in fleets.items()}
+
+    def sync(dst, src):
+        for dev, nodes in fleets.items():
+            nodes[dst].sync_with(addrs[dev][src])
+        specs[src].merge(specs[dst])
+        specs[dst].merge(specs[src])
+
+    def check():
+        for i, s in enumerate(specs):
+            want = sorted(int(k[1:]) for k in s.entries)
+            gpu, cpu = fleets["cuda"][i], fleets["cpu"][i]
+            if gpu is None:
+                continue
+            assert gpu.device.type == "cuda"
+            assert gpu.members().tolist() == want == cpu.members().tolist()
+            assert np.array_equal(gpu.vv(), cpu.vv())
+
+    try:
+        for dev, nodes in fleets.items():
+            nodes[0].add(1, 2)
+            nodes[1].add(3)
+            nodes[2].add(4, 5)
+        specs[0].add("e1", "e2")
+        specs[1].add("e3")
+        specs[2].add("e4", "e5")
+        sync(0, 1)
+        sync(2, 0)
+        check()
+        cks = {}
+        for dev, nodes in fleets.items():
+            cks[dev] = nodes[1].save(str(tmp_path / f"node1-{dev}.ckpt"))
+            nodes[1].add(6)  # lost in the crash
+            nodes[1].close()
+            nodes[1] = None
+        for dev, nodes in fleets.items():
+            nodes[0].delete(2)
+            nodes[2].add(7)
+        specs[0].del_("e2")
+        specs[2].add("e7")
+        sync(0, 2)
+        check()
+        for dev, nodes in fleets.items():
+            nodes[1] = Node.restore(cks[dev], device=dev)
+            addrs[dev][1] = nodes[1].serve()
+            assert nodes[1].members().tolist() == [1, 2, 3]
+        for dst, src in ((1, 0), (0, 1), (1, 2), (2, 1), (0, 2)):
+            sync(dst, src)
+        check()
+        gpu = fleets["cuda"]
+        for n in gpu[1:]:
+            assert np.array_equal(n.members(), gpu[0].members())
+            assert np.array_equal(n.vv(), gpu[0].vv())
+    finally:
+        for nodes in fleets.values():
+            for n in nodes:
+                if n is not None:
+                    n.close()

@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from go_crdt_playground_tpu.net import digestsync as jax_digestsync
 from go_crdt_playground_tpu.net import framing as jax_framing
 from go_crdt_playground_tpu.net.antientropy import \
@@ -44,6 +43,8 @@ from tests.test_torch_node import assert_nodes_same
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
+
+import torch_chaos_soak  # noqa: E402
 
 E, A = 256, 4  # 4 digest groups of 64
 
@@ -112,7 +113,7 @@ def test_divergent_pair_ships_only_mismatched_lanes():
     addr = b.serve()
     try:
         st = sync_digest(a, addr)
-        chip_smoke.wait_served([b])
+        torch_chaos_soak.wait_served([b])
     finally:
         b.close()
     assert st.mode_sent == MODE_DIGEST
@@ -130,7 +131,7 @@ def test_quiescent_pair_ships_zero_state_lanes():
     addr = b.serve()
     try:
         _converge(a, addr)
-        chip_smoke.wait_served([b])
+        torch_chaos_soak.wait_served([b])
 
         def total(name):
             return recs[0].counter(name) + recs[1].counter(name)
@@ -141,7 +142,7 @@ def test_quiescent_pair_ships_zero_state_lanes():
             st = sync_digest(a, addr)
             assert st.quiescent and st.lanes_sent == 0
             assert st.mode_sent == MODE_DIGEST
-        chip_smoke.wait_served([b])
+        torch_chaos_soak.wait_served([b])
         assert total("digest.lanes_sent") == lanes_before
         assert recs[0].counter("digest.quiescent") >= 5
         assert (total("digest.bytes_sent") - base_bytes) / 5 < 4 * (E // 8)
@@ -156,18 +157,18 @@ def test_deletion_heavy_quiescence_beats_delta_ladder():
     addr = b.serve()
     try:
         _converge(a, addr)
-        chip_smoke.wait_served([b])
+        torch_chaos_soak.wait_served([b])
 
         def total(name):
             return recs[0].counter(name) + recs[1].counter(name)
 
         r0 = total("digest.bytes_sent")
         assert sync_digest(a, addr).quiescent
-        chip_smoke.wait_served([b])
+        torch_chaos_soak.wait_served([b])
         digest_round = total("digest.bytes_sent") - r0
         s0 = total("sync.bytes_sent")
         a.sync_with(addr)
-        chip_smoke.wait_served([b])
+        torch_chaos_soak.wait_served([b])
         assert digest_round < total("sync.bytes_sent") - s0
     finally:
         b.close()
@@ -313,12 +314,12 @@ def test_supervisor_digest_regime_converges_fleet():
             for s in sups:
                 s.sync_round()
         assert all(np.array_equal(nd.vv(), nodes[0].vv()) for nd in nodes)
-        chip_smoke.wait_served(nodes)
+        torch_chaos_soak.wait_served(nodes)
         lanes0 = sum(r.counter("digest.lanes_sent") for r in recs)
         for _ in range(2):
             for s in sups:
                 s.sync_round()
-        chip_smoke.wait_served(nodes)
+        torch_chaos_soak.wait_served(nodes)
         assert sum(r.counter("digest.lanes_sent") for r in recs) == lanes0
         assert sum(r.counter("digest.quiescent") for r in recs) > 0
         assert sum(r.counter("sync.exchanges") for r in recs) == 0
@@ -559,7 +560,7 @@ def jax_fleet_waits(monkeypatch):
     as its clients return, while a served half may still be recording its
     own (a server counts after its last send), so under load its numbers
     move: a late server count falls out of the window it belongs to.  The
-    port's leg waits for every served exchange (chip_smoke.wait_served).
+    port's leg waits for every served exchange (its ``wait_served``).
     Here each supervisor round of the JAX fleet ends the same way: once
     every node of the fleet has finished serving."""
     import go_crdt_playground_tpu.net as jax_net
@@ -574,7 +575,7 @@ def jax_fleet_waits(monkeypatch):
     class WaitingSupervisor(jax_net.SyncSupervisor):
         def sync_round(self, *args, **kwargs):
             out = super().sync_round(*args, **kwargs)
-            chip_smoke.wait_served(nodes)
+            torch_chaos_soak.wait_served(nodes)
             return out
 
     monkeypatch.setattr(jax_net, "Node", FleetNode)
@@ -586,9 +587,8 @@ def _quick_legs(sync_mode):
 
     want = chaos_soak.run_traffic_leg(sync_mode, 4, 256, 4, 5, seed=17,
                                       quiescent_rounds=4)
-    got, states = chip_smoke.sync_traffic_leg(sync_mode, 4, 256, 4, 5, 17,
-                                              quiescent_rounds=4,
-                                              device="cpu")
+    got, states = torch_chaos_soak.run_traffic_leg(
+        sync_mode, 4, 256, 4, 5, 17, quiescent_rounds=4, device="cpu")
     return want, got, states
 
 
@@ -597,7 +597,7 @@ def test_sync_curve_quick_leg_matches_the_jax_fleet(sync_mode,
                                                     jax_fleet_waits):
     """tools/chaos_soak.py's quick traffic leg (4 nodes, E = 256, 4 ops a
     round, 5 traffic and 4 quiescent rounds) on a torch fleet through
-    chip_smoke.sync_traffic_leg, and on a JAX fleet through the tool:
+    torch_chaos_soak.run_traffic_leg, and on a JAX fleet through the tool:
     the same bytes, rounds, lanes and quiescent counts."""
     want, got, states = _quick_legs(sync_mode)
     assert got == want
@@ -677,12 +677,14 @@ def test_mixed_fleet_converges_on_the_digest_regime():
         for _ in range(2):
             for s in sups:
                 s.sync_round()
-        chip_smoke.wait_served([nd for nd in nodes if isinstance(nd, Node)])
+        torch_chaos_soak.wait_served([nd for nd in nodes
+                                      if isinstance(nd, Node)])
         lanes0 = sum(r.counter("digest.lanes_sent") for r in recs)
         for _ in range(2):
             for s in sups:
                 s.sync_round()
-        chip_smoke.wait_served([nd for nd in nodes if isinstance(nd, Node)])
+        torch_chaos_soak.wait_served([nd for nd in nodes
+                                      if isinstance(nd, Node)])
         assert sum(r.counter("digest.lanes_sent") for r in recs) == lanes0
         assert sum(r.counter("digest.fallback_delta") for r in recs) == 0
         # the convergent projection (ops/digest.py) agrees across packages

@@ -309,7 +309,7 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "154 skipped" in out.stdout or "154 passed" in out.stdout, \
+    assert "155 skipped" in out.stdout or "155 passed" in out.stdout, \
         out.stdout
 
 
@@ -414,6 +414,39 @@ def test_host_tiers_load_no_torch():
                    timeout=120)
 
 
+@pytest.mark.parametrize("tool,argv", [
+    ("torch_crash_soak", ["--quick"]),
+    ("torch_crash_soak", ["--worker", "--actor", "0", "--nodes", "3",
+                          "--elements", "24", "--port", "0",
+                          "--peer-ports", ""]),
+    ("torch_crash_soak", ["--spare", "--nodes", "3", "--elements", "24"]),
+    ("torch_chaos_soak", ["--quick"]),
+    ("torch_chaos_soak", ["--sync-curve", "--quick"]),
+    ("torch_chaos_soak", ["--chaos-leg", "--quick"]),
+    ("torch_fleet_soak", []),
+    ("torch_fleet_soak", ["--worker", "0", "8", "64"]),
+])
+def test_fault_soaks_default_to_cuda_and_raise_without_one(tmp_path, tool,
+                                                           argv):
+    """Every mode of the fault soaks, parent and worker, defaults to
+    ``--device cuda`` and raises before it runs anything when there is
+    no GPU: no fallback to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device runs")
+    import importlib
+
+    sys.path.insert(0, str(REPO / "tools"))
+    mod = importlib.import_module(tool)
+    if tool == "torch_crash_soak" and ("--worker" in argv
+                                       or "--spare" in argv):
+        argv = [*argv, "--dir", str(tmp_path)]
+    elif "--worker" not in argv:
+        argv = [*argv, "--out", str(tmp_path / "out.json")]
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        mod.main(argv)
+    assert not (tmp_path / "out.json").exists()
+
+
 def test_fleet_modules_fall_under_the_import_scan():
     files = set(PORT.rglob("*.py")) | set((REPO / "tools").glob("torch_*.py"))
     for part in ("net/faults.py", "net/breaker.py", "shard/router.py",
@@ -421,7 +454,9 @@ def test_fleet_modules_fall_under_the_import_scan():
                  "control/signals.py", "control/policy.py",
                  "control/actuator.py", "control/controller.py"):
         assert PORT / part in files
-    for tool in ("torch_fleet_serve_soak.py", "torch_chaos_soak.py"):
+    for tool in ("torch_fleet_serve_soak.py", "torch_chaos_soak.py",
+                 "torch_crash_soak.py", "torch_fleet_soak.py",
+                 "torch_soak_util.py"):
         assert REPO / "tools" / tool in files
 
 

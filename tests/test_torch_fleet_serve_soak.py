@@ -197,12 +197,13 @@ def test_sweep_checks_name_each_failure(case):
 
 
 def test_chaos_soak_converges_on_torch_nodes(tmp_path):
-    """tools/torch_chaos_soak.py's digest chaos leg on CPU nodes: the
+    """tools/torch_chaos_soak.py --chaos-leg on CPU nodes: the
     fleet converges and its fault census equals the JAX leg's."""
     import torch_chaos_soak
 
     out = str(tmp_path / "chaos.json")
-    assert torch_chaos_soak.main(["--device", "cpu", "--out", out]) == 0
+    assert torch_chaos_soak.main(["--chaos-leg", "--device", "cpu",
+                                  "--out", out]) == 0
     with open(out) as f:
         res = json.load(f)
     assert res["converged"] and res["fault_kinds_missing"] == []
@@ -227,8 +228,8 @@ def test_chaos_soak_fails_without_the_jax_census(tmp_path, reference):
         curve["chaos"]["faults_injected"]["refused"] += 1
         ref.write_text(json.dumps(curve))
     out = str(tmp_path / "chaos.json")
-    assert torch_chaos_soak.main(["--device", "cpu", "--out", out,
-                                  "--reference", str(ref)]) == 1
+    assert torch_chaos_soak.main(["--chaos-leg", "--device", "cpu",
+                                  "--out", out, "--reference", str(ref)]) == 1
     with open(out) as f:
         res = json.load(f)
     assert res["converged"]
