@@ -462,6 +462,7 @@ class Counters:
             "delta_ring_round_dotpacked":
                 cuda_delta.delta_ring_round_dotpacked,
             "ingest_rows_delta_fused": cuda_ingest.ingest_rows_delta_fused,
+            "ingest_slot_rows": cuda_ingest.ingest_slot_rows,
             "lane_fingerprints": cuda_digest.lane_fingerprints,
             "state_group_digests": cuda_digest.state_group_digests,
         }
@@ -692,6 +693,26 @@ def ingest_slice(rng, E, A, dot_base, own_clock, wild_actors, device):
     return row
 
 
+def based_inputs(rng, clock: int, add, dl, live):
+    """A lane slot's view of a batch for K10's based entry: the rows and
+    ``live`` (the kernel folds it in), each live row's lanes left of the
+    slot (up to 2^20), its pre-row counter from ``clock`` (its steps: its
+    adds here and left of the slot, one if its Del ticks, some right of
+    the slot), its deletion counter and the final clock, int64 (not
+    reduced)."""
+    add_m, dl_m = add & live[:, None], dl & live[:, None]
+    on = live.cpu().numpy()
+    num_b = on.shape[0]
+    lane_off = np.where(on, rng.integers(0, 1 << 20, num_b), 0)
+    steps = (add_m.sum(dim=1).cpu().numpy() + lane_off
+             + np.where(on, rng.integers(0, 64, num_b), 0)
+             + (dl_m.any(dim=1).cpu().numpy() | (on & (rng.random(num_b)
+                                                      < 0.3))))
+    row_base = clock + np.cumsum(steps) - steps
+    return (add, dl, live, row_base, lane_off, row_base + steps,
+            clock + int(steps.sum()))
+
+
 def phase_ingest_kernel(errs: dict):
     """K10 against its plain version on the card, bitwise: the 12 lanes,
     vv, processed and the compact form, over E x A x B (one block up to
@@ -699,7 +720,10 @@ def phase_ingest_kernel(errs: dict):
     states with history, own clocks whose prefix sums cross 2^31 or wrap
     at 2^32, K = 128 and K = 0 (no compact form), and the compact form's
     one-copy host read.  B = 0 launches the kernel (A past the shared
-    memory: phase 15)."""
+    memory: phase 15).  The based entry (``crdt_ingest_based``, a mesh
+    slot's fold) the same way on the same slices and the padded batches
+    (a third of the rows padding) at each density, with lane offsets to
+    2^20 and counters from the same clocks."""
     import torch
 
     from go_crdt_playground_tpu_torch._u32 import host, to_host
@@ -709,11 +733,25 @@ def phase_ingest_kernel(errs: dict):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2026)
     n_checks = n_overflow = n_cross31 = n_wrap32 = 0
+    n_based = b_cross31 = b_wrap32 = 0
 
     def check(got, want, what):
         nonlocal n_checks
         errs["K10"] = max(errs.get("K10", 0), max_abs_err(got, want, what))
         n_checks += 1
+
+    def check_record(tag, row, got, want):
+        pre, dense, rec = ci.record_to_host(row.vv, got[1], got[2])
+        if bool(want[2].overflow):
+            dense_ok = all(np.array_equal(g, w) for g, w in
+                           zip(dense, to_host(want[1])))
+        else:
+            dense_ok = dense is got[1]
+        if not (dense_ok and np.array_equal(pre, host(row.vv))
+                and all(np.array_equal(g, w) for g, w
+                        in zip(rec, to_host(want[2])))):
+            raise AssertionError(f"{tag}: the one-copy record read "
+                                 "differs")
 
     t0 = time.perf_counter()
     for i, E in enumerate(INGEST_CHECK_E):
@@ -754,37 +792,52 @@ def phase_ingest_kernel(errs: dict):
                                         f"{tag}: k=0 gave a compact form")
                                 continue
                             check(got[2], want[2], f"{tag} compact")
-                            pre, dense, rec = ci.record_to_host(
-                                row.vv, got[1], got[2])
-                            if bool(want[2].overflow):
-                                dense_ok = all(
-                                    np.array_equal(g, w) for g, w in
-                                    zip(dense, to_host(want[1])))
-                            else:
-                                dense_ok = dense is got[1]
-                            if not (dense_ok
-                                    and np.array_equal(pre, host(row.vv))
-                                    and all(np.array_equal(g, w) for g, w
-                                            in zip(rec, to_host(want[2])))):
-                                raise AssertionError(
-                                    f"{tag}: the one-copy record read "
-                                    "differs")
+                            check_record(tag, row, got, want)
                             n_overflow += bool(want[2].overflow)
                         steps = int((add & live[:, None]).sum()
                                     + (dl & live[:, None]).any(1).sum())
                         n_cross31 += clock < 1 << 31 <= clock + steps
                         n_wrap32 += clock + steps >= 1 << 32
-    if not (n_overflow and n_cross31 and n_wrap32):
+                        if pattern != "holes":
+                            continue  # the based entry: padded batches
+                        based = based_inputs(rng, clock, add, dl, live)
+                        for kk in INGEST_CHECK_K:
+                            kw = dict(k_changed=kk, k_deleted=kk)
+                            want = ci.ingest_slot_rows(row, *based, **kw,
+                                                       kernel="torch")
+                            before = ci.ingest_slot_rows.launches
+                            got = ci.ingest_slot_rows(row, *based, **kw,
+                                                      kernel="cuda")
+                            if ci.ingest_slot_rows.launches != before + 1:
+                                raise AssertionError(f"{tag}: no based "
+                                                     "launch")
+                            for part in (0, 1, 2) if kk else (0, 1):
+                                check(got[part], want[part],
+                                      f"{tag} k={kk} based part {part}")
+                            if kk:
+                                check_record(f"{tag} based", row, got, want)
+                            elif got[2] is not None:
+                                raise AssertionError(
+                                    f"{tag}: based k=0 gave a compact form")
+                            n_based += 1
+                        b_cross31 += clock < 1 << 31 <= based[-1]
+                        b_wrap32 += based[-1] >= 1 << 32
+    if not (n_overflow and n_cross31 and n_wrap32 and b_cross31
+            and b_wrap32):
         raise AssertionError(
             f"K10 cases missed a regime: {n_overflow} overflowing, "
-            f"{n_cross31} crossing 2^31, {n_wrap32} wrapping 2^32")
+            f"{n_cross31} / {b_cross31} crossing 2^31, {n_wrap32} / "
+            f"{b_wrap32} wrapping 2^32 (fused / based)")
     torch.cuda.synchronize()
     n_shapes = len(INGEST_CHECK_E) * len(INGEST_CHECK_A) * len(INGEST_CHECK_B)
     log(f"ingest kernel: {n_checks} K10-vs-plain checks over {n_shapes} "
         f"(E, A, B) shapes x 9 batch kinds x K in {INGEST_CHECK_K} bitwise "
         f"equal, one-copy record reads equal, B = 0 launched, "
         f"{n_overflow} overflowing batches, {n_cross31} crossing 2^31, "
-        f"{n_wrap32} wrapping 2^32 "
+        f"{n_wrap32} wrapping 2^32; {n_based} crdt_ingest_based-vs-plain "
+        f"entries on the same slices and padded rows bitwise equal "
+        f"({b_cross31} "
+        f"crossing 2^31, {b_wrap32} wrapping 2^32) "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -2921,7 +2974,9 @@ def phase_mesh_dryrun(counters: Counters) -> dict:
     """13a: the port's ``dryrun_multichip`` with 4 and 8 slots on
     cuda:0, 5 of 5 paths converged and every round bitwise equal to the
     unsharded replay on the kernels' plain versions; the per-slot
-    launches counted exactly (the replay launches none)."""
+    launches counted exactly (the replay launches none): K5 a slot a δ
+    round, K8 and K9 a slot a packed ring round, K2 a slot an EP ring
+    round (n_r - 1 of them)."""
     from go_crdt_playground_tpu_torch.entry import dryrun_multichip
     from go_crdt_playground_tpu_torch.parallel import gossip
 
@@ -2936,7 +2991,8 @@ def phase_mesh_dryrun(counters: Counters) -> dict:
         want = dict.fromkeys(counters.wrappers, 0)
         want.update(delta_gossip_round=n * rounds1,
                     delta_ring_round_packed=n * rounds_p,
-                    delta_ring_round_dotpacked=n * rounds_p)
+                    delta_ring_round_dotpacked=n * rounds_p,
+                    merge_pairwise_rows=n * max(shape[0] - 1, 1))
         counters.read(f"13a dryrun_multichip({n})", exact=want)
         if any(not (r["converged"] and r["bitwise"]) for r in res):
             raise AssertionError(f"13a: {n} slots: {res}")
@@ -3290,18 +3346,43 @@ def phase_multihost(counters: Counters) -> dict:
             "walls_s": [o["wall_s"] for o in outs]}
 
 
+def count_plain_on_card():
+    """Patch K10's plain fold and the δ compaction (where the port
+    defines them and where the ingest wrappers call them) to count the
+    calls made on CUDA tensors; returns the counts (a dict, updated in
+    place)."""
+    from go_crdt_playground_tpu_torch.ops import compact, cuda_ingest
+
+    counts = {"fold": 0, "compact": 0}
+    fold, comp = cuda_ingest.ingest_fold_plain, compact.compact_payload
+
+    def counted_fold(state, *args):
+        counts["fold"] += state.vv.is_cuda
+        return fold(state, *args)
+
+    def counted_compact(payload, *args):
+        counts["compact"] += payload.changed.is_cuda
+        return comp(payload, *args)
+
+    cuda_ingest.ingest_fold_plain = counted_fold
+    cuda_ingest.compact_payload = compact.compact_payload = counted_compact
+    return counts
+
+
 def serve_child(dump: str, argv) -> int:
     """``serve --ingest ARGV`` as a process whose frontend records every
     batch and WAL body (``chip_smoke.py --serve-child DUMP ARGV``); at
-    the drain it writes them, the recorder's counters and the K11
-    launches to DUMP (a pickle)."""
+    the drain it writes them, the recorder's counters, the K11 launches,
+    the K10 launches of both entries and the plain folds and
+    compactions made on the card to DUMP (a pickle)."""
     import pickle
 
     import go_crdt_playground_tpu_torch.__main__ as cli
-    from go_crdt_playground_tpu_torch.ops import cuda_digest
+    from go_crdt_playground_tpu_torch.ops import cuda_digest, cuda_ingest
 
     build, held = cli._build_frontend, {}
     hints = []
+    plain = count_plain_on_card()
 
     def recording_build(args):
         fe = build(args)
@@ -3319,11 +3400,143 @@ def serve_child(dump: str, argv) -> int:
             "bodies": bodies, "append_s": append_s[0],
             "counters": snap["counters"],
             "apply_s": snap["observations"].get("serve.batch.apply_s"),
-            "k11": cuda_digest.state_group_digests.launches}, f)
+            "k11": cuda_digest.state_group_digests.launches,
+            "k10_based": cuda_ingest.ingest_slot_rows.launches,
+            "k10_fused": cuda_ingest.ingest_rows_delta_fused.launches,
+            "plain_on_card": plain}, f)
     return rc
 
 
-def phase_mesh_serve(counters: Counters, smi: str) -> dict:
+def ingest_slot_bounds(E: int, A: int, B: int, K: int):
+    """The based entry's least time: K10's whole-entry bytes
+    (``ingest_bounds``) with three counter words a row and the final
+    clock read in place of the live flags; the larger of that over the
+    memory rate and the operations over the scalar rate."""
+    _, _, nbytes = ingest_bounds(E, A, B, K)
+    nbytes += 11 * B + 4
+    ops = E * (B * INGEST_OPS_PER_ROW_LANE + INGEST_OPS_PER_LANE)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def time_k10_slot(E: int, A: int, B: int, smi: str) -> dict:
+    """The based entry at a mesh slot's shape (E lanes of a slot, B rows
+    of one key each and a delete, K = 128 as a CUDA node's): bitwise
+    against its plain version, ms a call through the wrapper (CUDA
+    events), device ms a call (queued behind a sleeping stream), the
+    plain version's ms, against the bound."""
+    import torch
+
+    from go_crdt_playground_tpu_torch._u32 import narrow
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    rng = np.random.default_rng(15)
+    row = ingest_slice(rng, E, A, 0x7FFFFFFB, 0xFFFFFFF0, False, "cuda")
+    add = np.zeros((B, E), bool)
+    add[np.arange(B), rng.integers(0, E, B)] = True
+    dl = np.zeros((B, E), bool)
+    dl[B // 2, rng.integers(0, E)] = True
+    based = based_inputs(rng, 0xFFFFFFF0, torch.from_numpy(add).cuda(),
+                         torch.from_numpy(dl).cuda(),
+                         torch.ones(B, dtype=torch.bool, device="cuda"))
+    # the counters on the card as the mesh node hands them over
+    dev_counters = [narrow(torch.from_numpy(np.asarray(x, np.int64))).cuda()
+                    for x in based[3:]]
+    args = (row, *based[:3], *dev_counters)
+
+    def call(kernel):
+        return ci.ingest_slot_rows(*args, k_changed=128, k_deleted=128,
+                                   kernel=kernel)
+
+    got, want = call("cuda"), call("torch")
+    err = max(max_abs_err(got[p], want[p], f"K10 slot E={E} part {p}")
+              for p in range(3))
+    del got, want
+    ms = cuda_time_ms(lambda: call("cuda"), 200)
+    device_ms = queued_device_ms(lambda: call("cuda"), WIDE_QUEUED)
+    plain_ms = cuda_time_ms(lambda: call("torch"), 5)
+    bound_ms, bound_by, nbytes = ingest_slot_bounds(E, A, B, 128)
+    out = {"E": E, "A": A, "B": B, "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_bytes": nbytes, "max_abs_err": err}
+    log(f"K10 based entry at a mesh slot (E={E}, A={A}, B={B}, K=128): "
+        f"{ms:.4f} ms a call, device {device_ms * 1e3:.3f} µs a call, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.3f} µs "
+        f"({bound_by}, {nbytes} B); bitwise equal to the plain version "
+        f"[{smi}]")
+    return out
+
+
+MESH_SPLIT_BATCHES = 6
+
+
+def mesh_batch_split(label: str, E: int, A: int, B: int, tmp: str,
+                     smi: str) -> dict:
+    """Where a mesh node's batch goes, in process on cuda:0: the node of
+    ``serve --mesh-devices LABEL`` with a WAL (no fsync) takes
+    MESH_SPLIT_BATCHES batches of B one-key rows (13d's op mix, a delete
+    every tenth row): ``ingest_batch`` wall a batch (host clock, ending
+    in a synchronize), the rows' copy to the card alone
+    (``meshtarget.rows_to_device``, the same arrays), and the device's
+    busy time, operations and idle share a batch (torch.profiler)."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.parallel.meshtarget import (
+        MeshApplyTarget, rows_to_device)
+    from go_crdt_playground_tpu_torch.parallel.meshtarget2d import \
+        Mesh2DApplyTarget
+    from go_crdt_playground_tpu_torch.utils.wal import DeltaWal
+
+    klass, kw = ((Mesh2DApplyTarget, {"mesh_shape": label}) if "x" in label
+                 else (MeshApplyTarget, {"mesh_devices": int(label)}))
+    node = klass(0, E, A, device="cuda:0",
+                 wal=DeltaWal(tempfile.mkdtemp(dir=tmp), fsync=False), **kw)
+    rng = np.random.default_rng(17)
+    batches = []
+    for _ in range(MESH_SPLIT_BATCHES):
+        add = np.zeros((B, E), bool)
+        dl = np.zeros((B, E), bool)
+        keys = rng.choice(E, B, replace=False)
+        add[np.arange(B), keys] = np.arange(B) % 10 != 9
+        dl[np.arange(B), keys] = np.arange(B) % 10 == 9
+        batches.append((add, dl, np.ones(B, bool)))
+
+    def run():
+        for batch in batches:
+            node.ingest_batch(*batch)
+        torch.cuda.synchronize()
+
+    run()  # warm
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / MESH_SPLIT_BATCHES
+    t0 = time.perf_counter()
+    for batch in batches:
+        rows_to_device(*batch, "cuda:0")
+    torch.cuda.synchronize()
+    rows_ms = (time.perf_counter() - t0) * 1e3 / MESH_SPLIT_BATCHES
+    _, trace = trace_run(run, K10_KERNELS)
+    node.wal.close()
+    n = MESH_SPLIT_BATCHES
+    out = {"B": B, "ingest_batch_ms": wall_ms, "rows_to_device_ms": rows_ms,
+           "device_busy_ms": None if trace is None
+           else trace["device_busy_ms"] / n,
+           "k10_ms": None if trace is None else trace["kernel_ms"] / n,
+           "device_ops": None if trace is None else trace["device_ops"] / n,
+           "idle_share": None if trace is None else trace["idle_share"]}
+    dev = ("device not measured" if trace is None else
+           f"device busy {out['device_busy_ms']:.3f} ms (K10 "
+           f"{out['k10_ms']:.3f} ms) in {out['device_ops']:g} device ops, "
+           f"idle share {out['idle_share']:.4f}")
+    log(f"13d {label} batch split (E={E}, B={B} one-key rows, WAL without "
+        f"fsync): ingest_batch {wall_ms:.3f} ms a batch, the rows' copy "
+        f"to the card alone {rows_ms:.3f} ms; {dev} [{smi}]")
+    return out
+
+
+def phase_mesh_serve(counters: Counters, timings: dict, smi: str) -> dict:
     """13d: ``serve --ingest --mesh-devices 4`` and ``--mesh-devices 2x2
     --sched auto`` on cuda:0 as subprocesses at one node's universe (E =
     2^20, A = 16), driven by phase 10b's session mix from a child
@@ -3332,7 +3545,11 @@ def phase_mesh_serve(counters: Counters, smi: str) -> dict:
     batches; the durable dir restored bitwise with the mesh class and
     the plain one; every digest summary read K11 once a slot (counted
     in the server; a 2-D mesh reads its dp row 0) and equal to the
-    one-slot node's summary."""
+    one-slot node's summary; every batch one K10 based launch a slot (a
+    chunk one a stripe slot), no fused K10 launch, no plain fold on the
+    card and no compaction there but the 2 x 2 node's joined δ.  Then
+    the based entry alone at each node's slot shape (``time_k10_slot``)
+    and where a batch's time goes on each node (``mesh_batch_split``)."""
     import pickle
     import re
     import signal
@@ -3422,6 +3639,32 @@ def phase_mesh_serve(counters: Counters, smi: str) -> dict:
                                      f"launches for {MESH_SERVE_READS} "
                                      f"reads of {lane_slots} lane slots")
             counters.main_path["state_group_digests"] += rec["k11"]
+            # one based K10 launch a slot a dispatch (dp x mp = 4 slots
+            # a chunk on 2 x 2), the frontend's warm-up batch on a scratch
+            # node of the same class (serve/frontend._warmup) one more;
+            # nothing else folds on the card, and nothing compacts there
+            # but the 2 x 2 node's joined δ, a lane slot a record
+            # (meshtarget2d: no kernel computes that δ)
+            dispatches = rec["counters"]["ingest.dispatches"]
+            if "x" in label:
+                if dispatches != rec["counters"]["mesh.stripe.dispatches"]:
+                    raise AssertionError(f"13d {label}: {rec['counters']}")
+            elif dispatches != len(rec["batches"]):
+                raise AssertionError(f"13d {label}: {dispatches} "
+                                     f"dispatches for "
+                                     f"{len(rec['batches'])} batches")
+            compactions = 2 * (dispatches + 1) if "x" in label else 0
+            if (rec["k10_based"] != MESH_SLOTS * (dispatches + 1)
+                    or rec["k10_fused"] != 0
+                    or rec["plain_on_card"] != {"fold": 0,
+                                                "compact": compactions}):
+                raise AssertionError(
+                    f"13d {label}: {rec['k10_based']} based and "
+                    f"{rec['k10_fused']} fused K10 launches for "
+                    f"{dispatches} dispatches and the warm-up on "
+                    f"{MESH_SLOTS} slots, plain on the card "
+                    f"{rec['plain_on_card']}")
+            counters.main_path["ingest_slot_rows"] += rec["k10_based"]
             # the same batches on a one-slot node on the card
             batches = []
             for a_nz, d_nz, lv in rec["batches"]:
@@ -3473,7 +3716,8 @@ def phase_mesh_serve(counters: Counters, smi: str) -> dict:
                 "batch_apply_ms": apply_s["mean"] * 1e3,
                 "wal_append_share": rec["append_s"] / apply_s["sum"],
                 "stripe_cuts": cuts, "k11_launches": rec["k11"],
-                "startup_s": up, "card": smi}
+                "k10_based_launches": rec["k10_based"],
+                "dispatches": dispatches, "startup_s": up, "card": smi}
             log(f"13d serve --mesh-devices {label} (E={E}, A={A}, 4 slots "
                 f"on cuda:0, {FRONTEND_SESSIONS} sessions x {FRONTEND_OPS}"
                 f" ops): {acked} acked in {wall:.3f} s = "
@@ -3484,7 +3728,11 @@ def phase_mesh_serve(counters: Counters, smi: str) -> dict:
                 f"records equal to the one-slot node's fed the same "
                 f"batches (cut ones chunk by chunk); restored bitwise; "
                 f"K11 {rec['k11']} launches for {MESH_SERVE_READS} summary "
-                f"reads [{smi}]")
+                f"reads; K10 based {rec['k10_based']} launches for "
+                f"{dispatches} dispatches and the warm-up, no fused K10 "
+                f"launch, no plain fold on the card, "
+                f"{rec['plain_on_card']['compact']} compactions of a joined "
+                f"δ [{smi}]")
             log(f"13d {label}: " + json.dumps(out[label]))
             if dp:
                 out[f"{label} cut"] = forced_cuts(label, dp, tmp,
@@ -3492,6 +3740,22 @@ def phase_mesh_serve(counters: Counters, smi: str) -> dict:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
+    # the based entry alone at each node's slot shape: 4 slots of 2^18
+    # lanes (B <= 32), 2 lane slots of 2^19 (32 rows a stripe); then a
+    # batch's split on each node (B = 32, 64 on 2 x 2: its batcher's
+    # width)
+    timings["K10 slot"] = {
+        label: time_k10_slot(E // (2 if "x" in label else MESH_SLOTS), A,
+                             32, smi)
+        for label, _ in MESH_SERVE}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_split_")
+    try:
+        for label, _ in MESH_SERVE:
+            out[label]["batch_split"] = mesh_batch_split(
+                label, E, A, 64 if "x" in label else 32, tmp, smi)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -4614,8 +4878,8 @@ KERNELS = [
      ("delta_ring_round_packed",)),
     ("K9", "delta_ring_round_dotpacked", "csrc/delta.cu",
      "pallas_delta.py:460", ("delta_ring_round_dotpacked",)),
-    ("K10", "ingest_rows_delta_fused", "csrc/ingest.cu",
-     "pallas_ingest.py:165", ("ingest_rows_delta_fused",)),
+    ("K10", "ingest_rows_delta_fused + ingest_slot_rows", "csrc/ingest.cu",
+     "pallas_ingest.py:165", ("ingest_rows_delta_fused", "ingest_slot_rows")),
     ("K11", "lane_fingerprints + state_group_digests", "csrc/digest.cu",
      "pallas_digest.py:64", ("lane_fingerprints", "state_group_digests")),
 ]
@@ -5052,7 +5316,7 @@ def main() -> int:
     timed_phase(walls, "13a", phase_mesh_dryrun, counters)
     timed_phase(walls, "13b", phase_mesh_fleet, counters, smi)
     timed_phase(walls, "13c", phase_multihost, counters)
-    timed_phase(walls, "13d", phase_mesh_serve, counters, smi)
+    timed_phase(walls, "13d", phase_mesh_serve, counters, timings, smi)
     timed_phase(walls, "14", phase_bridge, counters, errs, timings, smi)
     timed_phase(walls, "15", phase_lattices, counters, errs, timings, smi)
     timed_phase(walls, "16", phase_tools, counters, smi)
@@ -5098,6 +5362,17 @@ def main() -> int:
                     ormap_bound_ms=leg["bound_ms"])
         if key in timings["wide"]:
             entry["wide_actor"] = timings["wide"][key]
+        if key == "K10":
+            # the based entry (crdt_ingest_based) on the mesh node's path
+            entry.update(
+                mesh_path="lane-sharded node's write path (parallel/"
+                          "meshtarget.apply_slot_rows: serve --mesh-devices "
+                          "4 and 2x2, phase 13d)",
+                mesh_launches=counters.main_path["ingest_slot_rows"],
+                mesh_slot=timings["K10 slot"])
+        if key == "K2":
+            entry["ep_path"] = ("EP ring round (parallel/gossip.ep_ring_"
+                                "round_shardmap, phase 13a)")
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -53,7 +53,8 @@ comment's line):
                                 device→host transfer (``.cpu()``,
                                 ``.item()``, ``.tolist()``, ``.numpy()``,
                                 ``synchronize``, ``to_host`` /
-                                ``payload_to_host``) is sanctioned
+                                ``payload_to_host`` /
+                                ``record_to_host``) is sanctioned
                                 under (or reachable from) a held lock —
                                 the reason states why it is one bounded
                                 pull, not a per-field sweep.

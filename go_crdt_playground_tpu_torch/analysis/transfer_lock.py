@@ -2,7 +2,7 @@
 
 A device->host copy (``.cpu()``, ``.item()``, ``.tolist()``,
 ``.numpy()``, and the port's host pulls ``to_host`` /
-``payload_to_host``) and ``synchronize`` (``torch.cuda.synchronize``,
+``payload_to_host`` / ``record_to_host``) and ``synchronize`` (``torch.cuda.synchronize``,
 an event's or a stream's) wait for the card: milliseconds of stall
 when the transfer is one bounded pull, tens of milliseconds when a
 loop sneaks per-field pulls onto a hot path.  Under the node lock that
@@ -51,11 +51,12 @@ from go_crdt_playground_tpu_torch.analysis.report import (
     SEVERITY_ERROR, TRANSFER_UNDER_LOCK, Finding)
 
 # trailing call names that block on the card: tensor -> host copies,
-# the waits, and the port's own host pulls (_u32.to_host and
-# parallel/meshtarget.payload_to_host, whose bodies copy in modules the
-# sweep does not cover)
+# the waits, and the port's own host pulls (_u32.to_host,
+# parallel/meshtarget.payload_to_host and K10's WAL-record read
+# ops/cuda_ingest.record_to_host, whose bodies copy in modules the sweep
+# does not cover)
 _TRANSFER_NAMES = {"cpu", "item", "tolist", "numpy", "synchronize",
-                   "to_host", "payload_to_host"}
+                   "to_host", "payload_to_host", "record_to_host"}
 
 
 def _trailing(node: ast.expr) -> Optional[str]:

@@ -6,6 +6,21 @@
 // Replaces the Pallas kernel of go_crdt_playground_tpu/ops/pallas_ingest.py:
 //   K10 _fused_ingest (_ingest_kernel): the serve tier's write path, which
 //   the TPU ran, prefix sums and compaction included, as one program.
+// A second entry, crdt_ingest_based, takes the rows' counter bases as
+// inputs: a lane slot of a lane-sharded node (parallel/meshtarget.py,
+// meshtarget2d.py) folds its lanes with counters that depend on the lanes
+// of the other slots and, on the 2-D mesh, on rows of other stripes.  The
+// JAX package runs that fold as the slot-local scan of its mesh programs
+// (parallel/meshtarget.py build_mesh_ingest, meshtarget2d.py
+// build_mesh2d_ingest, in XLA); here it is this kernel, one launch a slot.
+// Given row_base[b] (row b's pre-row counter), lane_off[b] (the lanes row
+// b adds left of this slice), del_ctr[b] (its deletion counter) and
+// `final` (the clock after the batch), all uint32 on the device, lane e's
+// add dot counter is row_base[b] + lane_off[b] + the adds of row b in
+// lanes 0..e of the slice, a deletion dot is (actor, del_ctr[b]), and the
+// own slot of vv (and of processed when B > 0) is set to `final`.  The
+// kernel then reads no clock and scans no steps; a row whose Del hits no
+// present lane here logs no deletion dot here.
 // Semantics (ops/cuda_ingest.py's plain version, all counters uint32 and
 // wrapping mod 2^32): row b, with the live mask folded in, ticks once per
 // added key plus once if its Del selects any key; its add dots count up
@@ -127,6 +142,11 @@ struct Params {
   const uint8_t* add_rows;
   const uint8_t* del_rows;
   const uint8_t* live;
+  // crdt_ingest_based's inputs, null in crdt_ingest
+  const uint32_t* row_base;
+  const uint32_t* lane_off;
+  const uint32_t* del_ctr;
+  const uint32_t* final_ctr;
   uint8_t* out;
   long long off[N_REGIONS];
   long long num_b, num_e;
@@ -242,6 +262,12 @@ __device__ __forceinline__ uint32_t row_bools(const uint8_t* a, long long e0,
     if (e0 + j < n && __ldg(a + e0 + j)) w |= 1u << (8 * j);
   }
   return w;
+}
+
+// Row b's add counter before its first add in this slice, from the bases
+// passed in (crdt_ingest_based).
+__device__ __forceinline__ uint32_t based_add(const Params& p, long long b) {
+  return __ldg(p.row_base + b) + __ldg(p.lane_off + b);
 }
 
 // Row b's add and del selectors of the quad at e0 as 4-bit masks, the live
@@ -575,10 +601,17 @@ __global__ void __launch_bounds__(1024) ingest_block(Params p) {
     rbase[b] = run + dany;
   }
   __syncthreads();
-  const uint32_t c0 = crdt::clock_at(p.vv, actor, p.num_a);
-  const uint32_t final_ctr =
-      c0 + static_cast<uint32_t>(
-               scan_in_place(rbase, p.num_b, parity, s_tot, s_or));
+  // with the bases passed in (uniform over the block) no clock is read
+  // and the steps are not scanned
+  const bool based = p.row_base != nullptr;
+  uint32_t c0 = 0u, final_ctr;
+  if (based) {
+    final_ctr = *p.final_ctr;
+  } else {
+    c0 = crdt::clock_at(p.vv, actor, p.num_a);
+    final_ctr = c0 + static_cast<uint32_t>(
+                         scan_in_place(rbase, p.num_b, parity, s_tot, s_or));
+  }
 
   // 3. each lane from its last add and last delete: the add counter is
   // the row's base, the row's adds in the chunks before, and the add's
@@ -589,8 +622,9 @@ __global__ void __launch_bounds__(1024) ingest_block(Params p) {
     if (((pres >> j) & 1u) && last_add[j] >= 0) {
       const long long b = last_add[j];
       q.da[j] = actor;
-      q.dc[j] = c0 + static_cast<uint32_t>(rbase[b]) +
-                rowpre[b * nwarps + warp] + add_pos[j];
+      const uint32_t row0 =
+          based ? based_add(p, b) : c0 + static_cast<uint32_t>(rbase[b]);
+      q.dc[j] = row0 + rowpre[b * nwarps + warp] + add_pos[j];
     } else if ((cut >> j) & 1u) {
       q.da[j] = 0u;
       q.dc[j] = 0u;
@@ -598,7 +632,8 @@ __global__ void __launch_bounds__(1024) ingest_block(Params p) {
     if ((cut >> j) & 1u) {
       const long long b = last_del[j];
       q.xa[j] = actor;
-      q.xc[j] = c0 + static_cast<uint32_t>(rbase[b]) + rsteps[b];
+      q.xc[j] = based ? __ldg(p.del_ctr + b)
+                      : c0 + static_cast<uint32_t>(rbase[b]) + rsteps[b];
     }
   }
   q.d |= (cut & 1u) | (cut & 2u) << 7 | (cut & 4u) << 14 | (cut & 8u) << 21;
@@ -700,8 +735,10 @@ __global__ void __launch_bounds__(kGridThreads) ingest_grid(Params p) {
   }
   grid.sync();
 
-  // 3. the fold, a warp scan per row and chunk; then the δ
-  const uint32_t c0 = crdt::clock_at(p.vv, actor, p.num_a);
+  // 3. the fold, a warp scan per row and chunk; then the δ.  With the
+  // bases passed in no clock is read and the steps are not summed
+  const bool based = p.row_base != nullptr;
+  const uint32_t c0 = based ? 0u : crdt::clock_at(p.vv, actor, p.num_a);
   for (long long c = gw; c < nch; c += nw) {
     const long long e0 = c * kChunk + 4 * lane;
     Quad q = load_quad(p, e0);
@@ -711,6 +748,11 @@ __global__ void __launch_bounds__(kGridThreads) ingest_grid(Params p) {
       load_row(p, b, e0, a4, d4);
       const uint32_t n = __popc(a4);
       const uint32_t before = warp_scan(n, lane) - n + rowcnt[b * nch + c];
+      if (based) {
+        fold_row(q, a4, d4, based_add(p, b) + before, __ldg(p.del_ctr + b),
+                 actor);
+        continue;
+      }
       const uint32_t steps = rsteps[b];
       fold_row(q, a4, d4, base + before, base + steps, actor);
       base += steps;
@@ -724,7 +766,11 @@ __global__ void __launch_bounds__(kGridThreads) ingest_grid(Params p) {
     }
   }
   uint32_t final_ctr = c0;
-  for (long long b = 0; b < p.num_b; ++b) final_ctr += rsteps[b];
+  if (based) {
+    final_ctr = *p.final_ctr;
+  } else {
+    for (long long b = 0; b < p.num_b; ++b) final_ctr += rsteps[b];
+  }
   if (p.kc == 0 || p.kd == 0) {
     if (blockIdx.x == 0) {
       write_clocks(p, actor, final_ctr, false, threadIdx.x, blockDim.x);
@@ -855,6 +901,54 @@ int launch_grid(Params& p, size_t smem, cudaStream_t s) {
       kernel, dim3(blocks), dim3(kGridThreads), args, dyn, s));
 }
 
+// Params of either entry; the based inputs stay null for crdt_ingest.
+void fill(Params& p, const void* vv, const void* processed,
+          const void* actor, const void* present, const void* dot_actor,
+          const void* dot_counter, const void* deleted,
+          const void* del_dot_actor, const void* del_dot_counter,
+          const void* add_rows, const void* del_rows, const void* live,
+          void* out, long long num_b, long long num_e, int num_a,
+          int k_changed, int k_deleted) {
+  p.vv = static_cast<const uint32_t*>(vv);
+  p.processed = static_cast<const uint32_t*>(processed);
+  p.actor = static_cast<const uint32_t*>(actor);
+  p.present = static_cast<const uint8_t*>(present);
+  p.da = static_cast<const uint32_t*>(dot_actor);
+  p.dc = static_cast<const uint32_t*>(dot_counter);
+  p.deleted = static_cast<const uint8_t*>(deleted);
+  p.xa = static_cast<const uint32_t*>(del_dot_actor);
+  p.xc = static_cast<const uint32_t*>(del_dot_counter);
+  p.add_rows = static_cast<const uint8_t*>(add_rows);
+  p.del_rows = static_cast<const uint8_t*>(del_rows);
+  p.live = static_cast<const uint8_t*>(live);
+  p.row_base = p.lane_off = p.del_ctr = p.final_ctr = nullptr;
+  p.out = static_cast<uint8_t*>(out);
+  ingest_layout(num_e, num_a, num_b, k_changed, k_deleted, p.off);
+  p.num_b = num_b;
+  p.num_e = num_e;
+  p.num_a = num_a;
+  p.kc = k_changed;
+  p.kd = k_deleted;
+  p.vec_lanes = aligned(present, 4) && aligned(deleted, 4) &&
+                aligned(dot_actor, 16) && aligned(dot_counter, 16) &&
+                aligned(del_dot_actor, 16) && aligned(del_dot_counter, 16);
+  p.vec_rows = num_e % 4 == 0 && aligned(add_rows, 4) &&
+               aligned(del_rows, 4);
+}
+
+int launch(Params& p, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(p.num_a) * sizeof(uint32_t);
+  if (p.num_e <= kMaxBlockLanes) {
+    const long long quads = (p.num_e + 3) / 4;
+    const unsigned threads =
+        static_cast<unsigned>(quads < 32 ? 32 : (quads + 31) / 32 * 32);
+    return p.vec_rows ? launch_block<true>(p, threads, smem, s)
+                      : launch_block<false>(p, threads, smem, s);
+  }
+  return launch_grid(p, smem, s);
+}
+
 }  // namespace
 
 // Byte offsets of the output buffer's regions (N_REGIONS of them; the
@@ -881,38 +975,31 @@ extern "C" int crdt_ingest(
     const void* live, void* out, long long num_b, long long num_e,
     int num_a, int k_changed, int k_deleted, void* stream) {
   Params p;
-  p.vv = static_cast<const uint32_t*>(vv);
-  p.processed = static_cast<const uint32_t*>(processed);
-  p.actor = static_cast<const uint32_t*>(actor);
-  p.present = static_cast<const uint8_t*>(present);
-  p.da = static_cast<const uint32_t*>(dot_actor);
-  p.dc = static_cast<const uint32_t*>(dot_counter);
-  p.deleted = static_cast<const uint8_t*>(deleted);
-  p.xa = static_cast<const uint32_t*>(del_dot_actor);
-  p.xc = static_cast<const uint32_t*>(del_dot_counter);
-  p.add_rows = static_cast<const uint8_t*>(add_rows);
-  p.del_rows = static_cast<const uint8_t*>(del_rows);
-  p.live = static_cast<const uint8_t*>(live);
-  p.out = static_cast<uint8_t*>(out);
-  ingest_layout(num_e, num_a, num_b, k_changed, k_deleted, p.off);
-  p.num_b = num_b;
-  p.num_e = num_e;
-  p.num_a = num_a;
-  p.kc = k_changed;
-  p.kd = k_deleted;
-  p.vec_lanes = aligned(present, 4) && aligned(deleted, 4) &&
-                aligned(dot_actor, 16) && aligned(dot_counter, 16) &&
-                aligned(del_dot_actor, 16) && aligned(del_dot_counter, 16);
-  p.vec_rows = num_e % 4 == 0 && aligned(add_rows, 4) &&
-               aligned(del_rows, 4);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(num_a) * sizeof(uint32_t);
-  if (num_e <= kMaxBlockLanes) {
-    const long long quads = (num_e + 3) / 4;
-    const unsigned threads =
-        static_cast<unsigned>(quads < 32 ? 32 : (quads + 31) / 32 * 32);
-    return p.vec_rows ? launch_block<true>(p, threads, smem, s)
-                      : launch_block<false>(p, threads, smem, s);
-  }
-  return launch_grid(p, smem, s);
+  fill(p, vv, processed, actor, present, dot_actor, dot_counter, deleted,
+       del_dot_actor, del_dot_counter, add_rows, del_rows, live, out, num_b,
+       num_e, num_a, k_changed, k_deleted);
+  return launch(p, stream);
+}
+
+// crdt_ingest with the counter bases passed in (the header): row_base,
+// lane_off and del_ctr uint32[B], final_ctr uint32[1], all on the device.
+// The same output buffer and layout.
+extern "C" int crdt_ingest_based(
+    const void* vv, const void* processed, const void* actor,
+    const void* present, const void* dot_actor, const void* dot_counter,
+    const void* deleted, const void* del_dot_actor,
+    const void* del_dot_counter, const void* add_rows, const void* del_rows,
+    const void* live, const void* row_base, const void* lane_off,
+    const void* del_ctr, const void* final_ctr, void* out, long long num_b,
+    long long num_e, int num_a, int k_changed, int k_deleted,
+    void* stream) {
+  Params p;
+  fill(p, vv, processed, actor, present, dot_actor, dot_counter, deleted,
+       del_dot_actor, del_dot_counter, add_rows, del_rows, live, out, num_b,
+       num_e, num_a, k_changed, k_deleted);
+  p.row_base = static_cast<const uint32_t*>(row_base);
+  p.lane_off = static_cast<const uint32_t*>(lane_off);
+  p.del_ctr = static_cast<const uint32_t*>(del_ctr);
+  p.final_ctr = static_cast<const uint32_t*>(final_ctr);
+  return launch(p, stream);
 }

@@ -365,6 +365,9 @@ class Node:
         self._set_row(merged)
         self._count("ingest.dispatches")
         if self.wal is not None:
+            # transfer-ok: the record's fixed-K head in one copy (the
+            # dense δ in one more only past K), the one sanctioned
+            # per-batch pull, under the lock that ordered the batch
             pre_vv, payload, compact = cuda_ingest.record_to_host(
                 pre.vv, payload, compact)
             self._append_delta_record(pre_vv, payload, compact)

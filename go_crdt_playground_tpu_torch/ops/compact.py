@@ -44,6 +44,11 @@ class CompactDeltaPayload(NamedTuple):
     src_actor: torch.Tensor      # int32[]
     src_processed: torch.Tensor  # int32[A]  zero on overflow
 
+    def nbytes_wire(self) -> int:
+        """Dense device bytes of the compact form, the cost of shipping
+        one exchange (against ``DeltaPayload``'s O(E) dense bytes)."""
+        return sum(x.numel() * x.element_size() for x in self)
+
 
 def _compact_section(mask: torch.Tensor, k: int, *values):
     """Pack the lanes where ``mask`` into the first of k slots along the

@@ -11,6 +11,13 @@ Kernel and the Pallas kernel it replaces:
       counter bases (prefix sums), the fold, the δ, the clocks and the
       fixed-K compaction.  So does one launch here.
 
+  K10 ``ingest_slot_rows``: the same kernel with the rows' counter bases
+      passed in (``crdt_ingest_based``): one lane slot of a lane-sharded
+      node (parallel/meshtarget.py, meshtarget2d.py), one launch a slot.
+      The JAX package folds a slot's lanes in the slot-local scan of its
+      mesh programs (parallel/meshtarget.py ``build_mesh_ingest``,
+      meshtarget2d.py ``build_mesh2d_ingest``; XLA).
+
 The same contract as ops/ingest.ingest_rows_delta: returns ``(merged,
 payload, compact)``, with ``compact = None`` when either K is 0.  On the
 card every output is a view of one buffer (one allocation); its head
@@ -22,12 +29,12 @@ launches the kernel too, and nothing is padded.
 version for CPU tensors: ``row_counters`` (the prefix sums, int64
 narrowed mod 2^32), ``clock_outputs``, ``ingest_fold_plain`` (the fold as
 a torch loop over rows, then ops/delta.delta_extract) and
-ops/compact.compact_payload.  ``kernel="cuda"`` insists on the kernel and
-``kernel="torch"`` asks for the plain version.  The wrapper counts its
-launches in ``ingest_rows_delta_fused.launches`` (under a lock: a
-serving node launches from its batcher's thread, peers and clients
-from theirs).  The launch goes on the calling thread's current stream
-of the state's device.
+ops/compact.compact_payload; ``ingest_slot_rows_plain`` for the based
+entry.  ``kernel="cuda"`` insists on the kernel and ``kernel="torch"``
+asks for the plain version.  Each wrapper counts its launches in its
+``.launches`` (under a lock: a serving node launches from its batcher's
+thread, peers and clients from theirs).  The launch goes on the calling
+thread's current stream of the state's device.
 """
 
 from __future__ import annotations
@@ -39,12 +46,12 @@ import threading
 import numpy as np
 import torch
 
-from go_crdt_playground_tpu_torch._u32 import host, narrow, to_host
+from go_crdt_playground_tpu_torch._u32 import host, narrow, to_host, widen
 from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
 from go_crdt_playground_tpu_torch.ops import _build
 from go_crdt_playground_tpu_torch.ops.compact import (CompactDeltaPayload,
                                                       compact_payload)
-from go_crdt_playground_tpu_torch.ops.cuda_merge import (device_guard,
+from go_crdt_playground_tpu_torch.ops.cuda_merge import (device_guard, ptr,
                                                         stream_of,
                                                         use_kernel)
 from go_crdt_playground_tpu_torch.ops.delta import DeltaPayload, delta_extract
@@ -152,12 +159,37 @@ def ingest_fold_plain(state: AWSetDeltaState, arow, drow, add_dc, del_ctr,
     return merged, delta_extract(merged, state.vv)
 
 
+def ingest_slot_rows_plain(state: AWSetDeltaState, add_rows, del_rows,
+                           live, row_base, lane_off, del_ctr, final,
+                           k_changed: int, k_deleted: int):
+    """The based entry's plain version: ``live`` folded into the rows,
+    row b's add dots count up from ``row_base[b] + lane_off[b]`` in
+    ascending lane order (int64, narrowed mod 2^32), its deletion dot is
+    ``del_ctr[b]``, the own clock ends at ``final``; then
+    ``ingest_fold_plain`` and, with both Ks > 0,
+    ops/compact.compact_payload.  Inputs as ``ingest_slot_rows`` takes
+    them (uint32 bits in int32, ``final`` of shape (1,))."""
+    arow = add_rows & live[:, None]
+    drow = del_rows & live[:, None]
+    add_dc = narrow(widen(row_base)[:, None] + widen(lane_off)[:, None]
+                    + torch.cumsum(arow, dim=1, dtype=torch.int64))
+    vv, processed = clock_outputs(state, widen(final), add_rows.shape[0])
+    merged, payload = ingest_fold_plain(state, arow, drow, add_dc, del_ctr,
+                                        vv, processed)
+    if k_changed == 0 or k_deleted == 0:
+        return merged, payload, None
+    return merged, payload, compact_payload(payload, k_changed, k_deleted)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ingest")
     lib.crdt_ingest.argtypes = [_P] * 13 + [_I64, _I64, _I32, _I32, _I32,
                                             _P]
     lib.crdt_ingest.restype = ctypes.c_int
+    lib.crdt_ingest_based.argtypes = [_P] * 17 + [_I64, _I64, _I32, _I32,
+                                                  _I32, _P]
+    lib.crdt_ingest_based.restype = ctypes.c_int
     lib.crdt_ingest_regions.restype = ctypes.c_int
     lib.crdt_ingest_layout.argtypes = [_I64] * 5 + [_P]
     lib.crdt_ingest_layout.restype = None
@@ -219,14 +251,18 @@ def _check_rows(add_rows, del_rows, live, num_e: int) -> None:
 
 
 def _launch(state: AWSetDeltaState, add_rows, del_rows, live,
-            k_changed: int, k_deleted: int, lib=None):
+            k_changed: int, k_deleted: int, lib=None, bases=None):
     """One K10 launch for the whole entry: ``(merged, payload, compact)``
     as views of one new buffer (``lib``: another build of csrc/ingest.cu
-    with the same interface, for same-card comparisons)."""
+    with the same interface, for same-card comparisons).  ``bases``:
+    ``(row_base, lane_off, del_ctr, final)`` for ``crdt_ingest_based``."""
     check_slice(state)
     dev = state.vv.device
-    for name, t in (("add_rows", add_rows), ("del_rows", del_rows),
-                    ("live", live)):
+    named = [("add_rows", add_rows), ("del_rows", del_rows),
+             ("live", live)]
+    if bases is not None:
+        named += zip(("row_base", "lane_off", "del_ctr", "final"), bases)
+    for name, t in named:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {dev}")
     num_b, num_e = add_rows.shape
@@ -235,17 +271,23 @@ def _launch(state: AWSetDeltaState, add_rows, del_rows, live,
     size, _, groups = _layout(num_e, num_a, num_b, k_changed, k_deleted,
                               lib)
     buf = torch.empty(size, dtype=torch.uint8, device=dev)
+    lanes = (state.vv.data_ptr(), state.processed.data_ptr(),
+             state.actor.data_ptr(), state.present.data_ptr(),
+             state.dot_actor.data_ptr(), state.dot_counter.data_ptr(),
+             state.deleted.data_ptr(), state.del_dot_actor.data_ptr(),
+             state.del_dot_counter.data_ptr(), add_rows.data_ptr(),
+             del_rows.data_ptr(), live.data_ptr())
+    sizes = (num_b, num_e, num_a, k_changed, k_deleted, stream_of(buf))
     with device_guard(dev):
-        rc = lib.crdt_ingest(
-            state.vv.data_ptr(), state.processed.data_ptr(),
-            state.actor.data_ptr(), state.present.data_ptr(),
-            state.dot_actor.data_ptr(), state.dot_counter.data_ptr(),
-            state.deleted.data_ptr(), state.del_dot_actor.data_ptr(),
-            state.del_dot_counter.data_ptr(), add_rows.data_ptr(),
-            del_rows.data_ptr(), live.data_ptr(), buf.data_ptr(), num_b,
-            num_e, num_a, k_changed, k_deleted, stream_of(buf))
+        if bases is None:
+            entry = "crdt_ingest"
+            rc = lib.crdt_ingest(*lanes, buf.data_ptr(), *sizes)
+        else:
+            entry = "crdt_ingest_based"
+            rc = lib.crdt_ingest_based(*lanes, *map(ptr, bases),
+                                       buf.data_ptr(), *sizes)
     if rc:
-        _build.check(lib, rc, "crdt_ingest")
+        _build.check(lib, rc, entry)
     v = _views(buf, groups)
     merged = AWSetDeltaState(
         vv=v["vv"], present=v["present"], dot_actor=v["dot_actor"],
@@ -360,4 +402,58 @@ def ingest_rows_delta_fused(state: AWSetDeltaState, add_rows, del_rows,
     return merged, payload, compact_payload(payload, k_changed, k_deleted)
 
 
+def _counter_words(x, dev, num: int, name: str) -> torch.Tensor:
+    """A counter input as int32 bits (uint32) of shape (num,) on ``dev``:
+    int32 tensors there pass as they are, anything else is reduced mod
+    2^32 first."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, dtype=np.int64))
+    if x.dtype != torch.int32:
+        x = narrow(x.to(torch.int64))
+    if x.numel() != num:
+        raise ValueError(f"{name} holds {x.numel()} counters, expected "
+                         f"{num}")
+    return x.reshape(num).to(dev)
+
+
+def ingest_slot_rows(state: AWSetDeltaState, add_rows, del_rows, live,
+                     row_base, lane_off, del_ctr, final, *, k_changed: int,
+                     k_deleted: int, kernel: str = "auto"):
+    """K10 with the counter bases passed in: fold B op-rows
+    (``add_rows``/``del_rows`` bool[B, E], ``live`` bool[B], padding rows
+    masked) into one lane slot and return ``(merged, payload, compact)``
+    as ``ingest_rows_delta_fused`` does.  Live row b's add dots count up
+    from ``row_base[b] + lane_off[b]`` (its pre-row counter and the lanes
+    it adds left of this slot) in ascending lane order; its deletion dot
+    is ``del_ctr[b]``; the own slot of vv, and of processed when B > 0,
+    is set to ``final``.  Counters are uint32: int32 tensors on the
+    state's device pass as they are, other integers are reduced mod
+    2^32."""
+    dev = state.vv.device
+    add_rows, del_rows, live = (
+        x if isinstance(x, torch.Tensor) and x.dtype == torch.bool
+        and x.device == dev else torch.as_tensor(x, dtype=torch.bool,
+                                                 device=dev)
+        for x in (add_rows, del_rows, live))
+    _check_rows(add_rows, del_rows, live, state.present.shape[-1])
+    num_b = add_rows.shape[0]
+    row_base, lane_off, del_ctr = (
+        _counter_words(x, dev, num_b, name) for x, name in (
+            (row_base, "row_base"), (lane_off, "lane_off"),
+            (del_ctr, "del_ctr")))
+    final = _counter_words(final, dev, 1, "final")
+    if use_kernel(kernel, state.vv):
+        out = _launch(state, add_rows.contiguous(), del_rows.contiguous(),
+                      live.contiguous(), k_changed, k_deleted,
+                      bases=(row_base.contiguous(), lane_off.contiguous(),
+                             del_ctr.contiguous(), final.contiguous()))
+        with _count_lock:
+            ingest_slot_rows.launches += 1
+        return out
+    return ingest_slot_rows_plain(state, add_rows, del_rows, live, row_base,
+                                  lane_off, del_ctr, final, k_changed,
+                                  k_deleted)
+
+
 ingest_rows_delta_fused.launches = 0
+ingest_slot_rows.launches = 0

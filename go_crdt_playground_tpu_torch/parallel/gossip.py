@@ -413,12 +413,15 @@ def ring_round_shardmap(state, mesh: Mesh, kernel: str = "auto"
             local, got, kernel=kernel), sh.blocks, recv))
 
 
-def ep_ring_round_shardmap(state, mesh: Mesh) -> ShardedState:
+def ep_ring_round_shardmap(state, mesh: Mesh, kernel: str = "auto"
+                           ) -> ShardedState:
     """One ring round under the EP layout (``shard_actors=True``): vv
     slots are owned per actor shard, all-gathered over the element axis
-    for the round's HasDot reads, and the joined vv is sliced back to
-    this slot's actors.  Equal to ``ring_round_shardmap``; the merge is
-    the plain version, as the JAX package's is XLA."""
+    for the round's HasDot reads, every row merged with the received
+    row of the same index on the gathered vv (K2 per slot,
+    ``merge_pairwise_rows``, the JAX step's ``merge_pairwise``), and the
+    joined vv is sliced back to this slot's actors.  Equal to
+    ``ring_round_shardmap``."""
     mesh_mod.validate_ep_layout(state, mesh)
     sh = _as_sharded(state, mesh, shard_actors=True)
     n_r, n_e = mesh.shape[REPLICA_AXIS], mesh.shape[ELEMENT_AXIS]
@@ -432,7 +435,7 @@ def ep_ring_round_shardmap(state, mesh: Mesh) -> ShardedState:
     eidx = shardmap.axis_index(mesh, ELEMENT_AXIS)
 
     def body(idx, local, got, e):
-        merged = cuda_merge.merge_rows_plain(local, got)
+        merged = cuda_merge.merge_pairwise_rows(local, got, kernel=kernel)
         a = merged.vv.shape[1] // n_e
         return merged._replace(
             vv=merged.vv[:, e * a:(e + 1) * a].contiguous())

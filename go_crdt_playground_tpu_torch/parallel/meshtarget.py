@@ -13,11 +13,13 @@ algebra are each row's dot positions (a prefix count over its touched
 lanes) and its clock ticks, and both are functions of the selector
 masks alone.  So the batch's rows reach the node's device in one copy,
 the per (row, slot) lane offsets and the per-row counters are computed
-there once, and each slot applies its lanes with a local cumsum (plain
-torch, as the JAX path is XLA): no traffic between slots, the dots
-bitwise those of the single-device node.  The batch δ against the
-pre-batch vv is extracted per slot in the same pass and reaches the
-host in one copy a slot for the WAL record.
+there once, and each slot folds its lanes in ONE K10 launch with those
+counters passed in (ops/cuda_ingest.ingest_slot_rows): no traffic
+between slots, the dots bitwise those of the single-device node.  The
+same launch extracts the slot's δ against the pre-batch vv and compacts
+it to the node's K; the WAL record reads one fixed-K head a slot
+(cuda_ingest.record_to_host) and merges the slots' forms, or pulls the
+dense δ past K.
 
 Read path: the digest summary runs K11 on every slot's lanes with the
 slot's GLOBAL lane ids (``lane_base = m E/n``), so the group digests
@@ -49,8 +51,7 @@ from go_crdt_playground_tpu_torch.net import framing
 from go_crdt_playground_tpu_torch.net.framing import MODE_SLICE
 from go_crdt_playground_tpu_torch.net.peer import DigestSummary, Node
 from go_crdt_playground_tpu_torch.ops import cuda_digest, cuda_ingest
-from go_crdt_playground_tpu_torch.ops.compact import (CompactDeltaPayload,
-                                                      compact_payload)
+from go_crdt_playground_tpu_torch.ops.compact import CompactDeltaPayload
 from go_crdt_playground_tpu_torch.ops.delta import DeltaPayload
 from go_crdt_playground_tpu_torch.ops.vv import clock_at
 from go_crdt_playground_tpu_torch.parallel.mesh import (Mesh, empty_grid,
@@ -77,14 +78,14 @@ def _lane_fields(state_cls):
 
 # ---------------------------------------------------------------------------
 # Slot-local row algebra (ops/ingest with the cross-lane reductions
-# replaced by host-computed counters)
+# replaced by counters computed once a batch and passed to K10)
 # ---------------------------------------------------------------------------
 
 
 def rows_to_device(add_rows: np.ndarray, del_rows: np.ndarray,
                    live: np.ndarray, device):
     """A batch's selector rows on ``device`` in one host->device copy,
-    ``live`` folded in: (add bool[B, E], del bool[B, E])."""
+    ``live`` folded in: (add bool[B, E], del bool[B, E], live bool[B])."""
     num_b, num_e = add_rows.shape
     rows = torch.from_numpy(np.concatenate(
         [add_rows.reshape(-1), del_rows.reshape(-1), live])).to(device)
@@ -92,7 +93,7 @@ def rows_to_device(add_rows: np.ndarray, del_rows: np.ndarray,
     add = rows[:num_b * num_e].view(num_b, num_e) & live_t[:, None]
     dl = rows[num_b * num_e:2 * num_b * num_e].view(num_b, num_e) \
         & live_t[:, None]
-    return add, dl
+    return add, dl, live_t
 
 
 def lane_offsets(add: torch.Tensor, num_slots: int) -> torch.Tensor:
@@ -104,22 +105,46 @@ def lane_offsets(add: torch.Tensor, num_slots: int) -> torch.Tensor:
     return torch.cumsum(counts, dim=1) - counts
 
 
+def slot_rows(add: torch.Tensor, dl: torch.Tensor,
+              num_slots: int) -> torch.Tensor:
+    """bool[n, 2, B, E/n]: each slot's add and del rows (live folded in)
+    as contiguous views, in one copy of the batch's rows."""
+    num_b = add.shape[0]
+    return torch.stack([add, dl]).view(2, num_b, num_slots, -1).permute(
+        2, 0, 1, 3).contiguous()
+
+
+def counter_bases(row_base: torch.Tensor, del_ctr: torch.Tensor,
+                  final: torch.Tensor, lane_off: torch.Tensor):
+    """A batch's counters as K10 takes them (uint32 bits in int32), from
+    one narrowed buffer: ``row_base`` and ``del_ctr`` [B], ``final``
+    [1] and ``lane_off`` [n, B] (slot m's row ``lane_off[m]``
+    contiguous); the inputs int64, ``lane_off`` [B, n]."""
+    num_b, n = lane_off.shape
+    words = narrow(torch.cat([row_base, del_ctr, final.reshape(1),
+                              lane_off.t().reshape(-1)]))
+    return (words[:num_b], words[num_b:2 * num_b],
+            words[2 * num_b:2 * num_b + 1], words[2 * num_b + 1:].view(
+                n, num_b))
+
+
 def apply_slot_rows(st: AWSetDeltaState, arow: torch.Tensor,
-                    drow: torch.Tensor, row_base: torch.Tensor,
-                    lane_off: torch.Tensor, del_ctr: torch.Tensor,
-                    final: torch.Tensor, num_rows: int):
+                    drow: torch.Tensor, live: torch.Tensor,
+                    row_base: torch.Tensor, lane_off: torch.Tensor,
+                    del_ctr: torch.Tensor, final: torch.Tensor, k: int):
     """Rows applied to one slot's lanes of one replica slice (fields
-    [E_loc] / [A]): row b's add dots count up from ``row_base[b] +
-    lane_off[b]`` (its pre-row counter and the touched lanes left of
-    this slot) in ascending lane order, its deletion dot is
-    ``del_ctr[b]``, and the clock ends at ``final``.  Returns (merged,
-    δ against the slot's pre-batch vv), the K10 plain version's fold
-    (ops/cuda_ingest.ingest_fold_plain)."""
-    add_dc = narrow(row_base[:, None] + lane_off[:, None]
-                    + torch.cumsum(arow, dim=1, dtype=torch.int64))
-    vv, processed = cuda_ingest.clock_outputs(st, final, num_rows)
-    return cuda_ingest.ingest_fold_plain(st, arow, drow, add_dc,
-                                         narrow(del_ctr), vv, processed)
+    [E_loc] / [A]) in one K10 launch (ops/cuda_ingest.ingest_slot_rows):
+    live row b's add dots count up from ``row_base[b] + lane_off[b]`` (its
+    pre-row counter and the touched lanes left of this slot) in ascending
+    lane order, its deletion dot is ``del_ctr[b]``, and the clock ends at
+    ``final``.  Returns (merged, δ against the slot's pre-batch vv, its
+    fixed-K form or None when k is 0); the inputs move to the slot's
+    device (a no-op where slots share the node's)."""
+    dev = st.vv.device
+    return cuda_ingest.ingest_slot_rows(
+        st, arow.to(dev), drow.to(dev), live.to(dev), row_base.to(dev),
+        lane_off.to(dev), del_ctr.to(dev), final.to(dev), k_changed=k,
+        k_deleted=k)
 
 
 def payload_to_host(parts) -> DeltaPayload:
@@ -342,67 +367,81 @@ class MeshApplyTarget(Node):
         # the whole batch is one stripe on the 1-D mesh: the hint and
         # ``prep`` are the 2-D subclass's seams and are ignored here
         n = self.lane_shards
-        num_b = add_rows.shape[0]
-        add, dl = rows_to_device(add_rows, del_rows, live, self.device)
+        add, dl, live = rows_to_device(add_rows, del_rows, live,
+                                       self.device)
         lane_off = lane_offsets(add, n)
         # row b ticks its added keys plus one if its Del selects any key
         steps = lane_off[:, -1] + add[:, (n - 1) * self._e_loc:].sum(
             dim=1, dtype=torch.int64) + dl.any(dim=1)
         rows0 = self._slot_rows()
-        pre_vv = host(rows0[0].vv) if self.wal is not None else None
         c0 = clock_at(rows0[0].vv.to(self.device),
                       rows0[0].actor.to(self.device))
         row_base = c0 + torch.cumsum(steps, dim=0) - steps
-        del_ctr = row_base + steps
-        final = c0 + steps.sum()
+        row_base, del_ctr, final, offs = counter_bases(
+            row_base, row_base + steps, c0 + steps.sum(), lane_off)
+        rows = slot_rows(add, dl, n)
+        k = self._record_k() if self.wal is not None else 0
         slots = empty_grid(self._mesh)
-        parts = {}
+        parts, comps = {}, {}
         ax = self._mesh.axis(self.LANE_AXIS)
         for idx in self._mesh.local_slots():
             m = idx[ax]
-            dev = self._mesh.device(idx)
             st = AWSetDeltaState(*(x[0] for x in self._slots[idx]))
-            sl = self._lane_slice(m)
-            merged, payload = apply_slot_rows(
-                st, add[:, sl].to(dev), dl[:, sl].to(dev), row_base.to(dev),
-                lane_off[:, m].to(dev), del_ctr.to(dev), final.to(dev),
-                num_b)
+            merged, parts[m], comps[m] = apply_slot_rows(
+                st, rows[m, 0], rows[m, 1], live, row_base, offs[m],
+                del_ctr, final, k)
             slots[idx] = AWSetDeltaState(*(x.unsqueeze(0) for x in merged))
-            parts[m] = payload
         self._set_slots(slots)
         self._count("ingest.dispatches")
         if self.wal is not None:
-            self._append_slot_record(pre_vv, [parts[m] for m in range(n)])
+            self._append_slot_record(
+                rows0[0].vv, [parts[m] for m in range(n)],
+                [comps[m] for m in range(n)] if k else None)
+
+    def _record_k(self) -> int:
+        """The K a record's δ is compacted to: the one-slot node's
+        (``_fused_regime[1]``: min(128, E) on a CUDA node, 0 on the CPU,
+        where the encoder compacts on the host)."""
+        return self._fused_regime[1] if self.wal_compact_records else 0
 
     # requires-lock: _lock
-    def _append_slot_record(self, pre_vv: np.ndarray, parts) -> None:
+    def _append_slot_record(self, pre_vv, parts, comps=None) -> None:
         """WAL-log a batch's δ from its per-slot parts (lane slices in
-        slot order) in the one-slot node's record form: where that node
-        compacts on the device (K = ``_fused_regime[1]`` > 0, a CUDA
-        node), each slot compacts its part to K lanes and the forms are
-        merged when at most K lanes a section are claimed in all (the
-        same record as one compaction of the whole δ); else, or past K,
-        the dense δ reaches the host and the encoder picks the form."""
-        k = self._fused_regime[1] if self.wal_compact_records else 0
-        if k:
-            comps = [compact_payload(p, k, k) for p in parts]
-            # transfer-ok: two words (the lanes both sections claim over
-            # all slots) in one copy, to pick the record's form; the
-            # record is appended under the lock that ordered the batch
-            counts = torch.stack([torch.stack(
-                [p.changed.sum(), p.deleted.sum()]).to(self.device)
-                for p in parts]).sum(dim=0).cpu()
-            if int(counts[0]) <= k and int(counts[1]) <= k:
-                # transfer-ok: one bounded fixed-K pull a slot, the
-                # sanction of the one-slot node's per-batch compact pull
-                merged = merge_compact([to_host(c) for c in comps], k,
-                                       lambda m: m * self._e_loc)
-                self._append_delta_record(pre_vv, None, merged,
-                                          num_elements=self.num_elements)
+        slot order; ``pre_vv`` the pre-batch vv) in the one-slot node's
+        record form.  Where that node compacts to K = ``_record_k()`` >
+        0, ``comps`` holds the slots' fixed-K forms: they reach the host
+        one head a slot and are merged when at most K lanes a section
+        are claimed in all (the same record as one compaction of the
+        whole δ).  Past K, or without forms, the dense δ reaches the
+        host and the encoder picks the form."""
+        k = self._record_k()
+        if comps is not None:
+            # transfer-ok: one bounded fixed-K head a slot (the kernel's
+            # copy of the pre-batch vv in it), and an overflowed slot's
+            # dense δ with it; the sanction of the one-slot node's
+            # per-batch compact pull, under the lock that ordered the
+            # batch
+            pulled = [cuda_ingest.record_to_host(pre_vv, p, c)
+                      for p, c in zip(parts, comps)]
+            pre = pulled[0][0]
+            forms = [c for _, _, c in pulled]
+            if (not any(bool(c.overflow) for c in forms)
+                    and sum(int(c.ch_valid.sum()) for c in forms) <= k
+                    and sum(int(c.del_valid.sum()) for c in forms) <= k):
+                self._append_delta_record(
+                    pre, None, merge_compact(forms, k,
+                                             lambda m: m * self._e_loc),
+                    num_elements=self.num_elements)
                 return
-        # transfer-ok: the dense δ, one copy a slot, only past K claimed
-        # lanes (or with no device compaction), as the one-slot node
-        self._append_delta_record(pre_vv, payload_to_host(parts), None)
+            # transfer-ok: past K claimed lanes, the dense δ, one copy a
+            # slot not pulled with its head, as the one-slot node
+            dense = payload_to_host([p for _, p, _ in pulled])
+            self._append_delta_record(pre, dense, None)
+            return
+        # transfer-ok: the dense δ, one copy a slot, where no fixed-K
+        # form was made (K = 0), as the one-slot node pulls its dense δ
+        dense = payload_to_host(parts)
+        self._append_delta_record(host(pre_vv), dense, None)
 
     # -- read path ----------------------------------------------------------
 

@@ -22,10 +22,14 @@ three mechanisms:
    leave every dp replica holding the unique-writer select of all
    stripes, so reads see the joined replica with no reduce over dp.
 
+Each stripe slot folds its rows in ONE K10 launch with the chunk's
+absolute counters passed in (ops/cuda_ingest.ingest_slot_rows, K = 0).
 The batch δ for the WAL record is extracted from the joined state
-against the pre-batch vv: the same record bytes as the 1-D and
-single-device paths for an uncut batch; a cut batch logs one record a
-chunk, which replays to the same state.  Requires v2 semantics.
+against the pre-batch vv and compacted to K on the device, both in plain
+torch (``_apply_batch_locked`` says why): the same record bytes as the
+1-D and single-device paths for an uncut batch; a cut batch logs one
+record a chunk, which replays to the same state.  Requires v2
+semantics.
 """
 
 from __future__ import annotations
@@ -35,8 +39,9 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from go_crdt_playground_tpu_torch._u32 import host
+from go_crdt_playground_tpu_torch._u32 import MASK, host, narrow
 from go_crdt_playground_tpu_torch.models.awset_delta import AWSetDeltaState
+from go_crdt_playground_tpu_torch.ops.compact import compact_payload
 from go_crdt_playground_tpu_torch.ops.delta import delta_extract
 from go_crdt_playground_tpu_torch.parallel import shardmap
 from go_crdt_playground_tpu_torch.parallel.gossip import disjoint_update_join
@@ -237,36 +242,48 @@ def plan_stripes(add_rows: np.ndarray, del_rows: np.ndarray,
     return out, cuts
 
 
+def stripe_counters(plan: RowPlan, pre_ctr: int) -> np.ndarray:
+    """uint32[dp, 2 cap + 1] as int32 bits: each stripe's absolute row
+    bases, its deletion counters and its final clock (its last row's
+    deletion counter; padding rows carry the end-of-chunk prefix, so a
+    stripe with padding ends at the chunk's final counter, which the
+    join's max recovers), all mod 2^32."""
+    row_base = pre_ctr + plan.prefix.astype(np.int64)
+    del_ctr = (row_base + plan.add_total.astype(np.int64)
+               + plan.del_tick.astype(np.int64))
+    words = np.concatenate([row_base, del_ctr, del_ctr[:, -1:]], axis=1)
+    return (words & MASK).astype(np.uint32).view(np.int32)
+
+
 def mesh2d_ingest(mesh: Mesh, slots, add: torch.Tensor, dl: torch.Tensor,
                   plan: RowPlan, pre_ctr: int, e_loc: int):
     """One chunk on the 2-D mesh: slot (d, m) applies stripe d's rows to
-    lane shard m with the chunk's absolute counter bases (plain torch),
-    then the dp dissemination join.  ``add`` / ``dl``: the batch's live
-    selector rows, bool[B, E] on the node's device, gathered into the
-    chunk's stripes there.  Returns the joined slot grid."""
+    lane shard m with the chunk's absolute counter bases (one K10 launch,
+    ``apply_slot_rows`` with K = 0), then the dp dissemination join.
+    ``add`` / ``dl``: the batch's live selector rows, bool[B, E] on the
+    node's device, gathered into the chunk's stripes there.  Returns the
+    joined slot grid."""
     dp, cap = plan.index.shape
     mp = mesh.shape[MP_AXIS]
     device = add.device
     index = torch.from_numpy(plan.index).to(device)
-    used = (index >= 0)[..., None]
-    add = add[index.clamp(min=0)] & used
-    dl = dl[index.clamp(min=0)] & used
+    live = index >= 0
+    add = add[index.clamp(min=0)] & live[..., None]
+    dl = dl[index.clamp(min=0)] & live[..., None]
     lane_off = lane_offsets(add.view(dp * cap, -1), mp).view(dp, cap, mp)
-    row_base = pre_ctr + torch.from_numpy(
-        plan.prefix.astype(np.int64)).to(device)
-    del_ctr = row_base + torch.from_numpy(
-        plan.add_total.astype(np.int64) + plan.del_tick).to(device)
+    # slot (d, m)'s rows and lane offsets as contiguous views
+    rows = torch.stack([add, dl], dim=1).view(dp, 2, cap, mp, e_loc).permute(
+        0, 3, 1, 2, 4).contiguous()
+    offs = narrow(lane_off).permute(0, 2, 1).contiguous()
+    words = torch.from_numpy(stripe_counters(plan, pre_ctr)).to(device)
     base = shardmap.map_slots(
         mesh, lambda idx, s: AWSetDeltaState(*(x[0] for x in s)), slots)
 
     def stripe(idx, st):
         d, m = idx
-        dev = st.vv.device
-        sl = slice(m * e_loc, (m + 1) * e_loc)
-        merged, _ = apply_slot_rows(
-            st, add[d, :, sl].to(dev), dl[d, :, sl].to(dev),
-            row_base[d].to(dev), lane_off[d, :, m].to(dev),
-            del_ctr[d].to(dev), del_ctr[d, -1].to(dev), cap)
+        merged, _, _ = apply_slot_rows(
+            st, rows[d, m, 0], rows[d, m, 1], live[d], words[d, :cap],
+            offs[d, m], words[d, cap:2 * cap], words[d, 2 * cap:], 0)
         return merged
 
     stripes = shardmap.map_slots(mesh, stripe, base)
@@ -320,7 +337,7 @@ class Mesh2DApplyTarget(MeshApplyTarget):
         # the rows reach the node's device once; the planner reads their
         # keys from there, and each chunk's stripes are gathered from
         # them on the device
-        add, dl = rows_to_device(add_rows, del_rows, live, self.device)
+        add, dl, _ = rows_to_device(add_rows, del_rows, live, self.device)
         nz = torch.nonzero(add | dl)
         # transfer-ok: taken before the node lock (ingest_batch calls this
         # outside its with-block; the batcher's loop holds no lock); the
@@ -362,7 +379,18 @@ class Mesh2DApplyTarget(MeshApplyTarget):
                 self._count("mesh.stripe.rows", plan.rows)
                 self._count("mesh.stripe.width", plan.stripes_used)
             if self.wal is not None:
+                # the δ of the joined lanes: no stripe's K10 launch sees
+                # them all, and no kernel of the JAX package computes it
+                # (build_mesh2d_ingest's delta_extract is XLA).  Its
+                # compaction stays on the device too: pulling the dense
+                # δ to compact it on the host took a 2 x 2 node at E =
+                # 2^20 from 190-216 to 229-244 ms a batch on an H100
+                # (tools/torch_mesh_serve_ab.py)
                 pre = torch.from_numpy(pre_vv.view(np.int32))
-                self._append_slot_record(pre_vv, [
-                    delta_extract(r, pre.to(r.vv.device))
-                    for r in self._slot_rows()])
+                k = self._record_k()
+                parts = [delta_extract(r, pre.to(r.vv.device))
+                         for r in self._slot_rows()]
+                self._append_slot_record(
+                    pre_vv, parts,
+                    [compact_payload(p, k, k) for p in parts] if k
+                    else None)

@@ -1037,7 +1037,8 @@ def test_transfer_under_lock_detected_and_annotation_clears():
                                   "torch.cuda.synchronize()",
                                   "self._done.synchronize()",
                                   "to_host(self._state)",
-                                  "payload_to_host(parts)"])
+                                  "payload_to_host(parts)",
+                                  "record_to_host(t, parts, None)"])
 def test_every_port_transfer_name_is_caught(call):
     src = ("class T:\n"
            "    def pull(self, t, parts):\n"

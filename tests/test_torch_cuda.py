@@ -1306,3 +1306,155 @@ def test_cuda_crash_restore_resync(tmp_path):
             for n in nodes:
                 if n is not None:
                     n.close()
+
+
+# -- K10 with the counter bases passed in: the lane-sharded write path -------
+
+BASED_E = [4096, 4097, 1 << 18]
+BASED_A = [16, 8193, 60000]
+
+
+def _based_inputs(seed, E, B, clock):
+    """A slot's rows and their live mask (a fifth of them padding, which
+    the kernel folds in) and counters whose sums cross 2^31 or wrap 2^32 from ``clock``: each row's
+    lanes left of the slot, its pre-row counter, deletion counter and the
+    final clock, as int64 (the wrapper reduces them)."""
+    rng = np.random.default_rng(seed)
+    add, dl, live = _batch(seed, B, E, 0.05, "holes")
+    lane_off = np.where(live.numpy(), rng.integers(0, 1 << 20, B), 0)
+    steps = ((add & live[:, None]).sum(dim=1).numpy() + lane_off
+             + (dl & live[:, None]).any(dim=1).numpy()
+             + np.where(live.numpy(), rng.integers(0, 50, B), 0))
+    row_base = clock + np.cumsum(steps) - steps
+    return (add.cuda(), dl.cuda(), live.cuda(), row_base, lane_off,
+            row_base + steps, clock + int(steps.sum()))
+
+
+@pytest.mark.parametrize("A", BASED_A)
+@pytest.mark.parametrize("E", BASED_E)
+def test_k10_based_entry_matches_plain(E, A):
+    """``crdt_ingest_based`` on one block (E = 4,096) and the cooperative
+    grid (4,097 and a 4-slot node's slot at E = 2^20), the vv staged in
+    shared memory, opted in past 48 KB and read from device memory (A =
+    60,000), at B in {0, 1, 32, 64}, K in {128, 0}, nonzero lane offsets,
+    padding rows, counters crossing 2^31 and wrapping 2^32: bitwise, and
+    the compact form's one-copy record read."""
+    from go_crdt_playground_tpu_torch._u32 import host, to_host
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    for i, B in enumerate((0, 1, 32, 64)):
+        clock = (0x7FFFFFF0, 0xFFFFFFF0, 0xFFFF0000, 7)[i]
+        row = _on_gpu(_slice(300 + i, E, A, clock))
+        rows = _based_inputs(310 + i, E, B, clock)
+        for k in (128, 0):
+            before = ci.ingest_slot_rows.launches
+            got = ci.ingest_slot_rows(row, *rows, k_changed=k,
+                                      k_deleted=k, kernel="cuda")
+            assert ci.ingest_slot_rows.launches == before + 1
+            want = ci.ingest_slot_rows(row, *rows, k_changed=k,
+                                       k_deleted=k, kernel="torch")
+            assert (got[2] is None) == (want[2] is None) == (k == 0)
+            for g, w in zip(got, want):
+                if w is not None:
+                    assert all(x.dtype == y.dtype and x.shape == y.shape
+                               for x, y in zip(g, w))
+                    assert _equal(g, w), (E, A, B, k)
+            if k:
+                pre, _, rec = ci.record_to_host(row.vv, got[1], got[2])
+                assert np.array_equal(pre, host(row.vv))
+                for g, w in zip(rec, to_host(want[2])):
+                    assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def _disjoint_rows(rng, B, E):
+    """Op-rows whose keys no two rows share (the 2-D planner cuts
+    nothing), some rows deleting earlier rows' keys."""
+    perm = rng.permutation(E)
+    add = np.zeros((B, E), bool)
+    dl = np.zeros((B, E), bool)
+    for b in range(B):
+        keys = perm[8 * b:8 * b + 8]
+        add[b, keys[:1 + b % 6]] = True
+        if b % 3 == 2:
+            dl[b, keys[6:]] = True
+    return add, dl, np.arange(B) % 7 != 5
+
+
+def test_mesh_nodes_on_the_card_fold_once_a_slot(tmp_path, monkeypatch):
+    """A ``MeshApplyTarget`` on 4 slots of cuda:0 and a
+    ``Mesh2DApplyTarget`` on 2 x 2: one ``crdt_ingest_based`` launch a
+    slot a batch (a stripe slot a chunk), no plain fold on a CUDA tensor,
+    WAL records byte-equal to a one-slot CUDA node's fed the same
+    batches (compact; dense past K, where the slots only together claim
+    more than K lanes and where one slot alone does, its dense δ then
+    pulled with its head and the others' from the device), the states
+    equal."""
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.parallel.meshtarget import \
+        MeshApplyTarget
+    from go_crdt_playground_tpu_torch.parallel.meshtarget2d import \
+        Mesh2DApplyTarget
+    from go_crdt_playground_tpu_torch.utils.wal import DeltaWal
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    E, A, B = 1 << 15, 16, 32
+    plain = []
+    fold = ci.ingest_fold_plain
+    monkeypatch.setattr(ci, "ingest_fold_plain", lambda st, *a: (
+        plain.append(st.vv.device.type), fold(st, *a))[1])
+    nodes = {
+        "one": Node(0, E, A, device="cuda:0",
+                    wal=DeltaWal(str(tmp_path / "one"))),
+        "4": MeshApplyTarget(0, E, A, mesh_devices=4, device="cuda:0",
+                             wal=DeltaWal(str(tmp_path / "m4"))),
+        "2x2": Mesh2DApplyTarget(0, E, A, mesh_shape="2x2",
+                                 device="cuda:0",
+                                 wal=DeltaWal(str(tmp_path / "m22"))),
+    }
+    rng = np.random.default_rng(404)
+    n_batches = 7
+    # past K = 128: 200 claimed lanes over all slots (about 50 a slot),
+    # then inside slot 0 alone, then inside slot 2 alone (of 4)
+    past_k = {3: (0, E), 4: (0, E // 4), 5: (E // 2, 3 * E // 4)}
+    for i in range(n_batches):
+        add, dl, live = _disjoint_rows(rng, B, E)
+        if i in past_k:
+            lo, hi = past_k[i]
+            add[:, :] = dl[:, :] = False
+            add[0, lo + rng.choice(hi - lo, 200, replace=False)] = True
+        for name, n in nodes.items():
+            before = ci.ingest_slot_rows.launches
+            n.ingest_batch(add, dl, live)
+            assert ci.ingest_slot_rows.launches - before == \
+                (0 if name == "one" else 4), name
+    assert plain == []
+    recs = {name: list(n.wal.records()) for name, n in nodes.items()}
+    assert len(recs["one"]) == n_batches
+    assert recs["4"] == recs["one"] and recs["2x2"] == recs["one"]
+    want = nodes["one"].state_slice()
+    for name in ("4", "2x2"):
+        assert _equal(nodes[name].state_slice(), want), name
+    for n in nodes.values():
+        n.wal.close()
+
+
+def test_ep_ring_round_on_k2_matches_plain():
+    """The EP-layout ring round on a 2 x 2 mesh of cuda:0: K2 a slot on
+    the gathered vv, bitwise against ``kernel="torch"``."""
+    from go_crdt_playground_tpu_torch import fleet
+    from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
+    from go_crdt_playground_tpu_torch.parallel import gossip
+    from go_crdt_playground_tpu_torch.parallel import mesh as mesh_mod
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    m = mesh_mod.make_mesh((2, 2), devices=["cuda:0"] * 4)
+    st = mesh_mod.shard_state(fleet.demo_state(4, 4096, device="cuda:0"),
+                              m, shard_actors=True)
+    before = cm.merge_pairwise_rows.launches
+    got = gossip.ep_ring_round_shardmap(st, m)
+    assert cm.merge_pairwise_rows.launches == before + 4
+    want = gossip.ep_ring_round_shardmap(st, m, kernel="torch")
+    assert _equal(mesh_mod.gather_state(got), mesh_mod.gather_state(want))
