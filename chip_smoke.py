@@ -516,7 +516,93 @@ def phase_environment():
                          ("digest", "group_digests")):
         for line in ptxas_report(_build.build_log(name), kernel):
             log(f"  ptxas: {line}")
+    native = check_native_codec()
+    log(f"native codec: available {native['available']}, build error "
+        f"{native['build_error']}, built in {native['build_s']:.3f} s; "
+        f"E = {CODEC_E}, A = {CODEC_A}: " + ", ".join(
+            f"{kind} δ ({n['lanes']} lanes) {n['bytes']} B" for kind, n
+            in native["payloads"].items())
+        + ", encode_payload equal with prefer_native True and False, "
+        "decode_payload equal both ways")
     return smi
+
+
+# the native codec's check: one serve node's shape (E, A), a sparse and a
+# dense δ (the share of lanes each section marks), their seed
+CODEC_E, CODEC_A = 1024, 16
+CODEC_DENSITY = {"sparse": 0.01, "dense": 0.6}
+CODEC_SEED = 16
+
+
+def codec_payloads() -> dict:
+    """Seeded host ``DeltaPayload``s at (CODEC_E, CODEC_A), one for each
+    CODEC_DENSITY: that share of the lanes changed, as many again of the
+    rest deleted, dots anywhere in uint32 (past 2^31 included), zeros on
+    unmarked lanes as the codec decodes them, ``src_processed`` zero (it
+    is not shipped)."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.ops.delta import DeltaPayload
+
+    E, A = CODEC_E, CODEC_A
+    rng = np.random.default_rng(CODEC_SEED)
+
+    def u32(x):
+        return torch.from_numpy(np.asarray(x, np.uint32).view(np.int32))
+
+    def dots(mask):
+        return (u32(np.where(mask, rng.integers(0, A, E), 0)),
+                u32(np.where(mask, rng.integers(1, 1 << 32, E,
+                                                dtype=np.uint64), 0)))
+
+    out = {}
+    for kind, density in CODEC_DENSITY.items():
+        changed = rng.random(E) < density
+        deleted = ~changed & (rng.random(E) < density)
+        ch_da, ch_dc = dots(changed)
+        del_da, del_dc = dots(deleted)
+        out[kind] = DeltaPayload(
+            src_vv=u32(rng.integers(0, 1 << 32, A, dtype=np.uint64)),
+            changed=torch.from_numpy(changed), ch_da=ch_da, ch_dc=ch_dc,
+            deleted=torch.from_numpy(deleted), del_da=del_da,
+            del_dc=del_dc, src_actor=torch.tensor(3, dtype=torch.int32),
+            src_processed=torch.zeros(A, dtype=torch.int32))
+    return out
+
+
+def check_native_codec() -> dict:
+    """The C++ codec (``native/``) builds here, and on ``codec_payloads``'
+    sparse and dense δ ``utils/wire.encode_payload`` gives the same bytes
+    with ``prefer_native`` True and False and ``decode_payload`` gives
+    back the payload both ways.  Raises on any failure."""
+    from go_crdt_playground_tpu_torch import native
+    from go_crdt_playground_tpu_torch._host import host
+    from go_crdt_playground_tpu_torch.utils import wire
+
+    t0 = time.perf_counter()
+    available = native.available()
+    out = {"available": available, "build_error": native.build_error(),
+           "build_s": time.perf_counter() - t0, "payloads": {}}
+    if not available:
+        raise AssertionError(f"native codec did not build: "
+                             f"{out['build_error']}")
+    for kind, p in codec_payloads().items():
+        body = wire.encode_payload(p, prefer_native=True)
+        if body != wire.encode_payload(p, prefer_native=False):
+            raise AssertionError(f"native codec: {kind} δ bytes differ "
+                                 "from the Python codec's")
+        for prefer in (True, False):
+            back = wire.decode_payload(body, CODEC_E, CODEC_A, src_actor=3,
+                                       prefer_native=prefer)
+            for name, x, y in zip(p._fields, p, back):
+                x, y = host(x), np.asarray(y)
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    raise AssertionError(f"native codec: {kind} δ decoded "
+                                         f"(prefer_native={prefer}) "
+                                         f"differs in {name}")
+        out["payloads"][kind] = {"bytes": len(body), "lanes": int(
+            p.changed.sum() + p.deleted.sum())}
+    return out
 
 
 def ptxas_report(text: str, kernel: str):
@@ -2228,8 +2314,16 @@ def phase_serve_soak(smi: str):
     check_allowed("serve soak", failed, SERVE_SOAK_MAY_FAIL,
                   res["guarantee_failures"])
     load, ic = res["load"], res["ingest_compare"]
+
+    def admitted(leg) -> float:
+        """The readers' admitted rate: ops the server admitted by the
+        offering's end over the offering's span."""
+        span = leg["submitted"] / max(leg["achieved_offer_rate"], 1e-9)
+        return leg["window_end"]["admitted"] / max(span, 1e-9)
+
     curve = ", ".join(f"{leg['offered_rate']:g}/s -> {leg['goodput']:g}/s "
-                      f"p99 {leg['p99_ms']} ms shed {leg['overloaded']}"
+                      f"p99 {leg['p99_ms']} ms shed {leg['overloaded']} "
+                      f"admitted {admitted(leg):.1f}/s"
                       for leg in load["open_loop"])
     log(f"serve soak (--quick, cuda workers, {res['elapsed_s']} s): open "
         f"loop {curve}; closed loop "
@@ -2237,6 +2331,8 @@ def phase_serve_soak(smi: str):
                     f"{leg['p99_ms']} ms" for leg in load["closed_loop"])
         + f"; ingest seed/fused {ic['seed']['dispatches_per_batch']:g}/"
         f"{ic['fused']['dispatches_per_batch']:g} steps a batch, "
+        f"{ic['seed']['ops_per_batch']:g}/{ic['fused']['ops_per_batch']:g}"
+        f" ops a batch, "
         f"{ic['seed']['wal_bytes_per_acked_op']:g}/"
         f"{ic['fused']['wal_bytes_per_acked_op']:g} WAL B an op; "
         f"compaction dropped {res['compaction']['gc_dropped_lanes_under_traffic']}"
@@ -2908,6 +3004,13 @@ def phase_fleet_soak(smi: str) -> dict:
     for mode, flags in FLEET_SOAK_MODES:
         res = run_checked_tool([tool, "--device", "cuda", *flags], 900,
                                f"fleet soak {mode}")
+        if res["failures"]:
+            # the readings behind a failed check (a rate calibration,
+            # the rings), before it fails the phase
+            log(f"fleet soak {mode}: " + json.dumps(
+                {k: v for k, v in (res["result"] or {}).items()
+                 if k not in ("decision_log_1", "decision_log_2",
+                              "timeline")}, default=str)[:20000])
         check_allowed(f"fleet soak {mode}", res["failures"],
                       FLEET_SOAK_MAY_FAIL, res["guarantee_failures"])
         walls[mode] = res["tool_wall_s"]
@@ -3536,6 +3639,30 @@ def mesh_batch_split(label: str, E: int, A: int, B: int, tmp: str,
     return out
 
 
+def mesh_digest_summary(node, want: bytes, lane_slots: int,
+                        what: str) -> dict:
+    """A mesh node's ``digest_summary()``: equal to
+    ``digestsync.node_summary(node)`` and to ``want`` (a one-slot
+    node's body after the same batches), read with one K11 launch a
+    lane slot.  Returns the body's size and the launches of one read."""
+    from go_crdt_playground_tpu_torch.net import digestsync
+    from go_crdt_playground_tpu_torch.ops import cuda_digest
+
+    before = cuda_digest.state_group_digests.launches
+    body = node.digest_summary()
+    k11 = cuda_digest.state_group_digests.launches - before
+    if k11 != lane_slots:
+        raise AssertionError(f"{what}: digest_summary() launched K11 "
+                             f"{k11} times for {lane_slots} lane slots")
+    if body != digestsync.node_summary(node):
+        raise AssertionError(f"{what}: digest_summary() differs from "
+                             "node_summary()")
+    if body != want:
+        raise AssertionError(f"{what}: digest_summary() differs from the "
+                             "one-slot node's summary")
+    return {"bytes": len(body), "k11": k11}
+
+
 def phase_mesh_serve(counters: Counters, timings: dict, smi: str) -> dict:
     """13d: ``serve --ingest --mesh-devices 4`` and ``--mesh-devices 2x2
     --sched auto`` on cuda:0 as subprocesses at one node's universe (E =
@@ -3567,6 +3694,7 @@ def phase_mesh_serve(counters: Counters, timings: dict, smi: str) -> dict:
     from go_crdt_playground_tpu_torch.utils.wal import DeltaWal
 
     E, A = UNIVERSE_E, UNIVERSE_A
+    summary_reads = {}
 
     def recorded_node(klass, wal_dir):
         """(a node on the card with a WAL, the bodies it appends)."""
@@ -3695,14 +3823,20 @@ def phase_mesh_serve(counters: Counters, timings: dict, smi: str) -> dict:
             cls, kw = ((Mesh2DApplyTarget, {"mesh_shape": "2x2"})
                        if "x" in label else
                        (MeshApplyTarget, {"mesh_devices": 4}))
+            one_body = digestsync.node_summary(one)
             for klass, nk in ((cls, kw), (Node, None)):
                 back = klass.restore_durable(f"{tmp}/durable",
                                              device="cuda:0",
                                              node_kwargs=nk)
                 same_state(live, back.state_slice(),
                            f"13d {label}: restore as {klass.__name__}")
+                if klass is cls:
+                    summary_reads[label] = mesh_digest_summary(
+                        back, one_body, lane_slots, f"13d {label}")
+                    counters.main_path["state_group_digests"] += \
+                        summary_reads[label]["k11"]
                 back.wal.close()
-            if bodies_read[-1] != digestsync.node_summary(one):
+            if bodies_read[-1] != one_body:
                 raise AssertionError(f"13d {label}: the summary differs "
                                      "from the one-slot node's")
             one.wal.close()
@@ -3716,6 +3850,7 @@ def phase_mesh_serve(counters: Counters, timings: dict, smi: str) -> dict:
                 "batch_apply_ms": apply_s["mean"] * 1e3,
                 "wal_append_share": rec["append_s"] / apply_s["sum"],
                 "stripe_cuts": cuts, "k11_launches": rec["k11"],
+                "digest_summary": summary_reads[label],
                 "k10_based_launches": rec["k10_based"],
                 "dispatches": dispatches, "startup_s": up, "card": smi}
             log(f"13d serve --mesh-devices {label} (E={E}, A={A}, 4 slots "
@@ -3732,7 +3867,11 @@ def phase_mesh_serve(counters: Counters, timings: dict, smi: str) -> dict:
                 f"{dispatches} dispatches and the warm-up, no fused K10 "
                 f"launch, no plain fold on the card, "
                 f"{rec['plain_on_card']['compact']} compactions of a joined "
-                f"δ [{smi}]")
+                f"δ; the restored node's digest_summary() equal to "
+                f"node_summary() and to the one-slot node's body "
+                f"({summary_reads[label]['bytes']} B, K11 "
+                f"{summary_reads[label]['k11']} launches for one read of "
+                f"{lane_slots} lane slots) [{smi}]")
             log(f"13d {label}: " + json.dumps(out[label]))
             if dp:
                 out[f"{label} cut"] = forced_cuts(label, dp, tmp,

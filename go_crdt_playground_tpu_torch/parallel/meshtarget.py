@@ -486,6 +486,18 @@ class MeshApplyTarget(Node):
                                    group_size, self.LANE_AXIS)(rows)
         return torch.cat([p.to(state_slice.present.device) for p in parts])
 
+    def digest_summary(self, group_size: Optional[int] = None) -> bytes:
+        """This replica's digest summary frame body (vv, processed,
+        group digests): the read the serve DSUM verb and the router's
+        member cache consume, K11 once a lane slot on a CUDA node.
+        Moves E/16 + O(A) bytes off the slots whatever their count."""
+        from go_crdt_playground_tpu_torch.net import digestsync
+        from go_crdt_playground_tpu_torch.ops.digest import DIGEST_GROUP_LANES
+
+        if group_size is None:
+            group_size = DIGEST_GROUP_LANES
+        return digestsync.node_summary(self, group_size)
+
     def digest_summary_arrays(self, group_size: int) -> DigestSummary:
         """The summary read over the slots: K11 once a lane slot, the
         clocks from slot 0, without assembling the whole state.  Groups

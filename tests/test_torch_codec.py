@@ -220,6 +220,30 @@ def test_native_wire_bytes_match_jax_and_python(natives, e, a):
                                       np.asarray(getattr(jq, name))), name
 
 
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_native_codec_at_the_serve_shape_matches_jax(natives, kind):
+    """chip_smoke.py phase 1's check at one serve node's shape (E =
+    1,024, A = 16) on its seeded sparse and dense δ: the native bytes
+    equal the Python codec's and the JAX package's, and the payload
+    decodes back both ways."""
+    import chip_smoke
+
+    from go_crdt_playground_tpu_torch._host import host
+
+    p = chip_smoke.codec_payloads()[kind]
+    jp = jax_delta_ops.DeltaPayload(*(host(x) for x in p))
+    body = wire.encode_payload(p, prefer_native=True)
+    assert body == wire.encode_payload(p, prefer_native=False)
+    assert body == jax_wire.encode_payload(jp, prefer_native=False)
+    for prefer in (True, False):
+        back = wire.decode_payload(body, chip_smoke.CODEC_E,
+                                   chip_smoke.CODEC_A, src_actor=3,
+                                   prefer_native=prefer)
+        for name, x, y in zip(p._fields, p, back):
+            assert np.array_equal(host(x), np.asarray(y)), name
+    assert chip_smoke.check_native_codec()["available"]
+
+
 def test_native_wire_rejects_what_the_jax_codec_rejects(natives):
     rng = np.random.default_rng(9)
     jp, p = _payload(rng, 40, 5)

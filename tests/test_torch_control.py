@@ -448,61 +448,140 @@ def _package(name):
     return control, controller, signals
 
 
-def _views(signals, trace):
-    """A trace of (t, p99s, queue, op_rate, reachable) as FleetViews of
-    one package."""
+def _views(signals, sigs):
+    """Views as FleetViews of one package: each of ``sigs`` in the form a
+    decision record keeps them (``t``, ``generation``, ``shards``,
+    ``fenced``, ``router_epoch``, ``shard_epochs`` and ``per_shard``'s
+    rates, queue depth and p99 in ms)."""
     out = []
-    for t, p99s, queue, op_rate, reach in trace:
-        shards = [f"s{i}" for i in range(len(p99s))]
+    for s in sigs:
         per = {sid: signals.ShardSignals(
-            sid=sid, reachable=reach[i], op_rate=op_rate,
-            acked_rate=op_rate, shed_rate=0.0, queue_depth=queue[i],
-            p99_s=p99s[i]) for i, sid in enumerate(shards)}
+            sid, v["reachable"], v["op_rate"], v["acked_rate"],
+            v["shed_rate"], v["queue_depth"],
+            None if v["p99_ms"] is None else v["p99_ms"] / 1e3)
+            for sid, v in s["per_shard"].items()}
         out.append(signals.FleetView(
-            t=t, generation=0, digest="d", shards=tuple(shards), fenced=0,
-            load_stats={}, per_shard=per))
+            t=s["t"], generation=s["generation"], digest="",
+            shards=tuple(s["shards"]), fenced=s["fenced"], load_stats={},
+            per_shard=per, router_epoch=s["router_epoch"],
+            shard_epochs=s["shard_epochs"]))
     return out
 
 
 def _trace(seed, n=60):
+    """A seeded view trace (hot, cold, dark shards, shard counts 1-4) in
+    the form ``_views`` reads."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     trace, k = [], 2
     for t in range(n):
         k = int(min(4, max(1, k + rng.integers(-1, 2))))
-        p99s = [(0.05, 0.5, None)[int(rng.integers(0, 3))]
+        p99s = [(50.0, 500.0, None)[int(rng.integers(0, 3))]
                 for _ in range(k)]
         queue = [float(rng.integers(0, 20)) for _ in range(k)]
         reach = [bool(rng.random() < 0.9) for _ in range(k)]
-        trace.append((float(t), p99s, queue,
-                      float(rng.choice([5.0, 50.0, 400.0])), reach))
+        op_rate = float(rng.choice([5.0, 50.0, 400.0]))
+        shards = [f"s{i}" for i in range(k)]
+        trace.append({
+            "t": float(t), "generation": 0, "shards": shards, "fenced": 0,
+            "router_epoch": 0, "shard_epochs": None,
+            "per_shard": {sid: {
+                "reachable": reach[i], "op_rate": op_rate,
+                "acked_rate": op_rate, "shed_rate": 0.0,
+                "queue_depth": queue[i], "p99_ms": p99s[i]}
+                for i, sid in enumerate(shards)}})
     return trace
+
+
+def _replay(name, config, seed, sigs, outcome):
+    """``sigs`` through one package's ``AutopilotPolicy`` (``config`` a
+    dict of ``PolicyConfig``'s fields): each decision's record, and
+    after each action ``policy.note_outcome(action, *outcome(i, view))``
+    where ``outcome`` gives one."""
+    control, _, signals = _package(name)
+    policy = control.AutopilotPolicy(control.PolicyConfig(**config),
+                                     seed=seed)
+    out = []
+    for i, view in enumerate(_views(signals, sigs)):
+        d = policy.decide(view)
+        out.append(d.to_record())
+        noted = outcome(i, view) if d.action != "hold" else None
+        if noted is not None:
+            policy.note_outcome(d.action, *noted)
+    return out
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_policies_decide_alike_across_packages(seed):
     """One seeded view trace (hot, cold, dark shards, shard counts
     1-4), the outcomes fed back alike: decision for decision equal."""
-    records = {}
-    for name in ("jax", "torch"):
-        control, _, signals = _package(name)
-        policy = control.AutopilotPolicy(control.PolicyConfig(
-            p99_budget_s=0.2, queue_watermark=10.0, hot_windows=2,
-            cold_windows=3, cooldown_s=3.0, abort_cooldown_s=6.0,
-            min_shards=1, max_shards=4, cold_rate_per_shard=100.0),
-            seed=seed)
-        recs = []
-        for i, view in enumerate(_views(signals, _trace(seed))):
-            d = policy.decide(view)
-            recs.append(d.to_record())
-            if d.action != "hold":
-                policy.note_outcome(
-                    d.action, ("committed", "aborted", "skipped")[i % 3],
-                    view.t)
-        records[name] = recs
+    config = dict(p99_budget_s=0.2, queue_watermark=10.0, hot_windows=2,
+                  cold_windows=3, cooldown_s=3.0, abort_cooldown_s=6.0,
+                  min_shards=1, max_shards=4, cold_rate_per_shard=100.0)
+    records = {name: _replay(
+        name, config, seed, _trace(seed),
+        lambda i, view: (("committed", "aborted", "skipped")[i % 3],
+                         view.t)) for name in ("jax", "torch")}
     assert records["torch"] == records["jax"]
     assert {r["action"] for r in records["torch"]} >= {"hold", "split"}
+
+
+AUTOPILOT_TRACE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "fixtures", "torch_autopilot_trace.json")
+
+
+def _through_first_action(records):
+    """The decisions up to and including the first that is not a hold,
+    each as ``(seq, action, reason, hot_sid)`` (a replayed record's
+    signals differ from the recorded ones in the rounding of derived
+    fields such as ``imbalance``)."""
+    out = []
+    for r in records:
+        if r.get("record", "decision") != "decision":
+            continue
+        out.append((r["seq"], r["action"], r["reason"], r["hot_sid"]))
+        if r["action"] != "hold":
+            break
+    return out
+
+
+def test_recorded_autopilot_trace_decides_alike_across_packages():
+    """A recorded decision log of the autopilot soak
+    (tests/fixtures/torch_autopilot_trace.json, written by
+    tools/torch_autopilot_baseline.py: the first controller's log
+    through its first split's outcome): the recorded views through both
+    packages' policies, at the configuration and seed of its resume
+    record, each outcome noted at its decision's time plus the
+    actuation's ``elapsed_s``, give equal decisions, and those equal
+    the recorded ones through the first split; the baseline window
+    holds exactly when the run held."""
+    import json
+
+    with open(AUTOPILOT_TRACE) as f:
+        trace = json.load(f)
+    log = trace["decision_log"]
+    resume = next(r for r in log if r.get("record") == "resume")
+    decisions = [r for r in log if r.get("record") == "decision"]
+    outcomes = {r["decision_seq"]: r for r in log
+                if r.get("record") == "outcome"}
+
+    def outcome(i, view):
+        o = outcomes.get(decisions[i]["seq"])
+        return None if o is None else (
+            o["outcome"], view.t + (o.get("elapsed_s") or 0.0))
+
+    got = {name: _replay(name, resume["policy"], resume["seed"],
+                         [r["signals"] for r in decisions], outcome)
+           for name in ("jax", "torch")}
+    assert got["torch"] == got["jax"]
+    first = _through_first_action(log)
+    assert first[-1][1] == "split"
+    assert _through_first_action(got["torch"]) == first
+    end = trace["baseline_window_t"][1]
+    baseline = [r["action"] for r in decisions if r["signals"]["t"] <= end]
+    held = trace["summary"]["after_baseline_generation"] == 0
+    assert baseline and (set(baseline) == {"hold"}) == held
 
 
 class _StubClient:

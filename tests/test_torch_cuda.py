@@ -1458,3 +1458,46 @@ def test_ep_ring_round_on_k2_matches_plain():
     assert cm.merge_pairwise_rows.launches == before + 4
     want = gossip.ep_ring_round_shardmap(st, m, kernel="torch")
     assert _equal(mesh_mod.gather_state(got), mesh_mod.gather_state(want))
+
+
+@pytest.mark.parametrize("shape", ["4", "2x2"])
+def test_mesh_digest_summary_on_the_card(shape):
+    """``digest_summary()`` of a mesh node on cuda:0 (4 slots, or 2 x 2
+    reading its dp row 0): one K11 launch a lane slot, the bytes of
+    ``node_summary`` and of a one-slot CUDA node fed the same batches."""
+    from chip_smoke import mesh_digest_summary
+
+    from go_crdt_playground_tpu_torch.net import digestsync
+    from go_crdt_playground_tpu_torch.net.peer import Node
+    from go_crdt_playground_tpu_torch.parallel.meshtarget import \
+        MeshApplyTarget
+    from go_crdt_playground_tpu_torch.parallel.meshtarget2d import \
+        Mesh2DApplyTarget
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    E, A, B = 1 << 15, 16, 32
+    one = Node(0, E, A, device="cuda:0")
+    mesh = (Mesh2DApplyTarget(0, E, A, mesh_shape=shape, device="cuda:0")
+            if "x" in shape else
+            MeshApplyTarget(0, E, A, mesh_devices=int(shape),
+                            device="cuda:0"))
+    rng = np.random.default_rng(405)
+    for _ in range(4):
+        add, dl, live = _disjoint_rows(rng, B, E)
+        one.ingest_batch(add, dl, live)
+        mesh.ingest_batch(add, dl, live)
+    mesh_digest_summary(mesh, digestsync.node_summary(one),
+                        2 if "x" in shape else 4, shape)
+
+
+def test_native_codec_on_the_card_machine():
+    """The C++ codec builds on the card's machine, and on chip_smoke.py
+    phase 1's sparse and dense δ (E = 1,024, A = 16) its bytes equal the
+    Python codec's and decode back both ways."""
+    from chip_smoke import check_native_codec
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs the card's machine (a CUDA GPU)")
+    out = check_native_codec()
+    assert out["available"] and set(out["payloads"]) == {"sparse", "dense"}

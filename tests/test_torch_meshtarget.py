@@ -217,9 +217,39 @@ def test_digest_summary_parity_and_collective_kernel():
     # the summary frame: the JAX mesh node's bytes
     body = digestsync.node_summary(mesh)
     assert body == jax_mesh.digest_summary()
+    assert mesh.digest_summary() == jax_mesh.digest_summary()
     actor, gs, vv, processed, digests = digestsync.decode_summary(body, E, A)
     assert actor == 0 and gs == 64
     assert np.array_equal(vv, sm.vv.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("case", [
+    ("1d", 1024, 8, 64), ("1d", 1024, 8, 128), ("1d", 1024, 8, None),
+    ("1d", 256, 8, 64), ("1d", 256, 8, None),
+    ("2x2", 1024, 4, 64), ("2x2", 1024, 4, 128), ("2x2", 1024, 4, None)],
+    ids=lambda c: "-".join(map(str, c)))
+def test_mesh_digest_summary_equals_the_jax_mesh_nodes(case):
+    """``digest_summary`` (the reference's ``meshtarget.py:469``): the
+    summary frame body, byte for byte the JAX mesh node's, on aligned
+    slots, on 32-lane slots under 64-lane groups (E = 256 over 8 slots:
+    the whole-state read), and on the 2 x 2 node that inherits it."""
+    kind, e, n, gs = case
+    rng = np.random.default_rng(41)
+    if kind == "1d":
+        mesh = _mesh(0, e=e, n=n)
+        jax_mesh = jmt.MeshApplyTarget(0, e, A, mesh_devices=n)
+    else:
+        mesh = _mesh2d(0, kind, e=e)
+        jax_mesh = jmt2.Mesh2DApplyTarget(0, e, A, mesh_shape=kind)
+    plain = _plain(0, e=e)
+    for add, dl, live in _random_batches(rng, 3, e=e, add_p=0.05):
+        for node in (plain, mesh, jax_mesh):
+            node.ingest_batch(add, dl, live)
+    got = mesh.digest_summary(gs)
+    assert got == jax_mesh.digest_summary(gs)
+    assert got == digestsync.node_summary(plain, gs or 64)
+    if gs is None:
+        assert got == mesh.digest_summary(64) == digestsync.node_summary(mesh)
 
 
 def test_k11_lane_base_plain_matches_jax_offset_ids():

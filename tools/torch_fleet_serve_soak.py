@@ -1136,8 +1136,12 @@ def run_autopilot_mode(args) -> Dict[str, object]:
             return leg
 
         # 1. baseline: healthy fleet, controller must hold
+        t_baseline = time.monotonic()
         traffic("baseline", base_rate, baseline_s, zipf)
         gen_after_baseline = _ring_info(addr)["generation"]
+        # the window on the controller's clock (its decision records'
+        # signals.t is time.monotonic() of the same host)
+        baseline_window_t = [t_baseline, time.monotonic()]
 
         # 2-3. burn + converge: flash crowd on s1's keyspace
         mark_burn = sampler.mark()
@@ -1206,6 +1210,7 @@ def run_autopilot_mode(args) -> Dict[str, object]:
                                         in pilot_flags.items()}},
             "hot_keys": hot_keys,
             "legs": legs,
+            "baseline_window_t": baseline_window_t,
             "rings": {
                 "after_baseline_generation": gen_after_baseline,
                 "converged": ring_converged,
