@@ -81,8 +81,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      s0's dir on the card and the CPU; (b) tools/torch_fleet_serve_soak.py
      --device cuda --quick in its default sweep and its --shard-repl,
      --router-ha and --autopilot modes: every guarantee and every
-     check held (the autopilot splits the flash crowd's shard and
-     merges back);
+     check held (the autopilot measures the burn's shard's capacity,
+     splits the flash crowd's shard and merges back);
  13. the multi-device tier, every slot on cuda:0: (a) the port's
      ``dryrun_multichip`` at 4 and 8 slots, 5 of 5 sharded paths
      converged and bitwise equal to the unsharded replay, each kernel
@@ -3035,10 +3035,19 @@ def phase_fleet_soak(smi: str) -> dict:
             detail = (f"router promote {r['legs']['failover']['promote_s']}"
                       f" s")
         else:
-            detail = (f"one shard saturated at "
-                      f"{r['calibration']['heat_rate_ops_s']:.1f} ops/s "
-                      f"offered, burn "
-                      f"{r['calibration']['rates_ops_s']['burn']:.1f}; "
+            cal, plan = r["calibration"], r["calibration"]["planned_load"]
+            detail = (f"{cal['shard']} sheds from {cal['capacity_ops_s']:.1f}"
+                      f" ops/s offered (3 windows acked "
+                      f"{cal['window_acked_ops_s']}, shed "
+                      f"{cal['window_shed']}, spread "
+                      f"{cal['acked_spread']}; "
+                      f"{cal['below_onset_acked_ops_s']} acked a step "
+                      f"below), planned baseline "
+                      f"{plan['baseline']['of_capacity']} on "
+                      f"{plan['baseline']['shard']} and burn "
+                      f"{plan['burn']['of_capacity']} on "
+                      f"{plan['burn']['shard']} of it, burn "
+                      f"{cal['rates_ops_s']['burn']:.1f}; "
                       f"splits {r['actions']['splits_committed']}, merges "
                       f"{r['actions']['merges_committed']}, converged "
                       f"{r['convergence']['converged']}")

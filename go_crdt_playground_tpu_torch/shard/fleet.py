@@ -48,12 +48,23 @@ def format_addrs(a) -> str:
 
 
 def free_port() -> int:
-    s = socket.socket()
-    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    return free_ports(1)[0]
+
+
+def free_ports(n: int) -> List[int]:
+    """``n`` distinct free ports: every socket stays bound until all
+    are, so processes started together are never handed one port."""
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            socks.append(s)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
 
 
 class _Proc:
@@ -367,11 +378,13 @@ class ShardFleet:
     def sid(index: int) -> str:
         return f"s{index}"
 
-    def start(self) -> Addr:
-        """Launch every shard concurrently, then the router; returns
-        the router's client address."""
-        self.shard_ports = [free_port() for _ in range(self.spec.n_shards)]
-        router_port = free_port()
+    def start(self, extra: Tuple[int, ...] = ()) -> Addr:
+        """Launch every shard concurrently, the initial set and the
+        ``extra`` shards beyond it (``launch_shard``'s, owning no
+        keyspace until a join; ``shard_addr`` gives their addresses),
+        then the router; returns the router's client address."""
+        n = max((self.spec.n_shards - 1, *extra)) + 1
+        *self.shard_ports, router_port = free_ports(n + 1)
         # append-as-launched (never a bulk comprehension): if shard k's
         # constructor raises, the caller's close() must still reach
         # shards 0..k-1 or they outlive the soak holding ports + cores
@@ -380,8 +393,11 @@ class ShardFleet:
             self.shards.append(
                 ShardProc(self.repo, os.path.join(self.root, self.sid(i)),
                           self.spec, i, self.shard_ports[i]))
+        for i in extra:
+            self._spawn_shard(i)
         for s in self.shards:
-            s.await_address()
+            if s is not None:
+                s.await_address()
         addrs = {self.sid(i): ("127.0.0.1", self.shard_ports[i])
                  for i in range(self.spec.n_shards)}
         self.router_port = router_port
@@ -447,12 +463,21 @@ class ShardFleet:
             crash_on_slice=crash_on_slice)
         self.shards[index].await_address()
 
+    def shard_addr(self, index: int) -> Addr:
+        """The serve address of shard ``index`` (initial or beyond)."""
+        return ("127.0.0.1", self.shard_ports[index])
+
     def launch_shard(self, index: int,
                      crash_on_slice: Optional[str] = None) -> Addr:
         """Launch a shard BEYOND the initial set (the reshard joiner):
         allocates its port/slot, starts the subprocess, returns its
         serve address.  It owns no keyspace until a RESHARD join
         commits; ``spec.actors`` must cover its actor lane."""
+        return self._spawn_shard(index, crash_on_slice).await_address()
+
+    def _spawn_shard(self, index: int,
+                     crash_on_slice: Optional[str] = None) -> ShardProc:
+        """Start shard ``index`` beyond the initial set (no wait)."""
         if index < self.spec.n_shards:
             raise ValueError(f"shard {index} is part of the initial "
                              "fleet; use restart_shard")
@@ -468,7 +493,7 @@ class ShardFleet:
             self.repo, os.path.join(self.root, self.sid(index)),
             self.spec, index, self.shard_ports[index],
             crash_on_slice=crash_on_slice)
-        return self.shards[index].await_address()
+        return self.shards[index]
 
     def owned_elements(self, index: int) -> List[int]:
         """The element ids shard ``index`` owns under the fleet ring
@@ -486,7 +511,11 @@ class ShardFleet:
         if self.router is not None:
             self.router.close()
             self.router = None
-        for s in self.shards:
-            if s is not None:
-                s.close()
+        live = [s for s in self.shards if s is not None]
+        # every shard drains at once: SIGTERM them all, then reap each
+        for s in live:
+            if s.proc.poll() is None:
+                s.proc.terminate()
+        for s in live:
+            s.close()
         self.shards = []

@@ -10,6 +10,7 @@ import copy
 import json
 import os
 import sys
+from typing import Dict
 
 import pytest
 
@@ -234,3 +235,205 @@ def test_chaos_soak_fails_without_the_jax_census(tmp_path, reference):
         res = json.load(f)
     assert res["converged"]
     assert res["census_equal"] is False
+
+
+# -- the autopilot leg's calibration -----------------------------------------
+
+
+class _Shard:
+    """A one-op shard whose readers parse every frame (``c_read`` s of
+    the interpreter lock each; tools/torch_serve_admission.py read
+    1.28-1.62 ms of reader CPU a frame on an H100 80GB HBM3's host),
+    whose batcher applies each admitted
+    op (``c_apply``) and whose queue holds ``queue`` ops.  Offered
+    ``rate`` for one window from an empty queue, it acks all of it up
+    to its knee, 1 / (c_read + c_apply), and sheds once the excess has
+    filled the queue; shedding, it acks only what the readers leave of
+    each second, (1 - rate c_read) / c_apply."""
+
+    def __init__(self, knee: float, c_read: float = 1.35e-3,
+                 queue: int = 64):
+        self.knee, self.c_read, self.queue = knee, c_read, queue
+        self.c_apply = 1.0 / knee - c_read
+
+    def offer(self, rate: float) -> Dict[str, float]:
+        if rate <= self.knee + self.queue:
+            return {"s": 1.0, "offered": rate, "acked": rate, "shed": 0}
+        acked = max(0.0, 1.0 - rate * self.c_read) / self.c_apply
+        return {"s": 1.0, "offered": rate, "acked": acked,
+                "shed": rate - acked}
+
+
+def _recording(offer):
+    """``offer`` that also records the rates it was asked for."""
+    calls = []
+
+    def wrapped(rate):
+        calls.append(round(rate, 1))
+        return offer(rate)
+
+    return wrapped, calls
+
+
+def test_capacity_is_the_onset_of_shedding():
+    """A shard fitted to H100 80GB HBM3 readings of the autopilot leg's
+    one-op shard (486.0 ops/s acked of 488.3 offered without a shed,
+    245.5-284.7 of 610.4 while shedding): the capacity is the offered
+    rate from which it sheds in most of three windows, not its acked
+    rate while it sheds (about half) nor the rate a step below."""
+    import torch_fleet_serve_soak as soak
+
+    shard = _Shard(knee=500.0)
+    assert shard.offer(488.3)["shed"] == 0
+    assert 240.0 < shard.offer(610.4)["acked"] < 290.0
+    offer, calls = _recording(shard.offer)
+    cal = soak.measure_capacity(offer)
+    assert cal["capacity_ops_s"] == 589.5 and cal["saturated"]
+    assert cal["below_onset_acked_ops_s"] == 535.9
+    assert max(cal["window_acked_ops_s"]) < 0.6 * cal["capacity_ops_s"]
+    assert calls == [250.0, 275.0, 302.5, 332.8, 366.0, 402.6, 442.9,
+                     487.2, 535.9, 589.5, 589.5, 589.5]
+    assert soak.CAPACITY_WINDOWS >= 3 and soak.CAPACITY_WINDOW_S >= 1.0
+    assert [r["shed"] > 0 for r in cal["ramp"]] == [False] * 9 + [True]
+    assert cal["acked_spread"] == 0.0
+
+
+def test_an_onset_below_the_start_steps_down():
+    """A shard that already sheds at the ramp's first rate: the ramp
+    steps down until a rate does not shed, and the onset is the next
+    rate up, with the clean step's acked rate beside it; a shard that
+    sheds at every rate is refused, not read at the start."""
+    import torch_fleet_serve_soak as soak
+
+    offer, calls = _recording(_Shard(knee=150.0).offer)
+    cal = soak.measure_capacity(offer)
+    assert calls == [250.0, 227.3, 206.6, 227.3, 227.3, 227.3]
+    assert cal["capacity_ops_s"] == 227.3 and cal["saturated"]
+    assert cal["below_onset_acked_ops_s"] == 206.6
+    assert [r["shed"] > 0 for r in cal["ramp"]] == [True, True, False, True]
+
+    def always(rate):
+        return {"s": 1.0, "offered": rate, "acked": rate / 2,
+                "shed": rate / 2}
+
+    with pytest.raises(RuntimeError, match="above a clean step"):
+        soak.measure_capacity(always)
+
+
+def test_spread_windows_are_measured_again():
+    """Onset windows whose acked rates lie further apart than
+    CAPACITY_SPREAD of their median are measured again; windows that
+    stay spread through CAPACITY_RETRIES new measurements are
+    refused."""
+    import torch_fleet_serve_soak as soak
+
+    shard = _Shard(knee=500.0)
+    knocked = []  # per shedding window: does it lose half its acks?
+
+    def offer(rate):
+        out = shard.offer(rate)
+        if out["shed"] and knocked and knocked.pop(0):
+            return dict(out, acked=out["acked"] / 2)
+        return out
+
+    spread = soak.capacity_estimate([shard.offer(600.0),
+                                     dict(shard.offer(600.0), acked=150.0)])
+    assert spread["acked_spread"] > soak.CAPACITY_SPREAD
+    offer, calls = _recording(offer)
+    knocked[:] = [False, True, False, False, False, False]
+    cal = soak.measure_capacity(offer)
+    assert cal["capacity_ops_s"] == 589.5 and cal["acked_spread"] == 0.0
+    assert [a["acked_spread"] > soak.CAPACITY_SPREAD
+            for a in cal["attempts"]] == [True, False]
+    assert calls.count(589.5) == 6
+    knocked[:] = [False, True, False] * (1 + soak.CAPACITY_RETRIES)
+    with pytest.raises(RuntimeError, match="stayed spread"):
+        soak.measure_capacity(offer)
+
+
+def test_a_stall_is_not_the_onset():
+    """A window that sheds where the next two at its rate do not (a
+    stall) leaves the ramp going, and two of three that shed stop it; a
+    shard no rate saturates is refused."""
+    import torch_fleet_serve_soak as soak
+
+    shard = _Shard(knee=500.0)
+    stalls = iter([True, False, False])
+
+    def offer(rate):
+        out = shard.offer(rate)
+        if 360.0 < rate < 370.0 and next(stalls):
+            return dict(out, acked=rate - 30.0, shed=30.0)
+        return out
+
+    offer, calls = _recording(offer)
+    cal = soak.measure_capacity(offer)
+    assert cal["capacity_ops_s"] == 589.5
+    assert [a["saturated"] for a in cal["attempts"]] == [False, True]
+    assert calls.count(366.0) == 3
+    stalls = iter([True, False, True])
+    cal = soak.measure_capacity(offer)
+    assert cal["capacity_ops_s"] == 366.0
+    assert cal["window_shed"] == [30, 0, 30]
+    with pytest.raises(RuntimeError, match="saturated the shard"):
+        soak.measure_capacity(_Shard(knee=1e6).offer)
+
+
+def test_capacity_offer_reads_one_window(tmp_path):
+    """``shard_offer`` against a live CPU frontend (a durable one-op
+    batcher behind an 8-deep queue): one window of deletes, every op
+    resolved, sheds past its capacity and none far below it; deletes
+    only, so no member appears."""
+    import torch_fleet_serve_soak as soak
+    from go_crdt_playground_tpu_torch.serve.client import ServeClient
+    from go_crdt_playground_tpu_torch.serve.frontend import ServeFrontend
+
+    fe = ServeFrontend(32, 2, actor=0, device="cpu", queue_depth=8,
+                       max_batch=1, flush_ms=5.0,
+                       durable_dir=str(tmp_path / "d"),
+                       checkpoint_every=0)
+    try:
+        addr = fe.serve(port=0)
+        offer = soak.shard_offer(addr, list(range(16)), 32, window_s=0.5)
+        past = offer(3000.0)
+        assert past["s"] == 0.5 and past["acked"] > 0 and past["shed"] > 0
+        assert offer(20.0)["shed"] == 0
+        with ServeClient(addr, timeout=10.0) as c:
+            assert list(c.members()[0]) == []
+    finally:
+        fe.close()
+
+
+@pytest.mark.parametrize("capacity", [250.0, 400.0, 600.0])
+def test_planned_loads_for_seed_29(capacity):
+    """Seed 29's ring and key pickers, replayed over the ops each leg
+    offers: the baseline's hottest shard s0 takes 0.558 of its ops and
+    the burn's s1 0.725 (the shares over 20,000 draws), each within
+    three sampling errors sqrt(p (1 - p) / n) of a share over the leg's
+    n draws; in units of the capacity, 0.558 x 0.72 and 0.725 x 1.6."""
+    import math
+
+    import torch_fleet_serve_soak as soak
+    from go_crdt_playground_tpu_torch.shard.ring import HashRing
+
+    ring0 = HashRing(["s0", "s1"], seed=29)
+    ring4 = ring0.with_shard("s2").with_shard("s3")
+    hot = soak.hot_key_set(ring0, ring4, 192, "s1")
+    assert len(hot) == 12 and {ring0.owner(e) for e in hot} == {"s1"}
+    assert len({ring4.owner(e) for e in hot}) == 3
+    scale = capacity / soak.REF_SHARD_CAPACITY
+    base, burn = soak.REF_RATES["base"] * scale, soak.REF_RATES["burn"] * scale
+    n_base, n_burn = round(base * 5.0), round(burn * 16.0)
+    plan = soak.planned_loads(192, 29, ring0, hot, n_base, n_burn)
+    assert plan["draws"] == [n_base, n_burn]
+    for share, want, n in ((plan["baseline"]["s0"], 0.558, n_base),
+                           (plan["burn"]["s1"], 0.725, n_burn)):
+        assert abs(share - want) <= 3 * math.sqrt(want * (1 - want) / n)
+    assert max(plan["baseline"], key=plan["baseline"].get) == "s0"
+    assert abs(plan["baseline"]["s0"] * base / capacity
+               - 0.558 * 0.72) <= 0.72 * 3 * math.sqrt(0.558 * 0.442 / n_base)
+    assert abs(plan["burn"]["s1"] * burn / capacity
+               - 0.725 * 1.6) <= 1.6 * 3 * math.sqrt(0.725 * 0.275 / n_burn)
+    big = soak.planned_loads(192, 29, ring0, hot, 20_000, 20_000)
+    assert round(big["baseline"]["s0"], 3) == 0.558
+    assert round(big["burn"]["s1"], 3) == 0.725

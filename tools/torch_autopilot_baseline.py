@@ -1,41 +1,56 @@
 #!/usr/bin/env python3
-"""The autopilot soak's baseline leg, run again and again: does the
-controller split a healthy fleet, and on what signal?
+"""Phase 12b of chip_smoke.py, run again and again: does the autopilot
+leg hold, and on what readings?
 
-Runs ``tools/torch_fleet_serve_soak.py --autopilot --quick`` RUNS times
-at seed SEED and, for each run, reads its first controller's decision
-log (every decision, holds included, with the signals it was taken on)
-against the baseline leg's window:
+Each call runs 12b RUNS times; run it for a parent tree (``--tree``)
+and for this one in the same call to compare them.  Each run executes
+12b as the tree's chip_smoke.py does: its
+``FLEET_SOAK_MODES`` one after another (the sweep, ``--shard-repl``,
+``--router-ha``, then ``--autopilot``), each
+``tools/torch_fleet_serve_soak.py --quick --device D`` of that tree,
+run as chip_smoke.run_tool runs a tool (a session of its own, its
+process group killed once it exits).  For each run it records:
 
-* the failed checks, the ring generation after the baseline, the
-  calibrated heat rate and the baseline's offered rate;
-* the decisions taken inside the baseline window: their count by
-  action, the views in which some shard was hot (windowed p99 over the
-  budget, or the queue at the watermark) and the worst p99 and queue
-  depth seen;
-* the first split, its time against the baseline's end, its shard and
-  the signal that made it hot.
+* each mode's exit code, wall and failed checks;
+* leftovers: the processes a mode left alive when it exited (this
+  tool makes itself its descendants' subreaper, so an orphan becomes
+  its child and is read from its own ``/proc`` entries only), those
+  alive after its group was killed, and any alive when the next mode
+  starts;
+* the autopilot leg: its calibration as the soak prints it (the
+  measured capacity, its windows, their spread and the ramp; each
+  leg's hottest shard's planned load in units of it), the baseline's
+  decisions (views with a hot shard, worst p99 and queue), and the
+  first split and its time against the baseline's end.
 
-Each run's decision log, harness timeline and budgets are written to
-``--out-dir/run-<i>.json``; the summary to ``--out-dir/summary.json``;
+Each run's result is written to ``--out-dir/run-<i>.json`` (its
+summary line under ``run``; the autopilot's summary, decision log,
+timeline and budgets; the other modes' results), one summary line a
+run is printed, and the totals go to
+``--out-dir/summary.json`` and a last ``runs:`` line (runs, runs with a
+failed mode, failures by check, the capacities and their spread).
 ``--out-dir/trace.json`` keeps the first run that split in its
-baseline, or else the run whose baseline came nearest to the
-watermark, as a replay test reads it
-(tests/fixtures/torch_autopilot_trace.json,
+baseline, or else the run whose baseline came nearest to the watermark,
+as a replay test reads it (tests/fixtures/torch_autopilot_trace.json,
 tests/test_torch_control.py).
 
 Usage:
     python tools/torch_autopilot_baseline.py [--device cuda] --out-dir DIR
+        [--tree DIR]
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
+import importlib.util
 import json
 import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -43,8 +58,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
-RUNS = 10
+# runs of each tree a call: a parent and this tree, RUNS each, fit one
+# call to the card (about 5 minutes a run)
+RUNS = 3
 SEED = 29
+_PR_SET_CHILD_SUBREAPER = 36
 
 
 def trace_fixture(run: Dict, source: str) -> Dict:
@@ -75,8 +93,19 @@ def _hot(shard: Dict, policy: Dict) -> Optional[str]:
     return None
 
 
-def summarize(run: int, res: Dict, rc: int, wall: float) -> Dict:
-    """One run's verdict (module docstring)."""
+def _median(xs: List[float]) -> Optional[float]:
+    return sorted(xs)[len(xs) // 2] if xs else None
+
+
+# what a run keeps of the soak's calibration (a tree from before the
+# measured capacity prints none of them; its own is in run-<i>.json)
+CALIBRATION_KEYS = ("capacity_ops_s", "window_acked_ops_s", "window_shed",
+                    "acked_spread", "below_onset_acked_ops_s", "ramp",
+                    "rates_ops_s", "planned_load")
+
+
+def summarize_autopilot(res: Dict) -> Dict:
+    """The autopilot leg's readings (module docstring)."""
     r = res["result"]
     log = r["decision_log_1"]
     policy = next(x for x in log if x.get("record") == "resume")["policy"]
@@ -101,11 +130,8 @@ def summarize(run: int, res: Dict, rc: int, wall: float) -> Dict:
             "signal": _hot(sh, policy), "shard": sh}
     leg = r["legs"]["baseline"]
     return {
-        "run": run, "rc": rc, "wall_s": round(wall, 1),
-        "failures": res["failures"],
         "after_baseline_generation": r["rings"]["after_baseline_generation"],
-        "heat_rate_ops_s": r["calibration"]["heat_rate_ops_s"],
-        "base_rate_ops_s": r["calibration"]["rates_ops_s"]["base"],
+        "calibration": {k: r["calibration"].get(k) for k in CALIBRATION_KEYS},
         "baseline_leg": {k: leg.get(k) for k in (
             "goodput", "acked", "shed_overloaded", "unresolved", "p99_ms")},
         "baseline_decisions": {
@@ -118,47 +144,189 @@ def summarize(run: int, res: Dict, rc: int, wall: float) -> Dict:
     }
 
 
+def _set_subreaper() -> None:
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(_PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def own_children() -> Dict[int, str]:
+    """This process's live children (orphans of its tools among them)
+    with their command lines, from its own /proc entries."""
+    pids = set()
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/children") as f:
+                pids.update(int(p) for p in f.read().split())
+        except OSError:
+            pass
+    out = {}
+    for pid in sorted(pids):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    continue
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                out[pid] = f.read().replace(b"\0", b" ").decode()[:200]
+        except OSError:
+            pass
+    return out
+
+
+def _reap(pids) -> None:
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+
+
+def _reap_zombies() -> None:
+    """Collect the exit of every orphan that died unseen (call only
+    when no tool of this process is running)."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def run_mode(tool: str, flags, device: str, out: str) -> Dict:
+    """One mode's tool, run as chip_smoke.run_tool runs it (a session
+    of its own, its group killed once it exits), with the processes it
+    leaves behind noted before the kill.  Returns its record and, under
+    ``result``, its ``--out`` JSON (None when it wrote none)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, tool, "--device", device, *flags, "--out", out],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    record: Dict[str, object] = {}
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        record["timed_out"] = True
+    record["wall_s"] = round(time.perf_counter() - t0, 1)
+    record["rc"] = proc.returncode
+    left = own_children()
+    record["left_at_exit"] = [
+        {"pid": pid, "pgid_is_tool": _pgid(pid) == proc.pid, "cmd": cmd}
+        for pid, cmd in left.items()]
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    record["left_after_group_kill"] = [pid for pid in left if _alive(pid)]
+    _reap(left)
+    _reap_zombies()
+    record["result"] = None
+    if os.path.exists(out):
+        with open(out) as f:
+            record["result"] = json.load(f)
+        record.update({k: record["result"][k] for k in (
+            "failures", "guarantee_failures")})
+    else:
+        record["failures"] = ["no_result"]
+        record["tail"] = (stdout[-1500:], stderr[-1500:])
+    return record
+
+
+def _pgid(pid: int) -> Optional[int]:
+    try:
+        return os.getpgid(pid)
+    except ProcessLookupError:
+        return None
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def fleet_soak_modes(tree: str):
+    """The tree's chip_smoke.py ``FLEET_SOAK_MODES`` (its 12b order),
+    read without running its main."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_of_tree", os.path.join(tree, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.FLEET_SOAK_MODES
+
+
+def run_12b(tree: str, device: str, tmp: str) -> Dict[str, object]:
+    """One run of 12b (module docstring)."""
+    tool = os.path.join(tree, "tools", "torch_fleet_serve_soak.py")
+    modes, alive = {}, []
+    t0 = time.perf_counter()
+    for mode, flags in fleet_soak_modes(tree):
+        before = own_children()
+        alive.append({"before": mode, "alive": list(before.values())})
+        _reap(before)
+        modes[mode] = run_mode(tool, flags, device,
+                               os.path.join(tmp, f"{mode}.json"))
+    return {"wall_s": round(time.perf_counter() - t0, 1),
+            "alive_before_mode": alive, "modes": modes}
+
+
 def main(argv: List[str] = None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out-dir", required=True)
+    ap.add_argument("--tree", default=REPO,
+                    help="the checkout whose chip_smoke.py order and "
+                         "fleet soak tool to run (default this one)")
     args = ap.parse_args(argv)
     from torch_soak_util import device_label
 
+    _set_subreaper()
     label = device_label(args.device)
+    tree = os.path.abspath(args.tree)
     os.makedirs(args.out_dir, exist_ok=True)
-    tool = os.path.join(REPO, "tools", "torch_fleet_serve_soak.py")
     runs, kept = [], {}
     for i in range(RUNS):
-        path = os.path.join(args.out_dir, f"run-{i}.json")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, tool, "--autopilot", "--quick", "--device",
-             args.device, "--seed", str(SEED), "--out", path],
-            capture_output=True, text=True, timeout=900, cwd=REPO)
-        wall = time.perf_counter() - t0
-        if not os.path.exists(path):
-            print(f"run {i}: no result (rc {proc.returncode}): "
-                  f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}", flush=True)
-            runs.append({"run": i, "rc": proc.returncode, "result": None})
-            continue
-        with open(path) as f:
-            res = json.load(f)
-        s = summarize(i, res, proc.returncode, wall)
+        with tempfile.TemporaryDirectory(prefix="ap-12b-") as tmp:
+            one = run_12b(tree, args.device, tmp)
+        failures = [f for m in one["modes"].values()
+                    for f in m.get("failures", [])]
+        s = {"run": i, "wall_s": one["wall_s"], "failures": failures,
+             "modes": {m: {k: rec[k] for k in (
+                 "rc", "wall_s", "failures", "left_at_exit",
+                 "left_after_group_kill", "tail") if k in rec}
+                 for m, rec in one["modes"].items()},
+             "alive_before_mode": one["alive_before_mode"]}
+        ap_res = one["modes"].get("autopilot", {}).get("result")
+        if ap_res is not None and ap_res.get("result"):
+            s["autopilot"] = summarize_autopilot(ap_res)
+            r = ap_res["result"]
+            kept[i] = {"summary": s["autopilot"],
+                       "failures": ap_res["failures"],
+                       "budgets": r["budgets"],
+                       "calibration": r["calibration"],
+                       "baseline_window_t": r["baseline_window_t"],
+                       "decision_log_1": r["decision_log_1"],
+                       "timeline": r["timeline"]}
+        with open(os.path.join(args.out_dir, f"run-{i}.json"), "w") as f:
+            json.dump({**kept.get(i, {}), "run": s,
+                       "results": {m: rec["result"] for m, rec
+                                   in one["modes"].items()
+                                   if m != "autopilot"}}, f)
         runs.append(s)
-        r = res["result"]
-        kept[i] = {"summary": s, "failures": res["failures"],
-                   "budgets": r["budgets"], "calibration": r["calibration"],
-                   "baseline_window_t": r["baseline_window_t"],
-                   "decision_log_1": r["decision_log_1"],
-                   "timeline": r["timeline"]}
-        with open(path, "w") as f:  # keep what a replay needs
-            json.dump(kept[i], f)
         print(json.dumps(s) + f" [{label}]", flush=True)
-    split_runs = [s["run"] for s in runs
-                  if s.get("after_baseline_generation")]
+    split_runs = [s["run"] for s in runs if s.get("autopilot", {}).get(
+        "after_baseline_generation")]
     if kept:
         # the run to pin: a baseline split, else the nearest miss
         pick = split_runs[0] if split_runs else max(kept, key=lambda i: (
@@ -167,15 +335,28 @@ def main(argv: List[str] = None) -> int:
         with open(os.path.join(args.out_dir, "trace.json"), "w") as f:
             json.dump(trace_fixture(kept[pick], (
                 f"tools/torch_autopilot_baseline.py --device {args.device}, "
-                f"run {pick} of {RUNS} at seed {SEED}, on an {label}")), f,
-                indent=0, sort_keys=True)
-    summary = {"card": label, "device": args.device, "seed": SEED,
-               "runs": len(runs), "baseline_splits": split_runs,
-               "per_run": runs}
+                f"run {pick} of {RUNS} at seed {SEED}, on an {label}")),
+                f, indent=0, sort_keys=True)
+    caps = [s["autopilot"]["calibration"]["capacity_ops_s"]
+            for s in runs if "autopilot" in s]
+    caps = [c for c in caps if c is not None]
+    totals = {
+        "card": label, "device": args.device, "tree": tree, "seed": SEED,
+        "runs": len(runs),
+        "runs_failed": [s["run"] for s in runs if s["failures"]],
+        "failures_by_check": dict(collections.Counter(
+            f for s in runs for f in s["failures"])),
+        "baseline_splits": split_runs,
+        "leftover_processes": sum(
+            len(m["left_at_exit"] or []) for s in runs
+            for m in s["modes"].values()),
+        "capacity_ops_s": caps,
+        "capacity_spread": (round((max(caps) - min(caps))
+                                  / _median(caps), 4) if caps else None),
+        "wall_s": [s["wall_s"] for s in runs]}
     with open(os.path.join(args.out_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=1)
-    print(json.dumps({k: v for k, v in summary.items() if k != "per_run"}),
-          flush=True)
+        json.dump({**totals, "per_run": runs}, f, indent=1)
+    print("runs: " + json.dumps(totals), flush=True)
     return 0
 
 

@@ -35,9 +35,10 @@ resolved, typed aborts with the old ring serving, bounded promotion, the
 epoch fences, the bitwise promotion) are told apart from the load-shape
 checks; a name is ``<leg>/<check>`` (goodput floors, an outage or a split really observed, fence
 windows).  One departure: the autopilot's shards batch one op, and
-its rates scale by the offered rate that saturates one such shard
-(``heat_rate``), so that the flash crowd heats a shard on either
-device, as the reference's rates heat its 250 ops/s shards.
+its rates scale by the capacity measured on the burn's shard
+(``measure_capacity``: the offered rate at which it starts to shed), so
+that the flash crowd heats a shard on either device, as the
+reference's rates heat its 250 ops/s shards.
 * ``--mesh`` — ``serve --mesh-devices N`` (1-D) and ``DPxMP`` (2-D)
   workers behind the router: goodput and p99 per width, the dp ladder's
   rows per dispatch, a worker and a reference worker fed one op log
@@ -68,7 +69,6 @@ guarantees (``guarantee_failures``).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import re
@@ -823,53 +823,181 @@ class _AutopilotProc:
 
 # the per-shard capacity the reference's autopilot rates assume
 REF_SHARD_CAPACITY = 250.0
+# the reference's rates for such a shard (quick legs): base, burn and
+# cold offered through the router, and the controller's --cold-rate
+REF_RATES = {"base": 180.0, "burn": 400.0, "cold": 40.0, "pilot_cold": 150.0}
+
+# A shard's capacity is the offered rate at which it starts to shed:
+# the lowest rate of a ramp (from REF_SHARD_CAPACITY, CAPACITY_STEP a
+# step) at which, offered open-loop from an empty queue through the
+# router (the burn's path), it sheds in most of CAPACITY_WINDOWS
+# windows of CAPACITY_WINDOW_S; the capacity is the median rate those
+# windows offered.  The onset must lie above a step that did not shed:
+# where the ramp's first rate sheds, it steps down until one does not.
+# A step that sheds in one window only is a stall, not the onset, and
+# the ramp goes on.  Where the onset's windows acked rates further
+# apart than CAPACITY_SPREAD of their median (the host took the shard
+# away for part of a window), the rate is measured again, at most
+# CAPACITY_RETRIES times, and then the ramp refuses.  Two readings the
+# capacity is NOT, both measured on an H100 80GB HBM3's host: the acked
+# rate while the shard sheds, which falls past the onset (each shed
+# frame still costs a reader's parse under the interpreter lock: 486.0
+# ops/s acked of 488.3 offered without a shed, 245.5-284.7 of 610.4
+# while shedding); and the acked rate of a closed loop that keeps its
+# queue busy, which reads below what it takes open-loop (247.0 ops/s,
+# while the burn's 285 were absorbed).  A burn sized by either never
+# heated the shard.
+CAPACITY_WINDOWS = 3
+CAPACITY_WINDOW_S = 1.0
+CAPACITY_STEP = 1.1
+CAPACITY_MAX_STEPS = 20
+CAPACITY_SPREAD = 0.25
+CAPACITY_RETRIES = 2
 
 
-def heat_rate(dirpath: str, spec: FleetSpec, watermark: float,
-              start: float = REF_SHARD_CAPACITY / 2, factor: float = 1.25,
-              steps: int = 12, step_s: float = 1.5) -> Dict[str, object]:
-    """The lowest offered rate at which one shard of ``spec`` saturates:
-    a throwaway one-shard fleet behind its router takes open-loop adds
-    (the burn's path) at ``start`` ops/s, raised by ``factor`` a step,
-    while a STATS client samples the shard's admission queue every
-    0.1 s; the first step whose median depth reaches ``watermark`` (the
-    controller's hot signal, held) names the rate.  Returns the rate
-    and the ramp."""
+def capacity_estimate(windows: List[Dict[str, float]]) -> Dict[str, object]:
+    """One rate's verdict.  ``windows``: each window's reading (``s``
+    seconds, ``offered`` ops/s achieved, ``acked`` ops, ``shed`` typed
+    overload sheds).  The capacity is the median offered rate, taken
+    when most windows shed (``saturated``); ``acked_spread`` is the
+    windows' acked rates' range over their median."""
+    offered = sorted(w["offered"] for w in windows)
+    acked = [round(w["acked"] / w["s"], 1) for w in windows]
+    mid = sorted(acked)[len(acked) // 2]
+    shed = sum(1 for w in windows if w["shed"] > 0)
+    return {"capacity_ops_s": round(offered[len(offered) // 2], 1),
+            "window_acked_ops_s": acked,
+            "window_shed": [int(w["shed"]) for w in windows],
+            "acked_spread": (round((max(acked) - min(acked)) / mid, 4)
+                             if mid > 0 else float("inf")),
+            "saturated": 2 * shed > len(windows)}
+
+
+def measure_capacity(offer, start: float = REF_SHARD_CAPACITY,
+                     step: float = CAPACITY_STEP,
+                     windows: int = CAPACITY_WINDOWS,
+                     max_steps: int = CAPACITY_MAX_STEPS
+                     ) -> Dict[str, object]:
+    """One shard's capacity (the comment above).  ``offer(rate)``
+    offers ``rate`` ops/s for one window from an empty queue and
+    returns its reading (``capacity_estimate``'s).  Raises when no
+    rate of the ramp saturates the shard above a clean step, or when
+    the onset's windows stay spread past CAPACITY_SPREAD."""
     ramp: List[Dict[str, object]] = []
-    fleet = ShardFleet(REPO, dirpath, dataclasses.replace(spec, n_shards=1))
-    try:
-        addr = fleet.start()
-        shard = fleet.shard_addr_map()[fleet.sid(0)]
-        rate = start
-        for _ in range(steps):
-            depths: List[float] = []
-            halt = threading.Event()
+    tries: List[Dict[str, object]] = []
+    clean = None
+    rate = start
+    for _ in range(max_steps):
+        first = offer(rate)
+        ramp.append({"offered": round(first["offered"], 1),
+                     "acked_ops_s": round(first["acked"] / first["s"], 1),
+                     "shed": int(first["shed"])})
+        if first["shed"] == 0:
+            clean = ramp[-1]["acked_ops_s"]
+            rate *= step
+            continue
+        if clean is None:
+            # no step below has been clean yet: the onset lies lower
+            rate /= step
+            continue
+        est = capacity_estimate(
+            [first] + [offer(rate) for _ in range(windows - 1)])
+        tries.append(est)
+        for _ in range(CAPACITY_RETRIES):
+            if not (est["saturated"]
+                    and est["acked_spread"] > CAPACITY_SPREAD):
+                break
+            est = capacity_estimate([offer(rate) for _ in range(windows)])
+            tries.append(est)
+        if est["saturated"]:
+            if est["acked_spread"] > CAPACITY_SPREAD:
+                raise RuntimeError(
+                    f"the shard's windows at {rate:.0f} ops/s stayed "
+                    f"spread past {CAPACITY_SPREAD} in "
+                    f"{1 + CAPACITY_RETRIES} measurements: {tries}")
+            return {**est, "below_onset_acked_ops_s": clean,
+                    "ramp": ramp, "attempts": tries}
+        rate *= step
+    raise RuntimeError(f"no offered rate of {ramp} saturated the shard "
+                       f"above a clean step in {windows} windows: {tries}")
 
-            def sample() -> None:
-                with ServeClient(shard, timeout=10.0) as c:
-                    while not halt.wait(0.1):
-                        depths.append(float(c.stats()["gauges"].get(
-                            "serve.queue.depth", 0.0)))
 
-            sampler = threading.Thread(target=sample, daemon=True)
-            sampler.start()
-            leg = open_loop_leg(addr, rate, step_s, spec.elements,
-                                del_every=0, deadline_s=2.0)
-            halt.set()
-            sampler.join(timeout=10.0)
-            depth = sorted(depths)[len(depths) // 2] if depths else 0.0
-            ramp.append({"offered": round(rate, 1),
-                         "goodput": leg["goodput"],
-                         "shed": leg["shed_overloaded"],
-                         "median_queue_depth": depth,
-                         "max_queue_depth": max(depths, default=0.0)})
-            if depth >= watermark:
-                return {"heat_rate_ops_s": rate, "ramp": ramp}
-            rate *= factor
-    finally:
-        fleet.close()
-    raise RuntimeError(f"no offered rate up to {rate / factor:.0f} ops/s "
-                       f"saturated one shard: {ramp}")
+class _ListKeys(workloads.KeyPicker):
+    """Cycle over a fixed key list (one shard's keyspace)."""
+
+    def __init__(self, keys: List[int]):
+        self.keys = list(keys)
+        self.name = "shard-keyspace-cycle"
+
+    def pick(self, i: int, t_frac: float = 0.0) -> int:
+        return self.keys[i % len(self.keys)]
+
+
+def shard_offer(router, keys: List[int], elements: int,
+                window_s: float = CAPACITY_WINDOW_S):
+    """``measure_capacity``'s ``offer`` against a live fleet: one
+    window of open-loop DELETES of ``keys`` (one shard's keyspace)
+    through the router, every op resolved before it returns (so the
+    next window starts from an empty queue).  A delete costs the shard
+    what an add does (a one-row batch, one K10 launch, one fsync'd WAL
+    record) and adds no member, so the measurement stays out of the
+    leg's ledger (acked and submitted elements, the phantom check)."""
+    picker = _ListKeys(keys)
+
+    def offer(rate: float) -> Dict[str, float]:
+        leg = open_loop_leg(router, rate, window_s, elements, del_every=1,
+                            deadline_s=2.0, keys=picker)
+        if leg["unresolved"] or leg["other_failures"]:
+            raise RuntimeError(f"capacity offer: {leg}")
+        return {"s": window_s, "offered": leg["achieved_offer_rate"],
+                "acked": leg["acked"], "shed": leg["shed_overloaded"]}
+
+    return offer
+
+
+def planned_loads(elements: int, seed: int, ring, hot_keys: List[int],
+                  n_base: int, n_burn: int) -> Dict[str, object]:
+    """Each shard's share of the baseline's and the burn's ops, from
+    the ring and fresh copies of the legs' key pickers replayed over
+    the ops each leg offers (``n_base``, ``n_burn``).  A share over n
+    draws carries a sampling error of about sqrt(p (1 - p) / n)."""
+    def shares(picker, n: int) -> Dict[str, float]:
+        counts: Dict[str, int] = {}
+        for i in range(n):
+            sid = ring.owner(picker.pick(i, i / n))
+            counts[sid] = counts.get(sid, 0) + 1
+        return {sid: counts.get(sid, 0) / n for sid in ring.shards}
+
+    base = shares(workloads.ZipfKeys(elements, s=1.0, seed=seed), n_base)
+    burn = shares(_flash_crowd(elements, seed, hot_keys), n_burn)
+    return {"baseline": base, "burn": burn, "draws": [n_base, n_burn]}
+
+
+def _flash_crowd(elements: int, seed: int, hot_keys: List[int]):
+    """The burn's picker: zipf with half its draws on the hot keys."""
+    return workloads.FlashCrowd(
+        workloads.ZipfKeys(elements, s=1.0, seed=seed), hot_keys,
+        start_frac=0.0, stop_frac=1.0, hot_prob=0.5, seed=seed + 1)
+
+
+def hot_key_set(ring0, ring4, elements: int, hot_sid: str,
+                n: int = 12) -> List[int]:
+    """The flash crowd's keys: ``hot_sid``'s keys under ``ring0``,
+    round-robin over their owners under the post-split ``ring4``, so
+    the crowd lands on one shard today and the controller's splits can
+    carry it away."""
+    by_owner4: Dict[str, List[int]] = {}
+    for e in range(elements):
+        if ring0.owner(e) == hot_sid:
+            by_owner4.setdefault(ring4.owner(e), []).append(e)
+    pools = [by_owner4[sid] for sid in sorted(by_owner4)]
+    hot_keys, i = [], 0
+    while len(hot_keys) < n and any(pools):
+        pool = pools[i % len(pools)]
+        if pool:
+            hot_keys.append(pool.pop(0))
+        i += 1
+    return hot_keys
 
 
 class _SignalSampler(threading.Thread):
@@ -1012,17 +1140,18 @@ def run_autopilot_mode(args) -> Dict[str, object]:
     # queue empty while the clients waited seconds in front of the
     # router, so no shard ever heated: the shards batch ONE op (the
     # batch bottleneck the reference chose, nearest its cap on either
-    # device), and the rates scale by the offered rate that saturates
-    # one such shard through a router (heat_rate), which keeps every
-    # ratio the reference chose.
+    # device), and the rates scale by the burn's shard's measured
+    # capacity over the reference's 250 ops/s (measure_capacity: the
+    # offered rate at which it starts to shed), which keeps every ratio
+    # the reference chose.
+    rates = dict(REF_RATES)
     if args.quick:
         elements = 192
-        base_rate, burn_rate, cold_rate = 180.0, 400.0, 40.0
         baseline_s, burn_s, converge_s, outage_s, cold_s = \
             5.0, 16.0, 12.0, 6.0, 24.0
     else:
         elements = 288
-        base_rate, burn_rate, cold_rate = 180.0, 430.0, 40.0
+        rates["burn"] = 430.0
         baseline_s, burn_s, converge_s, outage_s, cold_s = \
             8.0, 22.0, 16.0, 8.0, 28.0
 
@@ -1047,7 +1176,6 @@ def run_autopilot_mode(args) -> Dict[str, object]:
         "--abort-cooldown": 8.0,
         "--min-shards": 2,
         "--max-shards": 4,
-        "--cold-rate": 150.0,
         "--reshard-timeout": 60.0,
     }
 
@@ -1061,51 +1189,59 @@ def run_autopilot_mode(args) -> Dict[str, object]:
     result: Dict[str, object] = {}
     pilot = None
     sampler = None
+    base_rate = burn_rate = cold_rate = None
     try:
-        calibration = heat_rate(os.path.join(root, "calibrate"), spec,
-                                queue_watermark)
-        scale = calibration["heat_rate_ops_s"] / REF_SHARD_CAPACITY
-        base_rate, burn_rate, cold_rate = (
-            base_rate * scale, burn_rate * scale, cold_rate * scale)
-        pilot_flags["--cold-rate"] = round(150.0 * scale, 1)
-        calibration.update({
-            "reference_capacity_ops_s": REF_SHARD_CAPACITY,
-            "scale": scale,
-            "rates_ops_s": {"base": base_rate, "burn": burn_rate,
-                            "cold": cold_rate}})
-        print(json.dumps({"calibration": calibration}), flush=True)
-        addr = fleet.start()
-        # standby shard PROCESSES: serving their ports, no keyspace
-        standby_addrs = [(fleet.sid(i), fleet.launch_shard(i))
+        # the initial shards and both standby shard PROCESSES (serving
+        # their ports, no keyspace) start together: four cold starts
+        # in the time of one
+        addr = fleet.start(extra=(2, 3))
+        standby_addrs = [(fleet.sid(i), fleet.shard_addr(i))
                          for i in (2, 3)]
 
         # the flash crowd aims at ONE keyspace: keys the initial ring
-        # assigns to shard s1.  Among s1's keys, pick a hot set that
-        # the POST-SPLIT ring spreads (round-robin over each key's
-        # owner under the full 4-shard ring): the crowd lands on one
-        # shard today, and the controller's splits can actually carry
-        # it away — deterministic for the seed, like everything here
+        # assigns to shard s1, spread by the post-split ring
+        # (hot_key_set) — deterministic for the seed, like everything
         ring0 = HashRing([fleet.sid(0), fleet.sid(1)], seed=args.seed)
         ring4 = ring0.with_shard(fleet.sid(2)).with_shard(fleet.sid(3))
+        hot_keys = hot_key_set(ring0, ring4, elements, fleet.sid(1))
+
+        # the burn's shard, s1, measured where and as the burn will
+        # heat it: open-loop through this fleet's router, before the
+        # controller or the harness's sampler watch (shard_offer keeps
+        # it off the ledger)
         s1_owned = [e for e in range(elements)
                     if ring0.owner(e) == fleet.sid(1)]
-        by_owner4: Dict[str, List[int]] = {}
-        for e in s1_owned:
-            by_owner4.setdefault(ring4.owner(e), []).append(e)
-        hot_keys = []
-        pools = [by_owner4[sid] for sid in sorted(by_owner4)]
-        i = 0
-        while len(hot_keys) < 12 and any(pools):
-            pool = pools[i % len(pools)]
-            if pool:
-                hot_keys.append(pool.pop(0))
-            i += 1
+        calibration = measure_capacity(
+            shard_offer(addr, s1_owned, elements))
+        scale = calibration["capacity_ops_s"] / REF_SHARD_CAPACITY
+        base_rate, burn_rate, cold_rate = (
+            rates["base"] * scale, rates["burn"] * scale,
+            rates["cold"] * scale)
+        pilot_flags["--cold-rate"] = round(rates["pilot_cold"] * scale, 1)
+        plan = planned_loads(elements, args.seed, ring0, hot_keys,
+                             round(base_rate * baseline_s),
+                             round(burn_rate * burn_s))
+        hottest = max(plan["baseline"], key=plan["baseline"].get)
+        calibration.update({
+            "shard": fleet.sid(1),
+            "reference_capacity_ops_s": REF_SHARD_CAPACITY,
+            "scale": scale,
+            "rates_ops_s": {"base": base_rate, "burn": burn_rate,
+                            "cold": cold_rate},
+            "shares": plan,
+            # each leg's hottest shard's planned load in units of the
+            # measured capacity (reference: 0.40 and 1.16)
+            "planned_load": {
+                "baseline": {"shard": hottest, "of_capacity": round(
+                    plan["baseline"][hottest] * base_rate
+                    / calibration["capacity_ops_s"], 4)},
+                "burn": {"shard": fleet.sid(1), "of_capacity": round(
+                    plan["burn"][fleet.sid(1)] * burn_rate
+                    / calibration["capacity_ops_s"], 4)}}})
+        print(json.dumps({"calibration": calibration}), flush=True)
 
         zipf = workloads.ZipfKeys(elements, s=1.0, seed=args.seed)
-        flash = workloads.FlashCrowd(
-            workloads.ZipfKeys(elements, s=1.0, seed=args.seed),
-            hot_keys, start_frac=0.0, stop_frac=1.0, hot_prob=0.5,
-            seed=args.seed + 1)
+        flash = _flash_crowd(elements, args.seed, hot_keys)
 
         sampler = _SignalSampler(addr, interval_s=1.0)
         sampler.start()
@@ -1145,7 +1281,9 @@ def run_autopilot_mode(args) -> Dict[str, object]:
 
         # 2-3. burn + converge: flash crowd on s1's keyspace
         mark_burn = sampler.mark()
+        t_burn = time.monotonic()
         traffic("burn", burn_rate, burn_s, flash)
+        burn_window_t = [t_burn, time.monotonic()]
         traffic("converge", burn_rate, converge_s, flash)
         ring_converged = _ring_info(addr)
         convergence = _converged(
@@ -1211,6 +1349,7 @@ def run_autopilot_mode(args) -> Dict[str, object]:
             "hot_keys": hot_keys,
             "legs": legs,
             "baseline_window_t": baseline_window_t,
+            "burn_window_t": burn_window_t,
             "rings": {
                 "after_baseline_generation": gen_after_baseline,
                 "converged": ring_converged,
