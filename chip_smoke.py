@@ -267,6 +267,17 @@ def load_tool(name: str):
     return module
 
 
+def kill_group(proc) -> None:
+    """SIGKILL the session a child was started in (``start_new_session``:
+    the child and every process it started that stayed in its group),
+    then collect the child's exit."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
 def run_tool(argv, timeout: int):
     """Run a tool in a session of its own; on timeout kill the whole
     group (the tool and the worker processes it spawned).  Returns the
@@ -925,6 +936,79 @@ def phase_ingest_kernel(errs: dict):
         f"({b_cross31} "
         f"crossing 2^31, {b_wrap32} wrapping 2^32) "
         f"({time.perf_counter() - t0:.1f} s)")
+    ingest_tile_cases(check)
+
+
+# K10's based entry on its tile path (csrc/ingest.cu ingest_tiles, 1,024
+# lanes a tile): the slot the boundary cases run at, and the shapes of
+# the calls queued back to back on one stream (E, B)
+TILE_CHECK_E = 8 * 1024
+TILE_REPEATS = ((1 << 18, 32), (1 << 18, 32), (1 << 19, 32), (4097, 1),
+                (1 << 19, 64))
+
+
+def ingest_tile_cases(check) -> None:
+    """The based entry's tile path: K changed lanes ending on a tile's
+    last lane or straddling two tiles (fits) and one lane more, the first
+    of the next tile (overflows), each with one deletion-mask lane; then
+    calls of several shapes queued back to back on one stream, three
+    times, without a synchronize between them (each call tags its own
+    look-back words, so none reads an earlier call's).  ``check`` holds
+    each part bitwise against the plain version."""
+    import torch
+
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    rng = np.random.default_rng(2027)
+    E, K = TILE_CHECK_E, 128
+    row = ingest_slice(rng, E, 16, 0, 0, False, "cuda")
+    row = row._replace(**{f: torch.zeros_like(getattr(row, f)) for f in (
+        "present", "dot_actor", "dot_counter", "deleted", "del_dot_actor",
+        "del_dot_counter")})
+    n_bound = 0
+    for first in (1024 - K, 1024 - K // 2):
+        for n in (K, K + 1):
+            add = torch.zeros((2, E), dtype=torch.bool, device="cuda")
+            add[0, first:first + n] = True
+            add[0, E - 1] = True
+            dl = torch.zeros_like(add)
+            dl[1, E - 1] = True
+            live = torch.ones(2, dtype=torch.bool, device="cuda")
+            based = (add, dl, live, [5, n + 15], [9, 0], [n + 15, n + 16],
+                     n + 17)
+            got, want = (ci.ingest_slot_rows(row, *based, k_changed=K,
+                                             k_deleted=K, kernel=kernel)
+                         for kernel in ("cuda", "torch"))
+            if bool(want[2].overflow) != (n > K):
+                raise AssertionError(f"K10 tile boundary {first}+{n}: "
+                                     "overflow not as planted")
+            for part in range(3):
+                check(got[part], want[part],
+                      f"K10 tile boundary {first}+{n} part {part}")
+            n_bound += 1
+    calls = []
+    for i, (E, B) in enumerate(TILE_REPEATS):
+        clock = (0x7FFFFFF0, 0xFFFFFFF0)[i % 2]
+        r = ingest_slice(rng, E, 16, 0x7FFFFFFB, clock, False, "cuda")
+        add = torch.rand((B, E), device="cuda") < 0.01
+        dl = torch.rand((B, E), device="cuda") < 0.005
+        live = torch.arange(B, device="cuda") % 5 != 2
+        calls.append((r, based_inputs(rng, clock, add, dl, live)))
+    wants = [ci.ingest_slot_rows(r, *b, k_changed=128, k_deleted=128,
+                                 kernel="torch") for r, b in calls]
+    for _ in range(3):
+        gots = [ci.ingest_slot_rows(r, *b, k_changed=128, k_deleted=128,
+                                    kernel="cuda") for r, b in calls]
+        for j, (got, want) in enumerate(zip(gots, wants)):
+            for part in range(3):
+                check(got[part], want[part],
+                      f"K10 tiles repeated call {j} part {part}")
+    torch.cuda.synchronize()
+    log(f"ingest tiles: {n_bound} tile-boundary batches (K = {K} changed "
+        f"lanes ending on a tile's last lane or straddling two, and one "
+        f"more: overflow) and {3 * len(calls)} calls queued back to back "
+        f"on one stream ({', '.join(f'E={e} B={b}' for e, b in TILE_REPEATS)}"
+        f", three times) bitwise equal to the plain version")
 
 
 def digest_slices(rng, E: int, device, offset: int = 0):
@@ -1037,12 +1121,19 @@ def phase_packed_kernels(errs: dict, shapes=None):
             st = cd.delta_ring_round(st, off, kernel="torch")
         return st
 
-    t0 = time.perf_counter()
-    for i, (R, E, A) in enumerate(shapes):
+    def states(i):
+        # shape i's two states, from rng in shape order
+        R, E, A = shapes[i]
         bits_base = (0x7FFFFFFB, 0, 0xFFFFFFF0 - 10)[i % 3]
         dots_base = (packed.DOT_MAX_COUNTER - 9, 0)[i % 2]
-        st = random_delta_state(rng, R, E, A, bits_base, "cuda")
-        std = random_delta_state(rng, R, E, A, dots_base, "cuda")
+        return (random_delta_state(rng, R, E, A, bits_base, "cuda"),
+                random_delta_state(rng, R, E, A, dots_base, "cuda"),
+                dots_base)
+
+    t0 = time.perf_counter()
+    for i, (st, std, dots_base) in enumerate(made_ahead(states,
+                                                        len(shapes))):
+        R, E, A = shapes[i]
         if dots_base and int(widen(std.dot_counter).max()) != \
                 packed.DOT_MAX_COUNTER:
             raise AssertionError("no dot counter at the 20-bit cap")
@@ -1093,6 +1184,22 @@ def phase_packed_kernels(errs: dict, shapes=None):
     log(f"packed kernels: {n_checks} kernel-vs-plain checks over "
         f"{len(shapes)} shapes bitwise equal; R = 1000 raises "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+def made_ahead(make, n: int):
+    """``make(0)``, ..., ``make(n - 1)`` in order, each made on one
+    worker thread while the caller works on the one before (the same
+    calls in the same order, so a seeded generator draws as it would
+    without the thread)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        ahead = pool.submit(make, 0) if n else None
+        for i in range(n):
+            out = ahead.result()
+            ahead = pool.submit(make, i + 1) if i + 1 < n else None
+            yield out
+            del out
 
 
 def walk_offsets(R: int):
@@ -1728,7 +1835,7 @@ def ingest_bounds(E: int, A: int, B: int, K: int):
 
 
 # torch.profiler's names of K10's kernels
-K10_KERNELS = ("ingest_block", "ingest_grid")
+K10_KERNELS = ("ingest_block", "ingest_grid", "ingest_tiles")
 # device operations an ``ingest_batch`` may take on the K10 path: the
 # rows' copy in, the launch, the record's copy out (and slack for two)
 INGEST_BATCH_MAX_DEVICE_OPS = 5
@@ -2058,26 +2165,45 @@ def record_batches(fe, hints: list = None):
     return batches, bodies, append_s
 
 
+def flat_nonzero(x: np.ndarray) -> np.ndarray:
+    """``np.flatnonzero`` of a bool array whose set entries are few, read
+    eight bytes at a time (a mesh batch's rows hold a key or two of
+    2^20 lanes each)."""
+    flat = np.ascontiguousarray(x).reshape(-1)
+    whole = flat.size // 8 * 8
+    words = np.flatnonzero(flat[:whole].view(np.uint64))
+    at = np.concatenate([(words[:, None] * 8 + np.arange(8)).reshape(-1),
+                         np.arange(whole, flat.size)])
+    return at[flat[at]]
+
+
 def cut_chunks(add, dl, live, dp: int, hint=None):
     """The batches whose WAL records a dp-stripe mesh node
     (``Mesh2DApplyTarget``) writes for one op-batch: the batch itself
     when the striping planner keeps it whole, else each chunk's rows in
-    batch order, as successive batches.  Returns (batches, cuts)."""
+    batch order (padding rows masked), as successive batches.  The
+    planner's inputs come from the live rows' set entries alone.
+    Returns (batches, cuts)."""
     from go_crdt_playground_tpu_torch.parallel.meshtarget2d import (
         _row_keys, plan_rows)
 
-    eff_add, eff_del = add & live[:, None], dl & live[:, None]
-    num_b = add.shape[0]
+    num_b, num_e = add.shape
+    a_at, d_at = flat_nonzero(add), flat_nonzero(dl)
+    a_at, d_at = a_at[live[a_at // num_e]], d_at[live[d_at // num_e]]
+    at = np.union1d(a_at, d_at)
     plans, cuts = plan_rows(
-        _row_keys(*np.nonzero(eff_add | eff_del), num_b),
-        eff_add.sum(axis=1, dtype=np.int64), eff_del.any(axis=1),
-        add.shape[1], dp, max(1, -(-num_b // dp)), hint)
+        _row_keys(at // num_e, at % num_e, num_b),
+        np.bincount(a_at // num_e, minlength=num_b),
+        np.bincount(d_at // num_e, minlength=num_b) > 0,
+        num_e, dp, max(1, -(-num_b // dp)), hint)
     if len(plans) == 1:
         return [(add, dl, live)], cuts
     out = []
     for p in plans:
         rows = np.sort(p.index[p.index >= 0])
-        out.append((eff_add[rows], eff_del[rows], np.ones(rows.size, bool)))
+        keep = live[rows][:, None]
+        out.append((add[rows] & keep, dl[rows] & keep,
+                    np.ones(rows.size, bool)))
     return out, cuts
 
 
@@ -2262,7 +2388,8 @@ def cli_round_trip(tmp: str):
     proc = subprocess.Popen(
         [sys.executable, "-m", "go_crdt_playground_tpu_torch", "serve",
          "--ingest", "--durable-dir", f"{tmp}/cli"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
     try:
         banner = proc.stdout.readline()
         m = re.search(r"listening on (\S+):(\d+) \(E=1024 A=16 actor=0 "
@@ -2280,9 +2407,7 @@ def cli_round_trip(tmp: str):
         proc.send_signal(signal.SIGTERM)
         out, err = proc.communicate(timeout=120)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        kill_group(proc)
     if proc.returncode != 0 or "drained: 2 ops acked" not in out:
         raise AssertionError(f"serve CLI drain: rc={proc.returncode} "
                              f"{out!r} {err[-2000:]!r}")
@@ -3426,7 +3551,8 @@ def phase_multihost(counters: Counters) -> dict:
         me = str(Path(__file__).resolve())
         procs = [subprocess.Popen(
             [sys.executable, me, "--multihost-worker", str(pid), init],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
             for pid in (0, 1)]
         outs = []
         try:
@@ -3437,9 +3563,7 @@ def phase_multihost(counters: Counters) -> dict:
                 outs.append(json.loads(out.strip().splitlines()[-1]))
         finally:
             for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+                kill_group(p)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for o in outs:
@@ -3726,7 +3850,7 @@ def phase_mesh_serve(counters: Counters, timings: dict, smi: str) -> dict:
                 [sys.executable, str(Path(__file__).resolve()),
                  "--serve-child", dump,
                  *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)
+                text=True, start_new_session=True)
             try:
                 banner = proc.stdout.readline()
                 m = re.search(r"listening on (\S+):(\d+) .*mesh=(\S+) "
@@ -3748,9 +3872,7 @@ def phase_mesh_serve(counters: Counters, timings: dict, smi: str) -> dict:
                 proc.send_signal(signal.SIGTERM)
                 stdout, err = proc.communicate(timeout=300)
             finally:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+                kill_group(proc)
             if proc.returncode != 0:
                 raise AssertionError(f"13d {label}: rc {proc.returncode} "
                                      f"{err[-3000:]}")
@@ -4461,7 +4583,8 @@ def bridge_cli_start():
     it (the card is its default device)."""
     return subprocess.Popen(
         [sys.executable, "-m", "go_crdt_playground_tpu_torch", "serve"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
 
 
 def bridge_cli_finish(proc) -> str:
@@ -4490,9 +4613,7 @@ def bridge_cli_finish(proc) -> str:
         proc.send_signal(signal.SIGTERM)
         proc.communicate(timeout=60)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        kill_group(proc)
     if proc.returncode != 0:
         raise AssertionError(f"bridge serve CLI exit {proc.returncode}")
     return banner.strip()
@@ -5119,18 +5240,25 @@ def phase_examples(smi: str) -> dict:
     default device); each must exit 0 and print OK."""
     root = os.path.dirname(os.path.abspath(__file__))
     walls = {}
-    for ex in EXAMPLES:
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, os.path.join(root, ex)],
-                             capture_output=True, text=True, timeout=300,
-                             cwd=root)
-        walls[ex] = time.perf_counter() - t0
-        last = run.stdout.strip().splitlines()[-1:] or [""]
-        if run.returncode != 0 or not last[0].endswith("OK"):
-            raise AssertionError(f"{ex} failed (rc {run.returncode}): "
-                                 f"{run.stdout[-2000:]} "
-                                 f"{run.stderr[-2000:]}")
-        log(f"example {ex}: {last[0]} ({walls[ex]:.1f} s wall) [{smi}]")
+    t0 = time.perf_counter()
+    # both at once, each in a session of its own
+    procs = {ex: subprocess.Popen(
+        [sys.executable, os.path.join(root, ex)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root, start_new_session=True)
+        for ex in EXAMPLES}
+    try:
+        for ex, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            walls[ex] = time.perf_counter() - t0
+            last = out.strip().splitlines()[-1:] or [""]
+            if proc.returncode != 0 or not last[0].endswith("OK"):
+                raise AssertionError(f"{ex} failed (rc {proc.returncode}):"
+                                     f" {out[-2000:]} {err[-2000:]}")
+            log(f"example {ex}: {last[0]} ({walls[ex]:.1f} s wall since "
+                f"both started) [{smi}]")
+    finally:
+        for proc in procs.values():
+            kill_group(proc)
     return walls
 
 
@@ -5197,12 +5325,14 @@ def first_status(proc, status_path: str, what: str) -> dict:
 
 
 def stop_worker(proc) -> None:
+    """SIGTERM a worker, then kill its group (a worker and a spare start
+    in a session of their own)."""
     proc.terminate()
     try:
         proc.wait(timeout=30)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
+        pass
+    kill_group(proc)
 
 
 def restart_seconds(device: str = "cuda") -> dict:
@@ -5242,10 +5372,12 @@ def restart_seconds(device: str = "cuda") -> dict:
                                 soak._free_port(), "", device)
         spare = subprocess.Popen(
             soak.spare_argv(root, RESTART_NODES, RESTART_ELEMENTS, device),
-            stdin=subprocess.PIPE, stdout=subprocess.DEVNULL)
+            stdin=subprocess.PIPE, stdout=subprocess.DEVNULL,
+            start_new_session=True)
         procs.append(spare)
         t0 = time.perf_counter()
-        cold = subprocess.Popen(argv, stdout=subprocess.DEVNULL)
+        cold = subprocess.Popen(argv, stdout=subprocess.DEVNULL,
+                                start_new_session=True)
         procs.append(cold)
         out["cold"] = first_status(cold, os.path.join(d, "status.json"),
                                    "cold restart")
@@ -5408,34 +5540,60 @@ def phase_fault_soaks(counters: Counters, smi: str) -> None:
     timed_phase(walls, "17c", phase_process_fleet, smi)
 
 
+class ProcessGuard:
+    """The parent run's process tree: the run is its descendants'
+    subreaper (tools/torch_soak_util.py), so a process that outlives
+    its parent is re-parented to it and seen.  ``check`` fails a phase
+    that leaves any descendant alive; ``kill`` kills and reaps every one
+    on the way out, whatever ended the run."""
+
+    GRACE_S = 20.0
+
+    def __init__(self):
+        self.util = load_tool("torch_soak_util")
+        self.util.set_subreaper()
+        self.checked = 0
+        # the checks' own time: in all, and the longest with its phase
+        self.seconds = 0.0
+        self.longest = (0.0, "")
+
+    def check(self, phase: str) -> None:
+        t0 = time.perf_counter()
+        alive = self.util.settle(self.GRACE_S)
+        took = time.perf_counter() - t0
+        self.seconds += took
+        self.longest = max(self.longest, (took, phase))
+        if alive:
+            self.util.kill_tree()
+            raise AssertionError(
+                f"phase {phase} left {len(alive)} process(es) alive: "
+                + "; ".join(f"pid {pid}: {cmd}" for pid, cmd in alive.items()))
+        self.checked += 1
+
+    def kill(self) -> None:
+        self.util.kill_tree()
+
+
+# the parent run's guard (main); None in a child mode and when imported
+GUARD = None
+
+
 def timed_phase(walls: dict, name: str, fn, *args):
-    """Run one phase and log its wall time."""
+    """Run one phase, log its wall time, then fail it if it left a
+    process alive (``GUARD``)."""
     t0 = time.perf_counter()
     out = fn(*args)
     walls[name] = time.perf_counter() - t0
     log(f"phase {name}: {walls[name]:.1f} s wall")
+    if GUARD is not None:
+        GUARD.check(name)
     return out
 
 
-def main() -> int:
-    if len(sys.argv) > 1 and sys.argv[1] == "--multihost-worker":
-        multihost_worker(int(sys.argv[2]), sys.argv[3])
-        return 0
-    if len(sys.argv) > 1 and sys.argv[1] == "--serve-child":
-        return serve_child(sys.argv[2], sys.argv[3:])
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
-        return 2
-    t_start = time.perf_counter()
+def run_phases(counters, errs: dict, timings: dict) -> str:
+    """Every phase in order; returns the card's nvidia-smi line."""
     walls = {}
     smi = timed_phase(walls, "1", phase_environment)
-    counters = Counters()
-    errs, timings = {}, {}
     timed_phase(walls, "2", phase_kernels, errs)
     timed_phase(walls, "2b", phase_ingest_kernel, errs)
     timed_phase(walls, "2c", phase_digest_kernel, errs)
@@ -5471,7 +5629,11 @@ def main() -> int:
     timed_phase(walls, "17", phase_fault_soaks, counters, smi)
     log("phase walls: " + json.dumps({k: round(v, 1)
                                       for k, v in walls.items()}))
+    return smi
 
+
+def kernel_entries(counters, errs: dict, timings: dict) -> list:
+    """The ``kernels`` line's entries, one per kernel of KERNELS."""
     kernels = []
     for key, name, src, replaces, wrappers in KERNELS:
         launches = sum(counters.main_path[w] for w in wrappers)
@@ -5522,13 +5684,50 @@ def main() -> int:
             entry["ep_path"] = ("EP ring round (parallel/gossip.ep_ring_"
                                 "round_shardmap, phase 13a)")
         kernels.append(entry)
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(smi)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
+
+
+def main() -> int:
+    global GUARD
+    if len(sys.argv) > 1 and sys.argv[1] == "--multihost-worker":
+        multihost_worker(int(sys.argv[2]), sys.argv[3])
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--serve-child":
+        return serve_child(sys.argv[2], sys.argv[3:])
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    GUARD = ProcessGuard()
+    # one registry of handed-out listener ports for every process the run
+    # starts (shard/fleet.py free_ports)
+    from go_crdt_playground_tpu_torch.shard.fleet import port_registry
+    port_registry()
+    try:
+        counters = Counters()
+        errs, timings = {}, {}
+        smi = run_phases(counters, errs, timings)
+        kernels = kernel_entries(counters, errs, timings)
+        GUARD.check("end")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        log(f"process checks: {GUARD.checked} in {GUARD.seconds:.3f} s, "
+            f"the longest {GUARD.longest[0]:.3f} s (after phase "
+            f"{GUARD.longest[1]})")
+        log(f"processes: 0 alive after {GUARD.checked - 1} phases "
+            f"(checked after each)")
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    finally:
+        GUARD.kill()
 
 
 if __name__ == "__main__":

@@ -154,8 +154,16 @@ __device__ __forceinline__ void store_dot(uint32_t* a, uint32_t* c,
   }
 }
 
+// A launch a kernel's own limits refuse (no cudaError_t): the batch has
+// more rows than the kernel holds in shared memory.
+constexpr int kErrTooManyRows = 10000;
+
 }  // namespace crdt
 
 extern "C" const char* crdt_error_string(int err) {
+  if (err == crdt::kErrTooManyRows) {
+    return "refused: the batch has too many rows for the kernel's shared "
+           "memory";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -64,12 +64,53 @@
 //   scan of every row) measured 2.3-2.4 us a four-row step on the H100:
 //   one SM walks B rows of dependent work.  The compaction is one block
 //   scan.
-//   E > 4,096: one cooperative launch, the grid sized by the occupancy of
-//   the instantiation launched at its shared memory, so it is resident,
-//   warps owning 128-lane chunks, with grid-wide syncs between the
-//   phases: per-chunk add counts of every row, their scan along each
-//   row, the fold (a warp scan per row), the scan of the per-chunk δ
-//   counts, the compaction.
+//   E > 4,096, crdt_ingest: one cooperative launch, the grid sized by the
+//   occupancy of the instantiation launched at its shared memory, so it
+//   is resident, warps owning 128-lane chunks, with grid-wide syncs
+//   between the phases: per-chunk add counts of every row, their scan
+//   along each row, the fold (a warp scan per row), the scan of the
+//   per-chunk δ counts, the compaction.  A row's base there is the sum
+//   of the steps of every earlier row over all lanes, so the barrier
+//   stays; the one-replica nodes reach this path only past E = 4,096.
+//   E > 4,096, crdt_ingest_based (a mesh slot, E = 2^18-2^19 at B = 32):
+//   one pass, no grid barrier (ingest_tiles).  Its bound is the bytes:
+//   18 state bytes and 2 B row bytes a lane read once, 36 bytes a lane
+//   written (at E = 262,144, B = 32: 30.9 MB, 9.2 us).  A block folds a
+//   tile of 1,024 lanes (a quad a thread), its tile id taken from an
+//   atomic ticket, so a tile only ever waits on tiles already running
+//   and the grid need not be resident.  The rows are read from device
+//   memory once: 32 rows of the tile at a time staged in shared memory
+//   by cp.async, 64 KB in flight a block (the SM's split set toward
+//   shared memory, so two tiles share an SM), then the one-block path's
+//   pass (fold_rows) over them, which skips four rows at a time where a
+//   warp's chunk has no add and no Del (most of a sparse batch) and
+//   leaves per lane its last add row and place and its last effective
+//   delete row, and per row and warp the adds.  With the bases passed
+//   in, a lane's add counter needs only the adds of its own row left of
+//   its tile: each row's prefix over the tiles before comes from status
+//   words (sequence number | flag | count) in two levels (tile_prefix):
+//   the aggregates of the tile's group of 32 tiles, then a decoupled
+//   look-back over the groups' words, a warp reading 32 rows' words of a
+//   tile or group in one coalesced load and waiting for a batch of them
+//   at once.  The state's loads go out before that wait.  The δ
+//   compaction takes the same two levels over the tiles' changed and
+//   deletion-mask counts; a tile places its lanes in slots below K, and
+//   the last tile clears the slots past the totals, sets overflow and
+//   writes the clocks.  What holds it at about a third of its bound: the
+//   tiles fold at once, so each look-back is a soft barrier, every tile
+//   waiting on the slowest before it, then a few round trips to the L2
+//   under the other tiles' traffic (each look-back 4-5 us at E =
+//   262,144, measured by phase timestamps).  A lane a (tile, channel)
+//   word, each tile polling the same few lines, held the L2 for 7-10 us.
+//   The status words live in a scratch the wrapper keeps per device and
+//   stream (zeroed once); each call tags them with its own sequence
+//   number, so a word of an earlier call is never read as this call's,
+//   and the last tile to take a ticket resets the ticket counter for the
+//   next call.  Rows that are not 16-byte aligned (or E % 16 != 0), and
+//   batches whose stage does not fit beside the per-row counts (past
+//   about 3,700 rows), take the same kernel with each thread loading its
+//   quad's row bytes; a batch whose per-row counts (44 B a row) do not
+//   fit either (past about 5,200 rows on an H100) is refused.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -83,6 +124,19 @@ constexpr int kChunk = 128;  // lanes of one warp
 constexpr int kRows = 8;     // rows whose loads the one-block path batches
 constexpr int kGridThreads = crdt::kThreads;
 constexpr unsigned kFull = 0xffffffffu;
+// ingest_tiles: threads a block, their warps, the lanes of a tile (a quad
+// a thread), the status flags
+constexpr int kTileThreads = 256;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr long long kTileLanes = 4LL * kTileThreads;
+constexpr uint32_t kAggregate = 1u, kInclusive = 2u;
+// ingest_tiles: rows staged in shared memory at a time, tiles a group,
+// status word rows a warp reads at once
+constexpr int kStageRows = 32;
+constexpr int kGroupTiles = 32;
+constexpr int kLookAhead = 16;
+// the longest sleep between two reads of a status word not yet published
+constexpr unsigned kWaitMaxNs = 1024;
 
 // The static shared memory of both kernels: block_scan's warp totals and
 // ORs, two buffers each.
@@ -148,6 +202,10 @@ struct Params {
   const uint32_t* del_ctr;
   const uint32_t* final_ctr;
   uint8_t* out;
+  // crdt_ingest_based past E = 4,096 (ingest_tiles): the ticket counter
+  // (word 0) and the status words from byte 16, and this call's tag
+  unsigned long long* scratch;
+  uint32_t seq;
   long long off[N_REGIONS];
   long long num_b, num_e;
   int num_a, kc, kd;
@@ -435,6 +493,93 @@ __device__ __forceinline__ T warp_scan(T v, int lane) {
   return v;
 }
 
+// One pass over a batch's rows for the quad at e0, kRows rows' loads at a
+// time.  Per four rows one warp scan of their add counts (8-bit fields: a
+// warp holds at most 128 lanes) gives each lane its add's place in the
+// warp's chunk and the chunk's totals, stored at rowcnt[b * nwarps +
+// warp] (bit 31: a Del of row b selects a key there); each thread folds
+// its lanes' presence (pres, a nibble) with bit operations and keeps,
+// per lane, the row of the last add (with its place) and of the last
+// effective delete, and in `cut` the lanes a Del cleared at least once.
+// Rows [b_begin, b_end) come from `load(b, add_word, del_word)` (the raw
+// words of row b at this thread's quad); the caller starts last_add and
+// last_del at -1 and add_pos at 0.
+template <typename Load>
+__device__ __forceinline__ void fold_rows(const Params& p, long long b_begin,
+                                          long long b_end, Load load,
+                                          uint32_t* rowcnt, int nwarps,
+                                          uint32_t& pres, uint32_t& cut,
+                                          int last_add[4], int last_del[4],
+                                          uint32_t add_pos[4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (long long b0 = b_begin; b0 < b_end; b0 += kRows) {
+    uint32_t a4[kRows], d4[kRows], lv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const bool in = b0 + r < b_end;
+      a4[r] = d4[r] = 0u;
+      if (in) load(b0 + r, a4[r], d4[r]);
+      lv[r] = in ? __ldg(p.live + b0 + r) : 0u;
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const uint32_t live = lv[r] ? 0xfu : 0u;
+      a4[r] = nibble(a4[r]) & live;
+      d4[r] = nibble(d4[r]) & live;
+    }
+#pragma unroll
+    for (int g = 0; g < kRows; g += 4) {
+      uint32_t packed = 0u, dflags = 0u;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        packed |= static_cast<uint32_t>(__popc(a4[g + r])) << (8 * r);
+        dflags |= (d4[g + r] != 0u) << r;
+      }
+      if (!__any_sync(kFull, packed | dflags)) {
+        // no add and no Del of these rows in the warp's chunk (most of a
+        // sparse batch): nothing to fold, the chunk's counts are 0
+        if (lane == 0) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const long long b = b0 + g + r;
+            if (b < b_end) rowcnt[b * nwarps + warp] = 0u;
+          }
+        }
+        continue;
+      }
+      const uint32_t incl = warp_scan(packed, lane);
+      const uint32_t excl = incl - packed;
+      const uint32_t adds = __shfl_sync(kFull, incl, 31);
+      const uint32_t dels = __reduce_or_sync(kFull, dflags);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int b = static_cast<int>(b0) + g + r;
+        if (b >= b_end) break;
+        if (lane == 0) {
+          rowcnt[b * nwarps + warp] =
+              ((adds >> (8 * r)) & 0xffu) | ((dels >> r) & 1u) << 31;
+        }
+        const uint32_t a = a4[g + r], d = d4[g + r];
+        const uint32_t held = pres | a;
+        const uint32_t hit = d & held;
+        pres = held & ~d;
+        cut |= hit;
+        if (a | hit) {  // rare in a sparse batch: skip the lane loop
+          const uint32_t before = (excl >> (8 * r)) & 0xffu;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if ((a >> j) & 1u) {
+              last_add[j] = b;
+              add_pos[j] = before + __popc(a & ((2u << j) - 1u));
+            }
+            if ((hit >> j) & 1u) last_del[j] = b;
+          }
+        }
+      }
+    }
+  }
+}
+
 // Block-wide scan: per-field sums of v (no field may overflow) and the OR
 // of `flags`.  Returns this thread's exclusive prefix; `total` and `any`
 // come back the same in every thread.  One __syncthreads: the warp totals
@@ -502,7 +647,7 @@ __global__ void __launch_bounds__(1024) ingest_block(Params p) {
   if (kSmem) {
     for (int a = threadIdx.x; a < p.num_a; a += blockDim.x) smem[a] = p.vv[a];
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const long long e0 = 4LL * threadIdx.x;
   const uint32_t actor = *p.actor;
@@ -514,71 +659,19 @@ __global__ void __launch_bounds__(1024) ingest_block(Params p) {
   auto* rbase = reinterpret_cast<unsigned long long*>(p.out + p.off[RBASE]);
   int parity = 0;
 
-  // 1. one pass over the rows, kRows rows' loads at a time.  Per four
-  // rows one warp scan of their add counts (8-bit fields: a warp holds
-  // at most 128 lanes) gives each lane its add's place in the chunk and
-  // the chunk's totals; each thread folds its lanes' presence with bit
-  // operations and keeps, per lane, the row of the last add (with its
-  // place) and of the last effective delete
+  // 1. one pass over the rows (fold_rows)
   uint32_t pres = nibble(load_bools(p.present, e0, p.num_e, p.vec_lanes));
   uint32_t cut = 0u;  // lanes a Del of the batch cleared at least once
   int last_add[4] = {-1, -1, -1, -1}, last_del[4] = {-1, -1, -1, -1};
   uint32_t add_pos[4] = {0u, 0u, 0u, 0u};
-  for (long long b0 = 0; b0 < p.num_b; b0 += kRows) {
-    uint32_t a4[kRows], d4[kRows], lv[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool in = b0 + r < p.num_b;
-      const long long o = (in ? b0 + r : 0) * p.num_e;
-      a4[r] = in ? row_word<VEC_ROWS>(p.add_rows + o, e0, p.num_e) : 0u;
-      d4[r] = in ? row_word<VEC_ROWS>(p.del_rows + o, e0, p.num_e) : 0u;
-      lv[r] = in ? __ldg(p.live + b0 + r) : 0u;
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const uint32_t live = lv[r] ? 0xfu : 0u;
-      a4[r] = nibble(a4[r]) & live;
-      d4[r] = nibble(d4[r]) & live;
-    }
-#pragma unroll
-    for (int g = 0; g < kRows; g += 4) {
-      uint32_t packed = 0u, dflags = 0u;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        packed |= static_cast<uint32_t>(__popc(a4[g + r])) << (8 * r);
-        dflags |= (d4[g + r] != 0u) << r;
-      }
-      const uint32_t incl = warp_scan(packed, lane);
-      const uint32_t excl = incl - packed;
-      const uint32_t adds = __shfl_sync(kFull, incl, 31);
-      const uint32_t dels = __reduce_or_sync(kFull, dflags);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int b = static_cast<int>(b0) + g + r;
-        if (b >= p.num_b) break;
-        if (lane == 0) {
-          rowcnt[b * nwarps + warp] =
-              ((adds >> (8 * r)) & 0xffu) | ((dels >> r) & 1u) << 31;
-        }
-        const uint32_t a = a4[g + r], d = d4[g + r];
-        const uint32_t held = pres | a;
-        const uint32_t hit = d & held;
-        pres = held & ~d;
-        cut |= hit;
-        if (a | hit) {  // rare in a sparse batch: skip the lane loop
-          const uint32_t before = (excl >> (8 * r)) & 0xffu;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if ((a >> j) & 1u) {
-              last_add[j] = b;
-              add_pos[j] = before + __popc(a & ((2u << j) - 1u));
-            }
-            if ((hit >> j) & 1u) last_del[j] = b;
-          }
-        }
-      }
-    }
-  }
+  fold_rows(
+      p, 0, p.num_b,
+      [&](long long b, uint32_t& a, uint32_t& d) {
+        const long long o = b * p.num_e;
+        a = row_word<VEC_ROWS>(p.add_rows + o, e0, p.num_e);
+        d = row_word<VEC_ROWS>(p.del_rows + o, e0, p.num_e);
+      },
+      rowcnt, nwarps, pres, cut, last_add, last_del, add_pos);
   __syncthreads();
 
   // 2. a thread per row: the scan along its chunks (into rowpre) and its
@@ -668,8 +761,8 @@ __global__ void __launch_bounds__(1024) ingest_block(Params p) {
   write_clocks(p, actor, final_ctr, overflow, threadIdx.x, blockDim.x);
 }
 
-// E > 4,096: one cooperative launch; warps own 128-lane chunks.  kSmem:
-// as ingest_block's.
+// E > 4,096, crdt_ingest: one cooperative launch; warps own 128-lane
+// chunks.  kSmem: as ingest_block's.
 template <bool kSmem>
 __global__ void __launch_bounds__(kGridThreads) ingest_grid(Params p) {
   extern __shared__ uint32_t smem[];
@@ -735,10 +828,8 @@ __global__ void __launch_bounds__(kGridThreads) ingest_grid(Params p) {
   }
   grid.sync();
 
-  // 3. the fold, a warp scan per row and chunk; then the δ.  With the
-  // bases passed in no clock is read and the steps are not summed
-  const bool based = p.row_base != nullptr;
-  const uint32_t c0 = based ? 0u : crdt::clock_at(p.vv, actor, p.num_a);
+  // 3. the fold, a warp scan per row and chunk; then the δ
+  const uint32_t c0 = crdt::clock_at(p.vv, actor, p.num_a);
   for (long long c = gw; c < nch; c += nw) {
     const long long e0 = c * kChunk + 4 * lane;
     Quad q = load_quad(p, e0);
@@ -748,11 +839,6 @@ __global__ void __launch_bounds__(kGridThreads) ingest_grid(Params p) {
       load_row(p, b, e0, a4, d4);
       const uint32_t n = __popc(a4);
       const uint32_t before = warp_scan(n, lane) - n + rowcnt[b * nch + c];
-      if (based) {
-        fold_row(q, a4, d4, based_add(p, b) + before, __ldg(p.del_ctr + b),
-                 actor);
-        continue;
-      }
       const uint32_t steps = rsteps[b];
       fold_row(q, a4, d4, base + before, base + steps, actor);
       base += steps;
@@ -766,11 +852,7 @@ __global__ void __launch_bounds__(kGridThreads) ingest_grid(Params p) {
     }
   }
   uint32_t final_ctr = c0;
-  if (based) {
-    final_ctr = *p.final_ctr;
-  } else {
-    for (long long b = 0; b < p.num_b; ++b) final_ctr += rsteps[b];
-  }
+  for (long long b = 0; b < p.num_b; ++b) final_ctr += rsteps[b];
   if (p.kc == 0 || p.kd == 0) {
     if (blockIdx.x == 0) {
       write_clocks(p, actor, final_ctr, false, threadIdx.x, blockDim.x);
@@ -829,6 +911,375 @@ __global__ void __launch_bounds__(kGridThreads) ingest_grid(Params p) {
                 at<uint8_t>(p, DEL_VALID), at<uint32_t>(p, DEL_DA),
                 at<uint32_t>(p, DEL_DC), threadIdx.x, blockDim.x);
     write_clocks(p, actor, final_ctr, overflow, threadIdx.x, blockDim.x);
+  }
+}
+
+// A status word of the look-back: this call's tag, the flag (aggregate or
+// inclusive; 0 never published) and a 32-bit count.
+__device__ __forceinline__ unsigned long long status_word(uint32_t seq,
+                                                          uint32_t flag,
+                                                          uint32_t v) {
+  return static_cast<unsigned long long>(seq) << 34 |
+         static_cast<unsigned long long>(flag) << 32 | v;
+}
+
+__device__ __forceinline__ void publish(unsigned long long* w,
+                                        unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(w), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* w) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(w)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ bool published(unsigned long long v,
+                                          uint32_t seq) {
+  return (v >> 34) == seq && ((v >> 32) & 3u) != 0u;
+}
+
+// Waits for every word of a batch: w[k] is the first read of addr(k) for
+// each k set in `need`; the unpublished ones are read again together after
+// a sleep that doubles up to kWaitMaxNs, so a batch costs one round trip a
+// poll, not one a word.
+template <typename Addr>
+__device__ __forceinline__ void await_batch(unsigned long long (&w)[kLookAhead],
+                                            unsigned need, Addr addr,
+                                            uint32_t seq) {
+  unsigned ns = 32;
+  for (;;) {
+    unsigned missing = 0u;
+#pragma unroll
+    for (int k = 0; k < kLookAhead; ++k) {
+      if ((need >> k & 1u) && !published(w[k], seq)) missing |= 1u << k;
+    }
+    if (!missing) return;
+    __nanosleep(ns);
+    ns = ns < kWaitMaxNs ? 2 * ns : ns;
+#pragma unroll
+    for (int k = 0; k < kLookAhead; ++k) {
+      if (missing >> k & 1u) w[k] = peek(addr(k));
+    }
+  }
+}
+
+// Each channel's sum over the tiles before `tile` (nch channels: out[c],
+// shared memory), from the tiles' aggregates agg[c]: tile words st_t[t *
+// nch + c] hold each tile's aggregate (this one publishes its own first);
+// group words st_g[g * nch + c], a group of kGroupTiles tiles, hold the
+// group's aggregate and then its inclusive prefix, both published by its
+// last tile.  A tile sums the aggregates of its group's earlier tiles,
+// then looks back over the groups before (decoupled: aggregates summed up
+// to the nearest inclusive prefix).  A warp reads a tile's or a group's
+// channels with one coalesced load (several tiles' a load where nch <
+// 32: lane = a tile's channel), kLookAhead loads in flight, and waits for
+// a batch at once: a few dozen requests a tile.  A lane a (tile, channel)
+// word made thousands a tile, and their polls, on the same few lines from
+// every tile at once, held the L2 for microseconds.
+__device__ void tile_prefix(unsigned long long* st_t,
+                            unsigned long long* st_g, int nch,
+                            long long tile, long long ntiles, uint32_t seq,
+                            const uint32_t* agg, uint32_t* out,
+                            uint32_t* grp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long g = tile / kGroupTiles;
+  const int r = static_cast<int>(tile % kGroupTiles);
+  const bool last = r == kGroupTiles - 1 || tile == ntiles - 1;
+  for (int c = threadIdx.x; c < nch; c += kTileThreads) {
+    publish(st_t + tile * nch + c, status_word(seq, kAggregate, agg[c]));
+  }
+  // 1. the group's tiles before this one: lane = channel cl of tile jl of
+  // each `per` tiles a load
+  const int nch2 = nch >= 32 ? 32 : (nch <= 1 ? 1 : 1 << (32 - __clz(nch - 1)));
+  const int per = 32 / nch2, cl = lane % nch2, jl = lane / nch2;
+  for (int c0 = 32 * warp; c0 < nch; c0 += 32 * kTileWarps) {
+    const int c = c0 + cl;
+    const unsigned long long* col = st_t + g * kGroupTiles * nch + c;
+    uint32_t sum = 0u;
+    for (int j0 = jl; j0 < r; j0 += per * kLookAhead) {
+      unsigned long long w[kLookAhead];
+      unsigned need = 0u;
+#pragma unroll
+      for (int k = 0; k < kLookAhead; ++k) {
+        const int j = j0 + k * per;
+        w[k] = 0ull;
+        if (c < nch && j < r) {
+          need |= 1u << k;
+          w[k] = peek(col + j * nch);
+        }
+      }
+      await_batch(w, need, [&](int k) { return col + (j0 + k * per) * nch; },
+                  seq);
+#pragma unroll
+      for (int k = 0; k < kLookAhead; ++k) {
+        if (need >> k & 1u) sum += static_cast<uint32_t>(w[k]);
+      }
+    }
+    for (int off = nch2; off < 32; off *= 2) {
+      sum += __shfl_xor_sync(kFull, sum, off);
+    }
+    if (jl == 0 && c < nch) out[c] = sum;
+  }
+  __syncthreads();
+  // 2. the group's last tile publishes the group's aggregate
+  if (last) {
+    for (int c = threadIdx.x; c < nch; c += kTileThreads) {
+      publish(st_g + g * nch + c,
+              status_word(seq, g == 0 ? kInclusive : kAggregate,
+                          out[c] + agg[c]));
+    }
+  }
+  // 3. the groups before, back to the nearest inclusive prefix
+  for (int c0 = 32 * warp; c0 < nch; c0 += 32 * kTileWarps) {
+    const int c = c0 + lane;
+    bool open = c < nch;
+    uint32_t sum = 0u;
+    for (long long h = g - 1; __any_sync(kFull, open); h -= kLookAhead) {
+      unsigned long long w[kLookAhead];
+      unsigned need = 0u;
+#pragma unroll
+      for (int k = 0; k < kLookAhead; ++k) {
+        w[k] = 0ull;
+        if (open && h - k >= 0) {
+          need |= 1u << k;
+          w[k] = peek(st_g + (h - k) * nch + c);
+        }
+      }
+      await_batch(w, need,
+                  [&](int k) { return st_g + (h - k) * nch + c; }, seq);
+#pragma unroll
+      for (int k = 0; k < kLookAhead; ++k) {
+        if (!open) continue;
+        if (!(need >> k & 1u)) {  // before the first group
+          open = false;
+          continue;
+        }
+        sum += static_cast<uint32_t>(w[k]);
+        if (((w[k] >> 32) & 3u) == kInclusive) open = false;
+      }
+    }
+    if (c < nch) grp[c] = sum;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < nch; c += kTileThreads) {
+    if (last && g > 0) {
+      publish(st_g + g * nch + c,
+              status_word(seq, kInclusive, grp[c] + out[c] + agg[c]));
+    }
+    out[c] += grp[c];
+  }
+  __syncthreads();
+}
+
+// Rows b0 .. b0 + n - 1 of the tile whose first lane is e_tile into
+// shared memory (nst add rows, then nst del rows, kTileLanes bytes
+// each; n <= nst), 16 bytes a cp.async, all in flight at once;
+// lanes past E read as zero.  Needs E % 16 == 0 and 16-byte aligned rows.
+__device__ __forceinline__ void stage_rows(const Params& p, long long b0,
+                                           int n, int nst, long long e_tile,
+                                           uint8_t* s_rows) {
+  constexpr int kSeg = static_cast<int>(kTileLanes / 16);
+  for (int i = threadIdx.x; i < 2 * n * kSeg; i += kTileThreads) {
+    const int which = i / (n * kSeg);
+    const int r = (i / kSeg) % n;
+    const int part = i % kSeg;
+    uint8_t* dst = s_rows + (which * nst + r) * kTileLanes + 16 * part;
+    const long long e = e_tile + 16 * part;
+    if (e < p.num_e) {
+      const uint8_t* src =
+          (which ? p.del_rows : p.add_rows) + (b0 + r) * p.num_e + e;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                   "l"(src)
+                   : "memory");
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+}
+
+// crdt_ingest_based past E = 4,096 (the header): a block a tile of
+// kTileLanes lanes, tile ids from the ticket in the scratch.  STAGE: E %
+// 16 == 0 and 16-byte aligned rows, staged kStageRows at a time in shared
+// memory; else each thread loads its quad's row bytes.  Dynamic shared
+// memory: the staged rows (STAGE), the pre-batch vv (kSmem, A words), per
+// row the warps' add counts (B x kTileWarps), the tile's adds and the adds
+// before the tile (B each), and a group scratch (B).  Params.scratch: the
+// ticket at word 0, then from byte 16 the rows' tile and group words,
+// then the δ's (tile_prefix).
+template <bool STAGE, bool kSmem>
+__global__ void __launch_bounds__(kTileThreads, 2) ingest_tiles(Params p) {
+  extern __shared__ __align__(16) uint32_t tile_smem[];
+  uint32_t* smem = tile_smem;
+  __shared__ ScanSmem scan;
+  __shared__ long long s_tile;
+  __shared__ uint32_t s_dagg[2], s_dpre[2], s_dgrp[2];
+  unsigned long long(*s_tot)[32] = scan.tot;
+  uint32_t(*s_or)[32] = scan.ors;
+  const long long ntiles = (p.num_e + kTileLanes - 1) / kTileLanes;
+  const long long ngroups = (ntiles + kGroupTiles - 1) / kGroupTiles;
+  auto* ticket = reinterpret_cast<unsigned int*>(p.scratch);
+  if (threadIdx.x == 0) {
+    const unsigned int t = atomicAdd(ticket, 1u);
+    // every tile has its ticket: the counter starts at 0 for the next
+    // call (launched after this one on the stream)
+    if (t == ntiles - 1) atomicExch(ticket, 0u);
+    s_tile = t;
+  }
+  auto* s_rows = reinterpret_cast<uint8_t*>(smem);
+  // rows staged at a time (the stride of the staged rows' two halves)
+  const int nst =
+      static_cast<int>(p.num_b < kStageRows ? p.num_b : kStageRows);
+  uint32_t* vv_smem = smem + (STAGE ? 2 * nst * kTileLanes / 4 : 0);
+  const uint32_t* vv_s = kSmem ? vv_smem : p.vv;
+  if (kSmem) {
+    for (int a = threadIdx.x; a < p.num_a; a += kTileThreads) {
+      vv_smem[a] = p.vv[a];
+    }
+  }
+  uint32_t* rowcnt = vv_smem + (kSmem ? p.num_a : 0);
+  uint32_t* tagg = rowcnt + p.num_b * kTileWarps;
+  uint32_t* tpre = tagg + p.num_b;
+  uint32_t* tgrp = tpre + p.num_b;
+  __syncthreads();
+  const long long tile = s_tile;
+  const int warp = threadIdx.x >> 5;
+  const long long e_tile = tile * kTileLanes;
+  const long long e0 = e_tile + 4LL * threadIdx.x;
+  const uint32_t actor = *p.actor;
+  unsigned long long* st_rows = p.scratch + 2;
+  unsigned long long* st_rows_g = st_rows + ntiles * p.num_b;
+  unsigned long long* st_delta = st_rows_g + ngroups * p.num_b;
+  unsigned long long* st_delta_g = st_delta + 2 * ntiles;
+  int parity = 0;
+
+  // 1. the rows, read once, folded into the presence of the quad
+  uint32_t pres = nibble(load_bools(p.present, e0, p.num_e, p.vec_lanes));
+  uint32_t cut = 0u;
+  int last_add[4] = {-1, -1, -1, -1}, last_del[4] = {-1, -1, -1, -1};
+  uint32_t add_pos[4] = {0u, 0u, 0u, 0u};
+  if (STAGE) {
+    const auto* words = reinterpret_cast<const uint32_t*>(smem);
+    for (long long b0 = 0; b0 < p.num_b; b0 += kStageRows) {
+      const int n = static_cast<int>(
+          p.num_b - b0 < kStageRows ? p.num_b - b0 : kStageRows);
+      stage_rows(p, b0, n, nst, e_tile, s_rows);
+      fold_rows(
+          p, b0, b0 + n,
+          [&](long long b, uint32_t& a, uint32_t& d) {
+            const long long r = b - b0;
+            a = words[r * (kTileLanes / 4) + threadIdx.x];
+            d = words[(nst + r) * (kTileLanes / 4) + threadIdx.x];
+          },
+          rowcnt, kTileWarps, pres, cut, last_add, last_del, add_pos);
+      __syncthreads();
+    }
+  } else {
+    fold_rows(
+        p, 0, p.num_b,
+        [&](long long b, uint32_t& a, uint32_t& d) {
+          const long long o = b * p.num_e;
+          a = row_word<false>(p.add_rows + o, e0, p.num_e);
+          d = row_word<false>(p.del_rows + o, e0, p.num_e);
+        },
+        rowcnt, kTileWarps, pres, cut, last_add, last_del, add_pos);
+    __syncthreads();
+  }
+
+  // 2. a thread per row: its adds before each warp's chunk and the tile's
+  // total; then each row's adds in the tiles before (tile_prefix)
+  for (long long b = threadIdx.x; b < p.num_b; b += kTileThreads) {
+    uint32_t run = 0u;
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w) {
+      const uint32_t v = rowcnt[b * kTileWarps + w] & 0x7fffffffu;
+      rowcnt[b * kTileWarps + w] = run;
+      run += v;
+    }
+    tagg[b] = run;
+  }
+  __syncthreads();
+  // the state's loads go out before the wait for the tiles before
+  Quad q = load_quad(p, e0);
+  tile_prefix(st_rows, st_rows_g, static_cast<int>(p.num_b), tile, ntiles,
+              p.seq, tagg, tpre, tgrp);
+
+  // 3. each lane from its last add and last delete (ingest_block's 3.)
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (((pres >> j) & 1u) && last_add[j] >= 0) {
+      const int b = last_add[j];
+      q.da[j] = actor;
+      q.dc[j] = based_add(p, b) + tpre[b] + rowcnt[b * kTileWarps + warp] +
+                add_pos[j];
+    } else if ((cut >> j) & 1u) {
+      q.da[j] = 0u;
+      q.dc[j] = 0u;
+    }
+    if ((cut >> j) & 1u) {
+      q.xa[j] = actor;
+      q.xc[j] = __ldg(p.del_ctr + last_del[j]);
+    }
+  }
+  q.d |= (cut & 1u) | (cut & 2u) << 7 | (cut & 4u) << 14 | (cut & 8u) << 21;
+  q.p = (pres & 1u) | (pres & 2u) << 7 | (pres & 4u) << 14 | (pres & 8u) << 21;
+  uint32_t chw, dmw;
+  finish_quad(p, q, e0, vv_s, chw, dmw);
+
+  // 4. the compaction: the tile's δ counts, the slots of the tiles
+  // before (tile_prefix), the lanes placed below K
+  bool overflow = false;
+  uint32_t n_ch = 0u, n_dl = 0u;
+  if (p.kc > 0 && p.kd > 0) {
+    const unsigned long long v =
+        count(chw) | static_cast<unsigned long long>(count(dmw)) << 32;
+    unsigned long long total;
+    uint32_t unused;
+    const unsigned long long excl =
+        block_scan(v, 0u, parity, s_tot, s_or, total, unused);
+    if (threadIdx.x == 0) {
+      s_dagg[0] = static_cast<uint32_t>(total);
+      s_dagg[1] = static_cast<uint32_t>(total >> 32);
+    }
+    __syncthreads();
+    tile_prefix(st_delta, st_delta_g, 2, tile, ntiles, p.seq, s_dagg,
+                s_dpre, s_dgrp);
+    const uint32_t sc = s_dpre[0], sd = s_dpre[1];
+    if (sc < static_cast<uint32_t>(p.kc)) {
+      place(chw, e0, sc + static_cast<uint32_t>(excl), p.kc, q.da, q.dc,
+            at<int32_t>(p, CH_IDX), at<uint8_t>(p, CH_VALID),
+            at<uint32_t>(p, CH_DA), at<uint32_t>(p, CH_DC));
+    }
+    if (sd < static_cast<uint32_t>(p.kd)) {
+      place(dmw, e0, sd + static_cast<uint32_t>(excl >> 32), p.kd, q.xa,
+            q.xc, at<int32_t>(p, DEL_IDX), at<uint8_t>(p, DEL_VALID),
+            at<uint32_t>(p, DEL_DA), at<uint32_t>(p, DEL_DC));
+    }
+    n_ch = sc + s_dagg[0];
+    n_dl = sd + s_dagg[1];
+    overflow = n_ch > static_cast<uint32_t>(p.kc) ||
+               n_dl > static_cast<uint32_t>(p.kd);
+  }
+  // 5. the last tile holds the totals: the unused slots, overflow and
+  // the clocks
+  if (tile == ntiles - 1) {
+    if (p.kc > 0 && p.kd > 0) {
+      clear_slots(n_ch, p.kc, at<int32_t>(p, CH_IDX),
+                  at<uint8_t>(p, CH_VALID), at<uint32_t>(p, CH_DA),
+                  at<uint32_t>(p, CH_DC), threadIdx.x, kTileThreads);
+      clear_slots(n_dl, p.kd, at<int32_t>(p, DEL_IDX),
+                  at<uint8_t>(p, DEL_VALID), at<uint32_t>(p, DEL_DA),
+                  at<uint32_t>(p, DEL_DC), threadIdx.x, kTileThreads);
+    }
+    write_clocks(p, actor, *p.final_ctr, overflow, threadIdx.x,
+                 kTileThreads);
   }
 }
 
@@ -901,6 +1352,78 @@ int launch_grid(Params& p, size_t smem, cudaStream_t s) {
       kernel, dim3(blocks), dim3(kGridThreads), args, dyn, s));
 }
 
+// The status words' scratch of crdt_ingest_based for E lanes and B rows
+// (ingest_tiles): the ticket's 16 bytes, then 8 bytes a tile or group of
+// tiles and a row, and two a tile or group; 0 where the entry takes
+// another path.
+long long tile_scratch_bytes(long long e, long long b) {
+  if (e <= kMaxBlockLanes) return 0;
+  const long long ntiles = (e + kTileLanes - 1) / kTileLanes;
+  const long long ngroups = (ntiles + kGroupTiles - 1) / kGroupTiles;
+  return 16 + 8 * (ntiles + ngroups) * (b + 2);
+}
+
+// crdt::vv_rows_in_smem once for each size an instantiation is launched
+// with that is larger than any before (*opted): 1 when `bytes` fit, 0
+// when they do not, or a cudaError_t negated.
+template <typename Kernel>
+int opt_in(Kernel* kernel, size_t bytes, size_t fixed, size_t* opted) {
+  if (bytes <= *opted) return 1;
+  const int fits = crdt::vv_rows_in_smem(kernel, bytes, fixed);
+  if (fits == 1) *opted = bytes;
+  return fits;
+}
+
+// ingest_tiles with the vv staged where it fits beside the rest, else
+// read from device memory; -1 when the rest alone does not fit, or a
+// cudaError_t.
+template <bool STAGE>
+int launch_tiles(const Params& p, cudaStream_t s) {
+  const long long staged_rows = p.num_b < kStageRows ? p.num_b : kStageRows;
+  const size_t rows =
+      (STAGE ? 2 * staged_rows * kTileLanes : 0) +
+      static_cast<size_t>(p.num_b) * (kTileWarps + 3) * sizeof(uint32_t);
+  const size_t vv = static_cast<size_t>(p.num_a) * sizeof(uint32_t);
+  const size_t fixed = sizeof(ScanSmem) + 64;
+  const auto grid = static_cast<unsigned>((p.num_e + kTileLanes - 1) /
+                                          kTileLanes);
+  // the SM's memory split toward shared memory, so two tiles of 64 KB of
+  // rows share an SM (at the CUDA default, one did), once a device
+  static bool carved[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 64 || !carved[dev])) {
+    err = cudaFuncSetAttribute(ingest_tiles<STAGE, true>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          ingest_tiles<STAGE, false>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    }
+    if (err == cudaSuccess && dev < 64) carved[dev] = true;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the dynamic shared memory each instantiation is opted in to, so a
+  // launch calls cudaFuncSetAttribute only when it needs more
+  static size_t opted[64][2];
+  size_t none[2] = {0, 0};
+  size_t* in = dev < 64 ? opted[dev] : none;
+  const int staged =
+      opt_in(ingest_tiles<STAGE, true>, rows + vv, fixed, &in[1]);
+  if (staged < 0) return -staged;
+  if (staged) {
+    ingest_tiles<STAGE, true><<<grid, kTileThreads, rows + vv, s>>>(p);
+  } else {
+    const int fits = opt_in(ingest_tiles<STAGE, false>, rows, fixed, &in[0]);
+    if (fits < 0) return -fits;
+    if (!fits) return -1;
+    ingest_tiles<STAGE, false><<<grid, kTileThreads, rows, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Params of either entry; the based inputs stay null for crdt_ingest.
 void fill(Params& p, const void* vv, const void* processed,
           const void* actor, const void* present, const void* dot_actor,
@@ -922,6 +1445,8 @@ void fill(Params& p, const void* vv, const void* processed,
   p.del_rows = static_cast<const uint8_t*>(del_rows);
   p.live = static_cast<const uint8_t*>(live);
   p.row_base = p.lane_off = p.del_ctr = p.final_ctr = nullptr;
+  p.scratch = nullptr;
+  p.seq = 0u;
   p.out = static_cast<uint8_t*>(out);
   ingest_layout(num_e, num_a, num_b, k_changed, k_deleted, p.off);
   p.num_b = num_b;
@@ -946,7 +1471,16 @@ int launch(Params& p, void* stream) {
     return p.vec_rows ? launch_block<true>(p, threads, smem, s)
                       : launch_block<false>(p, threads, smem, s);
   }
-  return launch_grid(p, smem, s);
+  if (p.row_base == nullptr) return launch_grid(p, smem, s);
+  if (p.scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  // the based entry: the staged tiles where the rows are aligned and
+  // their stage fits, else the tiles that load their rows' bytes (44 B of
+  // shared memory a row), else refused
+  const bool stage = p.num_e % 16 == 0 && aligned(p.add_rows, 16) &&
+                     aligned(p.del_rows, 16);
+  int rc = stage ? launch_tiles<true>(p, s) : -1;
+  if (rc == -1) rc = launch_tiles<false>(p, s);
+  return rc == -1 ? crdt::kErrTooManyRows : rc;
 }
 
 }  // namespace
@@ -955,6 +1489,14 @@ int launch(Params& p, void* stream) {
 // last is the buffer's size) for E lanes, A actors, B rows and K slots a
 // section.  The wrapper reads it once per shape.
 extern "C" int crdt_ingest_regions() { return N_REGIONS; }
+
+// Bytes of the scratch crdt_ingest_based wants for E lanes and B rows
+// (zeroed once, kept by the caller per device and stream); 0 when it
+// wants none.
+extern "C" long long crdt_ingest_scratch_bytes(long long num_e,
+                                               long long num_b) {
+  return tile_scratch_bytes(num_e, num_b);
+}
 
 extern "C" void crdt_ingest_layout(long long num_e, long long num_a,
                                    long long num_b, long long k_changed,
@@ -983,7 +1525,9 @@ extern "C" int crdt_ingest(
 
 // crdt_ingest with the counter bases passed in (the header): row_base,
 // lane_off and del_ctr uint32[B], final_ctr uint32[1], all on the device.
-// The same output buffer and layout.
+// The same output buffer and layout.  `scratch`: crdt_ingest_scratch_bytes
+// of zeroed memory used by no other stream (null where that is 0), and
+// `seq` this call's tag in [1, 2^30), another than the last call's on it.
 extern "C" int crdt_ingest_based(
     const void* vv, const void* processed, const void* actor,
     const void* present, const void* dot_actor, const void* dot_counter,
@@ -992,7 +1536,7 @@ extern "C" int crdt_ingest_based(
     const void* live, const void* row_base, const void* lane_off,
     const void* del_ctr, const void* final_ctr, void* out, long long num_b,
     long long num_e, int num_a, int k_changed, int k_deleted,
-    void* stream) {
+    void* scratch, int seq, void* stream) {
   Params p;
   fill(p, vv, processed, actor, present, dot_actor, dot_counter, deleted,
        del_dot_actor, del_dot_counter, add_rows, del_rows, live, out, num_b,
@@ -1001,5 +1545,7 @@ extern "C" int crdt_ingest_based(
   p.lane_off = static_cast<const uint32_t*>(lane_off);
   p.del_ctr = static_cast<const uint32_t*>(del_ctr);
   p.final_ctr = static_cast<const uint32_t*>(final_ctr);
+  p.scratch = static_cast<unsigned long long*>(scratch);
+  p.seq = static_cast<uint32_t>(seq);
   return launch(p, stream);
 }

@@ -74,6 +74,13 @@ _WORDS = ("vv", "processed", "dot_actor", "dot_counter", "del_dot_actor",
 _BOOLS = ("present", "deleted", "changed", "p_deleted")
 _GROUPS = ((_HEAD_WORDS, torch.int32), (_HEAD_BOOLS, torch.bool),
            (_WORDS, torch.int32), (_BOOLS, torch.bool))
+# the based entry's look-back scratch past E = 4,096 (csrc/ingest.cu
+# ingest_tiles), one per device and stream: [zeroed buffer, the last
+# call's tag]; tags run from 1 to _TAG_END - 1, then the buffer is made
+# anew
+_scratch_lock = threading.Lock()
+_scratch: dict = {}
+_TAG_END = 1 << 30
 
 
 def check_slice(state: AWSetDeltaState) -> None:
@@ -188,8 +195,10 @@ def _lib() -> ctypes.CDLL:
                                             _P]
     lib.crdt_ingest.restype = ctypes.c_int
     lib.crdt_ingest_based.argtypes = [_P] * 17 + [_I64, _I64, _I32, _I32,
-                                                  _I32, _P]
+                                                  _I32, _P, _I32, _P]
     lib.crdt_ingest_based.restype = ctypes.c_int
+    lib.crdt_ingest_scratch_bytes.argtypes = [_I64, _I64]
+    lib.crdt_ingest_scratch_bytes.restype = ctypes.c_longlong
     lib.crdt_ingest_regions.restype = ctypes.c_int
     lib.crdt_ingest_layout.argtypes = [_I64] * 5 + [_P]
     lib.crdt_ingest_layout.restype = None
@@ -229,6 +238,26 @@ def _layout(num_e: int, num_a: int, num_b: int, k_changed: int,
         tuple(groups)
 
 
+def _tile_scratch(dev: torch.device, stream: int, nbytes: int):
+    """(pointer, tag) of the based entry's scratch on ``stream`` of
+    ``dev`` for a call that wants ``nbytes`` of it (None and 0 when it
+    wants none): zeroed when made or grown, each call a new tag."""
+    if not nbytes:
+        return None, 0
+    key = (dev.index, stream)
+    with _scratch_lock:
+        entry = _scratch.get(key)
+        if (entry is None or entry[0].numel() < nbytes
+                or entry[1] + 1 >= _TAG_END):
+            size = 0 if entry is None else entry[0].numel()
+            entry = [torch.zeros(max(nbytes, 2 * size if size < nbytes
+                                     else size),
+                                 dtype=torch.uint8, device=dev), 0]
+            _scratch[key] = entry
+        entry[1] += 1
+        return entry[0].data_ptr(), entry[1]
+
+
 def _views(buf: torch.Tensor, groups) -> dict:
     """Each region of ``buf`` as a view, by name: one slice, one dtype
     view and one split per group."""
@@ -250,12 +279,12 @@ def _check_rows(add_rows, del_rows, live, num_e: int) -> None:
             f"live {tuple(live.shape)} do not match (B, {num_e}) and (B,)")
 
 
-def _launch(state: AWSetDeltaState, add_rows, del_rows, live,
-            k_changed: int, k_deleted: int, lib=None, bases=None):
-    """One K10 launch for the whole entry: ``(merged, payload, compact)``
-    as views of one new buffer (``lib``: another build of csrc/ingest.cu
-    with the same interface, for same-card comparisons).  ``bases``:
-    ``(row_base, lane_off, del_ctr, final)`` for ``crdt_ingest_based``."""
+def _prepare(state: AWSetDeltaState, add_rows, del_rows, live,
+             k_changed: int, k_deleted: int, lib, bases=None):
+    """A K10 launch's host work before the call into ``lib``: the inputs
+    checked, the output buffer of the shape's layout allocated.  Returns
+    ``(buf, groups, lanes, sizes)``: the buffer, its groups, the
+    pointers of the state and the rows, and (B, E, A, K, K, stream)."""
     check_slice(state)
     dev = state.vv.device
     named = [("add_rows", add_rows), ("del_rows", del_rows),
@@ -267,7 +296,6 @@ def _launch(state: AWSetDeltaState, add_rows, del_rows, live,
             raise ValueError(f"{name} must be contiguous on {dev}")
     num_b, num_e = add_rows.shape
     num_a = state.vv.shape[0]
-    lib = lib or _lib()
     size, _, groups = _layout(num_e, num_a, num_b, k_changed, k_deleted,
                               lib)
     buf = torch.empty(size, dtype=torch.uint8, device=dev)
@@ -278,16 +306,46 @@ def _launch(state: AWSetDeltaState, add_rows, del_rows, live,
              state.del_dot_counter.data_ptr(), add_rows.data_ptr(),
              del_rows.data_ptr(), live.data_ptr())
     sizes = (num_b, num_e, num_a, k_changed, k_deleted, stream_of(buf))
+    return buf, groups, lanes, sizes
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_bytes(num_e: int, num_b: int, lib) -> int:
+    """Bytes of the based entry's look-back scratch at one shape
+    (``crdt_ingest_scratch_bytes``), asked once per shape."""
+    return lib.crdt_ingest_scratch_bytes(num_e, num_b)
+
+
+def _launch(state: AWSetDeltaState, add_rows, del_rows, live,
+            k_changed: int, k_deleted: int, lib=None, bases=None):
+    """One K10 launch for the whole entry: ``(merged, payload, compact)``
+    as views of one new buffer (``lib``: another build of csrc/ingest.cu
+    with the same interface, for same-card comparisons).  ``bases``:
+    ``(row_base, lane_off, del_ctr, final)`` for ``crdt_ingest_based``."""
+    lib = lib or _lib()
+    buf, groups, lanes, sizes = _prepare(state, add_rows, del_rows, live,
+                                         k_changed, k_deleted, lib, bases)
+    dev = buf.device
     with device_guard(dev):
         if bases is None:
             entry = "crdt_ingest"
             rc = lib.crdt_ingest(*lanes, buf.data_ptr(), *sizes)
         else:
             entry = "crdt_ingest_based"
+            scratch, tag = _tile_scratch(
+                dev, sizes[-1], _scratch_bytes(sizes[1], sizes[0], lib))
             rc = lib.crdt_ingest_based(*lanes, *map(ptr, bases),
-                                       buf.data_ptr(), *sizes)
+                                       buf.data_ptr(), *sizes[:-1], scratch,
+                                       tag, sizes[-1])
     if rc:
         _build.check(lib, rc, entry)
+    return outputs(buf, groups, state, k_changed, k_deleted)
+
+
+def outputs(buf: torch.Tensor, groups, state: AWSetDeltaState,
+            k_changed: int, k_deleted: int):
+    """``(merged, payload, compact)`` as views of a K10 output buffer of
+    ``_layout``'s ``groups``."""
     v = _views(buf, groups)
     merged = AWSetDeltaState(
         vv=v["vv"], present=v["present"], dot_actor=v["dot_actor"],

@@ -23,12 +23,16 @@ tools/serve_soak.py lesson).
 
 from __future__ import annotations
 
+import atexit
 import os
+import random
 import re
+import shutil
 import signal
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
@@ -51,17 +55,93 @@ def free_port() -> int:
     return free_ports(1)[0]
 
 
+# where listener ports are drawn when the kernel's ephemeral range cannot
+# be read (Linux's default range is 32768-60999)
+_EPHEMERAL_DEFAULT = (32768, 60999)
+_LISTENER_LOW = 10240
+
+
+def listener_port_range() -> range:
+    """Ports a listener may be handed that no outgoing connection is
+    ever given: those below the kernel's ephemeral range
+    (``ip_local_port_range``), from which ``connect()`` draws its source
+    ports.  A port from that range, handed out and bound only later (a
+    standby binds its declared port when it promotes), could meanwhile
+    be any connection's source port, and its TIME_WAIT then refuses the
+    listener for a minute.  Empty when the range leaves no room."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(x) for x in f.read().split())
+    except (OSError, ValueError):
+        lo, hi = _EPHEMERAL_DEFAULT
+    if lo - _LISTENER_LOW >= 4096:
+        return range(_LISTENER_LOW, lo)
+    return range(hi + 1, 65536)
+
+
+# the directory of the ports handed out in this process tree: one empty
+# file a port, made by the first process of the tree that hands one out
+# and named to every process it starts by this variable
+PORT_REGISTRY_ENV = "GO_CRDT_PORT_REGISTRY"
+
+
+def port_registry() -> str:
+    """This process tree's registry of handed-out ports (see
+    ``PORT_REGISTRY_ENV``): the inherited one, or a new one that this
+    process removes when it exits.  A process that starts others should
+    call it first, so that they all share it."""
+    d = os.environ.get(PORT_REGISTRY_ENV)
+    if d and os.path.isdir(d):
+        return d
+    d = tempfile.mkdtemp(prefix="go-crdt-ports-")
+    os.environ[PORT_REGISTRY_ENV] = d
+    owner = os.getpid()
+    atexit.register(
+        lambda: os.getpid() == owner and shutil.rmtree(d, True))
+    return d
+
+
+def _claim(registry: str, port: int) -> bool:
+    """Claim ``port`` for this process tree; False if it was handed out
+    before."""
+    try:
+        os.close(os.open(os.path.join(registry, str(port)),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+    except FileExistsError:
+        return False
+    return True
+
+
 def free_ports(n: int) -> List[int]:
-    """``n`` distinct free ports: every socket stays bound until all
-    are, so processes started together are never handed one port."""
+    """``n`` distinct free listener ports (``listener_port_range``),
+    none handed out before in this process tree (``port_registry``): a
+    port declared to a process that binds it only later (a standby binds
+    its declared port when it promotes) is never handed to another.
+    Every socket stays bound until all are.  No ``SO_REUSEADDR``: with
+    it a port still in TIME_WAIT would pass."""
+    ports = listener_port_range()
+    registry = port_registry()
+    pick = random.SystemRandom()
     socks = []
     try:
-        for _ in range(n):
+        for _ in range(64 * (len(ports) or 1)):
+            if len(socks) == n:
+                return [s.getsockname()[1] for s in socks]
             s = socket.socket()
+            try:
+                # a kernel whose ephemeral range leaves none: any free port
+                s.bind(("127.0.0.1", pick.choice(ports) if ports else 0))
+            except OSError:
+                s.close()
+                continue
+            if not _claim(registry, s.getsockname()[1]):
+                s.close()
+                continue
             socks.append(s)
-            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
+        if len(socks) == n:
+            return [s.getsockname()[1] for s in socks]
+        raise OSError(f"no free listener port left in {ports} that this "
+                      f"process tree was not handed before")
     finally:
         for s in socks:
             s.close()

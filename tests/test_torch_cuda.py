@@ -1316,9 +1316,10 @@ BASED_A = [16, 8193, 60000]
 
 def _based_inputs(seed, E, B, clock):
     """A slot's rows and their live mask (a fifth of them padding, which
-    the kernel folds in) and counters whose sums cross 2^31 or wrap 2^32 from ``clock``: each row's
-    lanes left of the slot, its pre-row counter, deletion counter and the
-    final clock, as int64 (the wrapper reduces them)."""
+    the kernel folds in) and counters whose sums cross 2^31 or wrap 2^32
+    from ``clock``: each row's lanes left of the slot, its pre-row
+    counter, deletion counter and the final clock, as int64 (the wrapper
+    reduces them)."""
     rng = np.random.default_rng(seed)
     add, dl, live = _batch(seed, B, E, 0.05, "holes")
     lane_off = np.where(live.numpy(), rng.integers(0, 1 << 20, B), 0)
@@ -1333,8 +1334,8 @@ def _based_inputs(seed, E, B, clock):
 @pytest.mark.parametrize("A", BASED_A)
 @pytest.mark.parametrize("E", BASED_E)
 def test_k10_based_entry_matches_plain(E, A):
-    """``crdt_ingest_based`` on one block (E = 4,096) and the cooperative
-    grid (4,097 and a 4-slot node's slot at E = 2^20), the vv staged in
+    """``crdt_ingest_based`` on one block (E = 4,096) and on its tiles
+    (4,097 and a 4-slot node's slot at E = 2^20), the vv staged in
     shared memory, opted in past 48 KB and read from device memory (A =
     60,000), at B in {0, 1, 32, 64}, K in {128, 0}, nonzero lane offsets,
     padding rows, counters crossing 2^31 and wrapping 2^32: bitwise, and
@@ -1364,6 +1365,133 @@ def test_k10_based_entry_matches_plain(E, A):
                 assert np.array_equal(pre, host(row.vv))
                 for g, w in zip(rec, to_host(want[2])):
                     assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+# the based entry's one-pass tile path (ingest_tiles, 1,024 lanes a
+# tile): the first E past the one-block path, a ragged tile, the two 13d
+# slot shapes and 4,096 tiles (more than the card holds at once)
+TILE_E = [4097, 1024 * 37 + 1, 1 << 18, 1 << 19, 1 << 22]
+
+
+def _based_call(row, rows, k, kernel):
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    return ci.ingest_slot_rows(row, *rows, k_changed=k, k_deleted=k,
+                               kernel=kernel)
+
+
+def _assert_based_equal(got, want, what):
+    assert (got[2] is None) == (want[2] is None), what
+    for g, w in zip(got, want):
+        if w is not None:
+            assert all(x.dtype == y.dtype and x.shape == y.shape
+                       for x, y in zip(g, w)), what
+            assert _equal(g, w), what
+
+
+@pytest.mark.parametrize("E", TILE_E)
+def test_k10_tiles_match_plain(E):
+    """The tile path at B in {0, 1, 32, 64}, K in {128, 0}, padding rows
+    and bases crossing 2^31 and wrapping 2^32 (the clocks of the
+    based-entry test), one launch a call, bitwise to the plain
+    version."""
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    for i, B in enumerate((0, 1, 32, 64)):
+        clock = (0x7FFFFFF0, 0xFFFFFFF0, 0xFFFF0000, 7)[i]
+        row = _on_gpu(_slice(400 + i, E, 16, clock))
+        rows = _based_inputs(410 + i, E, B, clock)
+        for k in (128, 0):
+            before = ci.ingest_slot_rows.launches
+            got = _based_call(row, rows, k, "cuda")
+            assert ci.ingest_slot_rows.launches == before + 1
+            _assert_based_equal(got, _based_call(row, rows, k, "torch"),
+                                (E, B, k))
+
+
+def _tile_rows(E, lanes):
+    """On an empty slot: a live row adding ``lanes`` (each a changed lane
+    of the δ) and the slot's last lane, and a second row deleting that
+    last lane again (one deletion-mask lane), with their counters."""
+    add = torch.zeros((2, E), dtype=torch.bool)
+    add[0, lanes] = True
+    add[0, E - 1] = True
+    dl = torch.zeros((2, E), dtype=torch.bool)
+    dl[1, E - 1] = True
+    live = torch.ones(2, dtype=torch.bool)
+    n = len(lanes) + 1
+    return (add.cuda(), dl.cuda(), live.cuda(), [5, 5 + n + 9], [9, 0],
+            [5 + n + 9, 5 + n + 10], 5 + n + 11)
+
+
+@pytest.mark.parametrize("at", ["end", "across"])
+def test_k10_tiles_overflow_at_a_tile_boundary(at):
+    """K changed lanes that end on a tile's last lane, or straddle two
+    tiles, fit; one lane more, the first of the next tile, overflows:
+    slots, overflow flag and clocks bitwise to the plain version."""
+    E, k = 8 * 1024, 128
+    st = _slice(420, E, 16, 0)
+    empty = st._replace(
+        present=torch.zeros_like(st.present),
+        dot_actor=torch.zeros_like(st.dot_actor),
+        dot_counter=torch.zeros_like(st.dot_counter),
+        deleted=torch.zeros_like(st.deleted),
+        del_dot_actor=torch.zeros_like(st.del_dot_actor),
+        del_dot_counter=torch.zeros_like(st.del_dot_counter))
+    row = _on_gpu(empty)
+    first = 1024 - k if at == "end" else 1024 - k // 2
+    for n in (k, k + 1):
+        rows = _tile_rows(E, list(range(first, first + n)))
+        got = _based_call(row, rows, k, "cuda")
+        want = _based_call(row, rows, k, "torch")
+        assert bool(want[2].overflow) == (n > k)
+        _assert_based_equal(got, want, (at, n))
+
+
+def test_k10_tiles_repeated_at_once_on_one_stream():
+    """Calls queued back to back on one stream, without a synchronize
+    between them, each with another batch and shape: no call reads an
+    earlier call's look-back words (each tags its own), and the
+    stream's scratch is made once."""
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    cases = []
+    for i, (E, B) in enumerate(((1 << 18, 32), (1 << 18, 32),
+                                (1 << 19, 64), (1 << 18, 1))):
+        clock = (0x7FFFFFF0, 0xFFFFFFF0)[i % 2]
+        cases.append((_on_gpu(_slice(430 + i, E, 16, clock)),
+                      _based_inputs(440 + i, E, B, clock)))
+    wants = [_based_call(row, rows, 128, "torch") for row, rows in cases]
+    _based_call(*cases[2], 128, "cuda")  # the scratch at its largest
+    torch.cuda.synchronize()
+    key = (torch.device("cuda").index or 0,
+           torch.cuda.current_stream().cuda_stream)
+    scratch = ci._scratch[key][0]
+    for _ in range(3):
+        gots = [_based_call(row, rows, 128, "cuda") for row, rows in cases]
+        for j, (got, want) in enumerate(zip(gots, wants)):
+            _assert_based_equal(got, want, j)
+    assert ci._scratch[key][0] is scratch
+
+
+def test_k10_tiles_past_their_stage_and_refused():
+    """A batch whose staged rows do not fit in shared memory (B = 4,096
+    at E = 8,192, aligned) runs on the tiles that load their rows' bytes,
+    bitwise to the plain version, one launch; a batch whose per-row
+    counts do not fit either (B = 8,192) is refused, never run on another
+    path."""
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+
+    E = 8 * 1024
+    row = _on_gpu(_slice(450, E, 16, 0xFFFFFFF0))
+    rows = _based_inputs(451, E, 4096, 0xFFFFFFF0)
+    before = ci.ingest_slot_rows.launches
+    got = _based_call(row, rows, 128, "cuda")
+    assert ci.ingest_slot_rows.launches == before + 1
+    _assert_based_equal(got, _based_call(row, rows, 128, "torch"), 4096)
+    rows = _based_inputs(452, E, 8192, 0xFFFFFFF0)
+    with pytest.raises(RuntimeError, match="too many rows"):
+        _based_call(row, rows, 128, "cuda")
 
 
 def _disjoint_rows(rng, B, E):

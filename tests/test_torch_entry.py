@@ -309,7 +309,7 @@ def test_cuda_tests_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "error" not in out.stdout.lower(), out.stdout
-    assert "169 skipped" in out.stdout or "169 passed" in out.stdout, \
+    assert "178 skipped" in out.stdout or "178 passed" in out.stdout, \
         out.stdout
 
 

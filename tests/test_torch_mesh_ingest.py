@@ -315,6 +315,31 @@ def test_mesh_nodes_fold_once_a_slot_and_log_the_one_slot_records(
         n.wal.close()
 
 
+def test_tile_scratch_tags_each_call_and_is_zeroed_once(monkeypatch):
+    """The based entry's look-back scratch (csrc/ingest.cu ingest_tiles):
+    one buffer a device and stream, zeroed when made or grown, a new tag
+    each call; past the last tag a new zeroed buffer; none wanted, none
+    made."""
+    monkeypatch.setattr(cuda_ingest, "_scratch", {})
+    dev = torch.device("cpu")
+    assert cuda_ingest._tile_scratch(dev, 7, 0) == (None, 0)
+    assert cuda_ingest._scratch == {}
+    got = [cuda_ingest._tile_scratch(dev, 7, 1000) for _ in range(3)]
+    assert [tag for _, tag in got] == [1, 2, 3]
+    assert len({ptr for ptr, _ in got}) == 1
+    buf = cuda_ingest._scratch[(None, 7)][0]
+    assert buf.numel() >= 1000 and not buf.any()
+    assert cuda_ingest._tile_scratch(dev, 8, 1000)[1] == 1  # another stream
+    ptr, tag = cuda_ingest._tile_scratch(dev, 7, 5000)  # grown, zeroed
+    grown = cuda_ingest._scratch[(None, 7)][0]
+    assert tag == 1 and grown.numel() >= 5000 and not grown.any()
+    assert ptr == grown.data_ptr()
+    assert cuda_ingest._tile_scratch(dev, 7, 1000)[1] == 2  # kept
+    cuda_ingest._scratch[(None, 7)][1] = cuda_ingest._TAG_END - 1
+    ptr, tag = cuda_ingest._tile_scratch(dev, 7, 1000)
+    assert tag == 1 and cuda_ingest._scratch[(None, 7)][0] is not grown
+
+
 def test_ep_ring_round_on_k2_matches_the_plain_round():
     """The EP round merges on the gathered vv through K2's wrapper: on
     the CPU with ``kernel="torch"`` and ``"auto"`` the same state."""

@@ -34,16 +34,26 @@ baseline, or else the run whose baseline came nearest to the watermark,
 as a replay test reads it (tests/fixtures/torch_autopilot_trace.json,
 tests/test_torch_control.py).
 
+``--side-by-side`` runs the sweep, ``--shard-repl`` and ``--router-ha``
+together instead (``SIDE_BY_SIDE``, the layout in which ROADMAP queue 3
+item 13 was seen), RUNS times: for each run the modes' exit codes
+and failed checks, ``--shard-repl``'s promotion seconds and shard and
+router epochs, ``--router-ha``'s promotion seconds and router epochs,
+the ports every descendant listened on (sampled each second), any
+port two modes' processes listened on and how many lay in the kernel's
+ephemeral range (where a connection's source port may take one), and
+the processes left alive;
+``side-<i>.json`` a run and ``side-summary.json``.
+
 Usage:
     python tools/torch_autopilot_baseline.py [--device cuda] --out-dir DIR
-        [--tree DIR]
+        [--tree DIR] [--side-by-side]
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
-import ctypes
 import importlib.util
 import json
 import os
@@ -58,11 +68,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
+from torch_soak_util import (own_children, reap, reap_zombies,  # noqa: E402
+                             set_subreaper)
+
 # runs of each tree a call: a parent and this tree, RUNS each, fit one
 # call to the card (about 5 minutes a run)
 RUNS = 3
 SEED = 29
-_PR_SET_CHILD_SUBREAPER = 36
 
 
 def trace_fixture(run: Dict, source: str) -> Dict:
@@ -144,79 +156,33 @@ def summarize_autopilot(res: Dict) -> Dict:
     }
 
 
-def _set_subreaper() -> None:
-    libc = ctypes.CDLL(None, use_errno=True)
-    if libc.prctl(_PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
-        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
-
-
-def own_children() -> Dict[int, str]:
-    """This process's live children (orphans of its tools among them)
-    with their command lines, from its own /proc entries."""
-    pids = set()
-    for tid in os.listdir("/proc/self/task"):
-        try:
-            with open(f"/proc/self/task/{tid}/children") as f:
-                pids.update(int(p) for p in f.read().split())
-        except OSError:
-            pass
-    out = {}
-    for pid in sorted(pids):
-        try:
-            with open(f"/proc/{pid}/stat") as f:
-                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
-                    continue
-            with open(f"/proc/{pid}/cmdline", "rb") as f:
-                out[pid] = f.read().replace(b"\0", b" ").decode()[:200]
-        except OSError:
-            pass
-    return out
-
-
-def _reap(pids) -> None:
-    for pid in pids:
-        try:
-            os.kill(pid, signal.SIGKILL)
-        except ProcessLookupError:
-            pass
-        try:
-            os.waitpid(pid, 0)
-        except ChildProcessError:
-            pass
-
-
-def _reap_zombies() -> None:
-    """Collect the exit of every orphan that died unseen (call only
-    when no tool of this process is running)."""
-    while True:
-        try:
-            pid, _ = os.waitpid(-1, os.WNOHANG)
-        except ChildProcessError:
-            return
-        if pid == 0:
-            return
-
-
-def run_mode(tool: str, flags, device: str, out: str) -> Dict:
-    """One mode's tool, run as chip_smoke.run_tool runs it (a session
-    of its own, its group killed once it exits), with the processes it
-    leaves behind noted before the kill.  Returns its record and, under
-    ``result``, its ``--out`` JSON (None when it wrote none)."""
-    t0 = time.perf_counter()
+def start_mode(tool: str, flags, device: str, out: str):
+    """Start one mode's tool as chip_smoke.run_tool runs it (a session
+    of its own), its output into files beside ``out``."""
+    logs = [open(f"{out}.{name}", "w+") for name in ("stdout", "stderr")]
     proc = subprocess.Popen(
         [sys.executable, tool, "--device", device, *flags, "--out", out],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        start_new_session=True)
+        stdout=logs[0], stderr=logs[1], text=True, start_new_session=True)
+    return proc, time.perf_counter(), logs
+
+
+def finish_mode(started, out: str, others=()) -> Dict:
+    """Wait for a started mode's tool, note the processes it leaves
+    behind (its own group's and orphans, not ``others``' groups), kill
+    its group.  Returns its record and, under ``result``, its ``--out``
+    JSON (None when it wrote none)."""
+    proc, t0, logs = started
     record: Dict[str, object] = {}
     try:
-        stdout, stderr = proc.communicate(timeout=900)
+        proc.wait(timeout=max(1.0, 900 - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
-        stdout, stderr = proc.communicate()
+        proc.wait()
         record["timed_out"] = True
     record["wall_s"] = round(time.perf_counter() - t0, 1)
     record["rc"] = proc.returncode
-    left = own_children()
+    left = {pid: cmd for pid, cmd in own_children().items()
+            if _pgid(pid) not in others}
     record["left_at_exit"] = [
         {"pid": pid, "pgid_is_tool": _pgid(pid) == proc.pid, "cmd": cmd}
         for pid, cmd in left.items()]
@@ -225,8 +191,7 @@ def run_mode(tool: str, flags, device: str, out: str) -> Dict:
     except ProcessLookupError:
         pass
     record["left_after_group_kill"] = [pid for pid in left if _alive(pid)]
-    _reap(left)
-    _reap_zombies()
+    reap(left)
     record["result"] = None
     if os.path.exists(out):
         with open(out) as f:
@@ -235,7 +200,20 @@ def run_mode(tool: str, flags, device: str, out: str) -> Dict:
             "failures", "guarantee_failures")})
     else:
         record["failures"] = ["no_result"]
-        record["tail"] = (stdout[-1500:], stderr[-1500:])
+        tails = []
+        for f in logs:
+            f.seek(0)
+            tails.append(f.read()[-1500:])
+        record["tail"] = tails
+    for f in logs:
+        f.close()
+    return record
+
+
+def run_mode(tool: str, flags, device: str, out: str) -> Dict:
+    """One mode's tool alone (start_mode, finish_mode)."""
+    record = finish_mode(start_mode(tool, flags, device, out), out)
+    reap_zombies()
     return record
 
 
@@ -272,11 +250,178 @@ def run_12b(tree: str, device: str, tmp: str) -> Dict[str, object]:
     for mode, flags in fleet_soak_modes(tree):
         before = own_children()
         alive.append({"before": mode, "alive": list(before.values())})
-        _reap(before)
+        reap(before)
         modes[mode] = run_mode(tool, flags, device,
                                os.path.join(tmp, f"{mode}.json"))
     return {"wall_s": round(time.perf_counter() - t0, 1),
             "alive_before_mode": alive, "modes": modes}
+
+
+# 12b's modes run together: the layout in which ROADMAP queue 3 item 13
+# (--shard-repl's s0 standby promoting after 58.9 s at shard epoch 408)
+# was seen; the autopilot leg keeps to itself
+SIDE_BY_SIDE = ("sweep", "shard_repl", "router_ha")
+
+
+def listening_ports() -> Dict[int, tuple]:
+    """The TCP ports each descendant listens on, with its process group
+    and command line read in the same pass (a process that exits before
+    the next read is still attributed): LISTEN rows of /proc/net/tcp by
+    socket inode, matched to the descendants' fds.  ``{pid: (ports,
+    pgid, cmd)}``."""
+    inodes: Dict[str, int] = {}
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            cols = row.split()
+            if len(cols) > 9 and cols[3] == "0A":  # TCP_LISTEN
+                inodes[cols[9]] = int(cols[1].rsplit(":", 1)[1], 16)
+    out: Dict[int, tuple] = {}
+    for pid, cmd in own_children().items():
+        pgid = _pgid(pid)
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        ports = set()
+        for fd in fds:
+            try:
+                link = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if link.startswith("socket:[") and link[8:-1] in inodes:
+                ports.add(inodes[link[8:-1]])
+        if ports:
+            out[pid] = (sorted(ports), pgid, cmd)
+    return out
+
+
+def side_by_side_readings(res: Optional[Dict]) -> Dict:
+    """Promotion seconds and epochs of a --shard-repl or --router-ha
+    result (None where the mode wrote none)."""
+    r = (res or {}).get("result") or {}
+    legs = r.get("legs") or {}
+    fo = legs.get("failover") or {}
+    out = {"promote_s": fo.get("promote_s"),
+           "promote_budget_s": fo.get("promote_budget_s")}
+    if "shard_epochs" in fo:
+        out.update(
+            shard_epochs=fo.get("shard_epochs"),
+            bitwise_promote_s=(legs.get("bitwise") or {}).get("promote_s"),
+            bitwise_shard_epochs=(legs.get("bitwise") or {}).get(
+                "shard_epochs"),
+            router_shard_epochs=(legs.get("resurrection") or {}).get(
+                "router_shard_epochs"))
+    elif "ring_after" in fo:
+        out.update(router_epoch_before=fo["ring_before"].get("router_epoch"),
+                   router_epoch_after=fo["ring_after"].get("router_epoch"))
+    return out
+
+
+def run_side_by_side(tree: str, device: str, tmp: str) -> Dict[str, object]:
+    """SIDE_BY_SIDE's modes started together; the ports every
+    descendant listened on, sampled each second while they run."""
+    tool = os.path.join(tree, "tools", "torch_fleet_serve_soak.py")
+    modes = dict(fleet_soak_modes(tree))
+    reap(own_children())
+    t0 = time.perf_counter()
+    started = {m: start_mode(tool, modes[m], device,
+                             os.path.join(tmp, f"{m}.json"))
+               for m in SIDE_BY_SIDE}
+    groups = {m: st[0].pid for m, st in started.items()}
+    seen: Dict[int, Dict[str, object]] = {}
+    while any(st[0].poll() is None for st in started.values()):
+        for pid, (ports, pgid, cmd) in listening_ports().items():
+            rec = seen.setdefault(pid, {"ports": set(), "mode": next(
+                (m for m, g in groups.items() if pgid == g), None),
+                "cmd": cmd[:160]})
+            rec["ports"].update(ports)
+        if time.perf_counter() - t0 > 900:
+            break
+        time.sleep(1.0)
+    records = {}
+    for m, st in started.items():
+        others = {g for k, g in groups.items() if k != m and
+                  started[k][0].poll() is None}
+        records[m] = finish_mode(st, os.path.join(tmp, f"{m}.json"),
+                                 others)
+    left = own_children()
+    reap(left)
+    reap_zombies()
+    by_port: Dict[int, Dict[int, str]] = collections.defaultdict(dict)
+    for pid, rec in seen.items():
+        for port in rec["ports"]:
+            by_port[port][pid] = rec["mode"]
+    return {
+        "wall_s": round(time.perf_counter() - t0, 1),
+        "modes": {m: {k: rec[k] for k in (
+            "rc", "wall_s", "failures", "left_at_exit",
+            "left_after_group_kill", "tail") if k in rec}
+            for m, rec in records.items()},
+        "readings": {m: side_by_side_readings(records[m]["result"])
+                     for m in ("shard_repl", "router_ha")},
+        "ports": [{"pid": pid, "mode": rec["mode"], "cmd": rec["cmd"],
+                   "ports": sorted(rec["ports"])}
+                  for pid, rec in sorted(seen.items())],
+        # a port two modes' processes listened on
+        "ports_shared": {port: pids for port, pids in by_port.items()
+                         if len(set(pids.values())) > 1},
+        "left_after_all": left}
+
+
+def side_by_side_main(args, label: str, tree: str) -> int:
+    """--side-by-side: RUNS runs of run_side_by_side, a JSON line each,
+    then a ``runs:`` line (runs failed, failures by check, promotion
+    seconds and epochs, shared ports, leftover processes)."""
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        lo, hi = (int(x) for x in f.read().split())
+    runs = []
+    for i in range(RUNS):
+        with tempfile.TemporaryDirectory(prefix="ap-side-") as tmp:
+            one = run_side_by_side(tree, args.device, tmp)
+        failures = [f for m in one["modes"].values()
+                    for f in m.get("failures", [])]
+        s = {"run": i, "failures": failures, **one}
+        with open(os.path.join(args.out_dir, f"side-{i}.json"), "w") as f:
+            json.dump(s, f)
+        runs.append(s)
+        print(json.dumps({k: s[k] for k in (
+            "run", "wall_s", "failures", "readings", "ports_shared",
+            "left_after_all")}) + f" [{label}]", flush=True)
+    totals = {
+        "card": label, "device": args.device, "tree": tree,
+        "mode": "side-by-side " + ",".join(SIDE_BY_SIDE),
+        "runs": len(runs),
+        "runs_failed": [s["run"] for s in runs if s["failures"]],
+        "failures_by_check": dict(collections.Counter(
+            f for s in runs for f in s["failures"])),
+        "shard_repl_promote_s": [s["readings"]["shard_repl"]["promote_s"]
+                                 for s in runs],
+        "shard_repl_s0_epochs": [
+            (s["readings"]["shard_repl"].get("shard_epochs") or {}).get("s0")
+            for s in runs],
+        "router_ha_promote_s": [s["readings"]["router_ha"]["promote_s"]
+                                for s in runs],
+        "ports_shared": sum(len(s["ports_shared"]) for s in runs),
+        # listener ports a connection's source port could have taken
+        "ephemeral_range": [lo, hi],
+        "listen_ports": sum(len(x["ports"]) for s in runs
+                            for x in s["ports"]),
+        "listen_ports_in_ephemeral_range": sum(
+            lo <= port <= hi for s in runs for x in s["ports"]
+            for port in x["ports"]),
+        "leftover_processes": sum(
+            len(m["left_at_exit"] or []) for s in runs
+            for m in s["modes"].values()) + sum(
+            len(s["left_after_all"]) for s in runs)}
+    with open(os.path.join(args.out_dir, "side-summary.json"), "w") as f:
+        json.dump({**totals, "per_run": runs}, f, indent=1)
+    print("runs: " + json.dumps(totals), flush=True)
+    return 0
 
 
 def main(argv: List[str] = None) -> int:
@@ -288,13 +433,23 @@ def main(argv: List[str] = None) -> int:
     ap.add_argument("--tree", default=REPO,
                     help="the checkout whose chip_smoke.py order and "
                          "fleet soak tool to run (default this one)")
+    ap.add_argument("--side-by-side", action="store_true",
+                    help="run the sweep, --shard-repl and --router-ha "
+                         "together (queue 3 item 13's repro) instead of "
+                         "12b one mode after another")
     args = ap.parse_args(argv)
     from torch_soak_util import device_label
 
-    _set_subreaper()
+    set_subreaper()
+    # the modes' processes share one registry of handed-out listener
+    # ports (a tree whose fleet.py has one)
+    from go_crdt_playground_tpu_torch.shard.fleet import port_registry
+    port_registry()
     label = device_label(args.device)
     tree = os.path.abspath(args.tree)
     os.makedirs(args.out_dir, exist_ok=True)
+    if args.side_by_side:
+        return side_by_side_main(args, label, tree)
     runs, kept = [], {}
     for i in range(RUNS):
         with tempfile.TemporaryDirectory(prefix="ap-12b-") as tmp:

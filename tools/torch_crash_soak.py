@@ -51,7 +51,6 @@ import os
 import random
 import shutil
 import signal
-import socket
 import statistics
 import subprocess
 import sys
@@ -64,6 +63,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
+from go_crdt_playground_tpu_torch.shard.fleet import (  # noqa: E402
+    free_port as _free_port, free_ports)
 from torch_soak_util import device_label, warm_delta_path  # noqa: E402
 
 # the observable fixed point: membership, tombstones, version vectors.
@@ -269,15 +270,6 @@ SPARES = 2
 SPARE_READY_TIMEOUT_S = 300.0
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def worker_argv(dirpath: str, actor: int, n_nodes: int, n_elements: int,
                 port: int, peer_ports: str, device: str, *,
                 checkpoint_every: int = 3, seed: int = 0,
@@ -322,7 +314,7 @@ class _Fleet:
         self.detect_races = detect_races
         self.device = device
         self.dirs = [os.path.join(root, f"node-{i}") for i in range(n_nodes)]
-        self.ports = [_free_port() for _ in range(n_nodes)]
+        self.ports = free_ports(n_nodes)
         self.procs: List[Optional[subprocess.Popen]] = [None] * n_nodes
         self.spares: List[subprocess.Popen] = []
         self.logs = []

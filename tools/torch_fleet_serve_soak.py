@@ -642,7 +642,7 @@ def chaos_leg(root: str, elements: int, seed: int) -> Dict[str, object]:
 
     from go_crdt_playground_tpu_torch.net.faults import ChaosProxy
     from go_crdt_playground_tpu_torch.shard.fleet import (RouterProc, ShardProc,
-                                                    free_port)
+                                                    free_ports)
 
     rng = random.Random(seed + 5)
     spec = _spec(n_shards=2, elements=elements, seed=seed)
@@ -655,7 +655,7 @@ def chaos_leg(root: str, elements: int, seed: int) -> Dict[str, object]:
     counts = {"typed_unavailable": 0, "typed_other": 0, "unresolved": 0,
               "acked_survivor_during_chaos": 0}
     try:
-        ports = [free_port(), free_port()]
+        *ports, router_port = free_ports(3)
         for i in range(2):
             shards.append(ShardProc(
                 REPO, os.path.join(base, f"s{i}"), spec, i, ports[i]))
@@ -665,7 +665,7 @@ def chaos_leg(root: str, elements: int, seed: int) -> Dict[str, object]:
         addrs = {"s0": ("127.0.0.1", ports[0]),
                  "s1": ("127.0.0.1", proxy.port)}
         router = RouterProc(REPO, os.path.join(base, "router"), spec,
-                            addrs, free_port())
+                            addrs, router_port)
         addr = router.await_address()
 
         todo = workloads.shuffled_universe(elements, seed, rng=rng)
@@ -1995,7 +1995,7 @@ def run_shard_repl_mode(args) -> Dict[str, object]:
     from go_crdt_playground_tpu_torch.net.peer import Node
     from go_crdt_playground_tpu_torch.shard.fleet import (RouterProc, ShardProc,
                                                     StandbyShardProc,
-                                                    free_port)
+                                                    free_ports)
     from go_crdt_playground_tpu_torch.shard.ring import HashRing
 
     if args.quick:
@@ -2013,9 +2013,7 @@ def run_shard_repl_mode(args) -> Dict[str, object]:
     traffic = None
     result: Dict[str, object] = {}
     try:
-        p0_port, p1_port = free_port(), free_port()
-        sb0_port, sb1_port = free_port(), free_port()
-        router_port = free_port()
+        p0_port, p1_port, sb0_port, sb1_port, router_port = free_ports(5)
         router_addr = ("127.0.0.1", router_port)
         announce = f"127.0.0.1:{router_port}"
 

@@ -28,7 +28,16 @@ own kind of ``--other`` tree:
     per-thread design (before the whole-entry K10); this tree's K10 is
     the whole entry in one launch (``crdt_ingest``).  Both K11 builds have
     the C entry ``crdt_group_digests``; this tree's takes a lane base
-    before the stream (passed as 0).
+    before the stream (passed as 0);
+  * k10slot: a tree whose based K10 entry (``crdt_ingest_based``) takes
+    no scratch (the cooperative-grid design past E = 4,096, e.g. the
+    parent commit's), both through this tree's host path: the based
+    entry at the two slot shapes of chip_smoke.py's phase 13d (E =
+    262,144 and 524,288, A = 16, B = 32 one-key rows and a delete, K =
+    128), the two builds' outputs and the plain version's bitwise, then
+    in turns: device us a call (queued behind a sleeping stream, as
+    chip_smoke.time_k10_slot) and ms a call through the wrapper (CUDA
+    events around ``--reps`` calls), beside the bound.
 
 Each design is timed as a whole call (host path included, CUDA events
 around back-to-back calls) with its kernel time, its device busy time
@@ -99,9 +108,21 @@ def bind(path: Path, name: str, tag: str):
         lib.crdt_ingest_regions.restype = I32
         lib.crdt_ingest_layout.argtypes = [I64] * 5 + [P]
         lib.crdt_ingest_layout.restype = None
-    else:
+        lib.crdt_ingest_based.argtypes = ([P] * 17 + [I64, I64, I32, I32, I32]
+                                          + [P, I32, P])
+        lib.crdt_ingest_based.restype = I32
+        lib.crdt_ingest_scratch_bytes.argtypes = [I64, I64]
+        lib.crdt_ingest_scratch_bytes.restype = I64
+    elif hasattr(lib, "crdt_ingest_fold"):  # a tree before the whole entry
         lib.crdt_ingest_fold.argtypes = [P] * 24 + [I64, I64, I32, P]
         lib.crdt_ingest_fold.restype = I32
+    else:  # a based entry without the scratch (before its tile path)
+        lib.crdt_ingest_based.argtypes = ([P] * 17
+                                          + [I64, I64, I32, I32, I32, P])
+        lib.crdt_ingest_based.restype = I32
+        lib.crdt_ingest_regions.restype = I32
+        lib.crdt_ingest_layout.argtypes = [I64] * 5 + [P]
+        lib.crdt_ingest_layout.restype = None
     return lib
 
 
@@ -224,6 +245,37 @@ def old_k10(lib, state, add, dl, live, k: int):
     return merged, payload, compact_payload(payload, k, k)
 
 
+def old_slot(lib, state, add, dl, live, bases, k: int):
+    """The other build's based entry (no scratch argument) through this
+    tree's host path (``cuda_ingest._prepare``, the device guard, the
+    outputs' views): only the entry's call differs."""
+    from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch.ops.cuda_merge import device_guard, ptr
+
+    buf, groups, lanes, sizes = ci._prepare(state, add, dl, live, k, k, lib,
+                                            bases)
+    with device_guard(buf.device):
+        rc = lib.crdt_ingest_based(*lanes, *map(ptr, bases), buf.data_ptr(),
+                                   *sizes)
+    if rc:
+        raise RuntimeError(f"crdt_ingest_based (other) failed ({rc})")
+    return ci.outputs(buf, groups, state, k, k)
+
+
+def k10slot_turns(calls: dict, reps: int):
+    """Each build other, this, this, other: device ms a call queued
+    behind a sleeping stream, and ms a call through the host path."""
+    import chip_smoke
+
+    out = {tag: {"device_ms": [], "ms": []} for tag in calls}
+    for tag in ("other", "this", "this", "other"):
+        fn = calls[tag]
+        out[tag]["device_ms"].append(
+            chip_smoke.queued_device_ms(fn, chip_smoke.WIDE_QUEUED))
+        out[tag]["ms"].append(chip_smoke.cuda_time_ms(fn, reps))
+    return out
+
+
 def equal(a, b) -> bool:
     import torch
 
@@ -274,13 +326,17 @@ def main() -> int:
                     "package's own)")
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--legs", default="k3,k10,k11",
-                    help="comma-separated legs: k3, k3same, k10, k11")
+                    help="comma-separated legs: k3, k3same, k10, k11, "
+                         "k10slot")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
-    if not legs <= {"k3", "k3same", "k10", "k11"}:
+    if not legs <= {"k3", "k3same", "k10", "k11", "k10slot"}:
         ap.error(f"unknown legs in {args.legs!r}")
+    if {"k10", "k10slot"} <= legs:
+        ap.error("k10 and k10slot want other trees: run them apart")
     sources = sorted({n for leg, n in (("k3", "merge"), ("k3same", "merge"),
-                                       ("k11", "digest"), ("k10", "ingest"))
+                                       ("k11", "digest"), ("k10", "ingest"),
+                                       ("k10slot", "ingest"))
                       if leg in legs})
 
     import numpy as np
@@ -289,6 +345,7 @@ def main() -> int:
     import chip_smoke
     from go_crdt_playground_tpu_torch.ops import cuda_digest as cg
     from go_crdt_playground_tpu_torch.ops import cuda_ingest as ci
+    from go_crdt_playground_tpu_torch._u32 import narrow
     from go_crdt_playground_tpu_torch.ops import cuda_merge as cm
     from go_crdt_playground_tpu_torch.ops._build import CSRC
 
@@ -429,6 +486,49 @@ def main() -> int:
             rows[key] = t
             print(f"{key}: other {fmt(t['other'])}; this {fmt(t['this'])} "
                   f"[{smi}]", flush=True)
+
+        for E in (1 << 18, 1 << 19) if "k10slot" in legs else ():
+            A, B, K = 16, 32, 128
+            row = chip_smoke.ingest_slice(rng, E, A, 0x7FFFFFFB, 0xFFFFFFF0,
+                                          False, "cuda")
+            add = np.zeros((B, E), bool)
+            add[np.arange(B), rng.integers(0, E, B)] = True
+            dl = np.zeros((B, E), bool)
+            dl[B // 2, rng.integers(0, E)] = True
+            add, dl = torch.from_numpy(add).cuda(), torch.from_numpy(dl).cuda()
+            live = torch.ones(B, dtype=torch.bool, device="cuda")
+            based = chip_smoke.based_inputs(rng, 0xFFFFFFF0, add, dl, live)
+            bases = [narrow(torch.from_numpy(np.asarray(x, np.int64))).cuda()
+                     for x in based[3:]]
+            calls = {
+                "other": lambda: old_slot(libs["other", "ingest"], row, add,
+                                          dl, live, bases, K),
+                "this": lambda: ci._launch(row, add, dl, live, K, K,
+                                           libs["this", "ingest"],
+                                           bases=bases),
+            }
+            want = ci.ingest_slot_rows(row, add, dl, live, *bases,
+                                       k_changed=K, k_deleted=K,
+                                       kernel="torch")
+            for tag in ("other", "this"):
+                if not equal(calls[tag](), want):
+                    raise AssertionError(f"K10 slot E={E}: the {tag} build "
+                                         "differs from plain")
+            t = k10slot_turns(calls, args.reps)
+            bound_ms, bound_by, nbytes = chip_smoke.ingest_slot_bounds(
+                E, A, B, K)
+            key = f"K10 based slot E={E} A={A} B={B} K={K}"
+            rows[key] = {**t, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "bound_bytes": nbytes}
+            print(f"{key}: device us a call other "
+                  + "/".join(f"{x * 1e3:.3f}" for x in t["other"]["device_ms"])
+                  + ", this "
+                  + "/".join(f"{x * 1e3:.3f}" for x in t["this"]["device_ms"])
+                  + "; ms a call other "
+                  + "/".join(f"{x:.4f}" for x in t["other"]["ms"])
+                  + ", this " + "/".join(f"{x:.4f}" for x in t["this"]["ms"])
+                  + f"; bound {bound_ms * 1e3:.3f} us ({bound_by}, {nbytes} "
+                  f"B), outputs bitwise equal [{smi}]", flush=True)
     print(json.dumps({"device": smi, "cases": rows}))
     return 0
 

@@ -70,10 +70,8 @@ _ADDR_RE = re.compile(rb"listening on (\S+):(\d+)")
 DEL_EVERY = 10
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+from go_crdt_playground_tpu_torch.shard.fleet import \
+    free_port  # noqa: E402,F401  (a listener port no connection is given)
 
 
 def worker_argv(device: str, port: int, elements: int, state_dir: str, *,
