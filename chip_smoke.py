@@ -3161,18 +3161,32 @@ def phase_fleet_soak(smi: str) -> dict:
                       f" s")
         else:
             cal, plan = r["calibration"], r["calibration"]["planned_load"]
-            detail = (f"{cal['shard']} sheds from {cal['capacity_ops_s']:.1f}"
-                      f" ops/s offered (3 windows acked "
+            carry = cal["carry"]
+            detail = (f"{cal['shard']} sheds from "
+                      f"{cal['onset_ops_s']:.1f} ops/s offered, the "
+                      f"last of {len(cal['readings'])} onsets (" +
+                      ", ".join(f"{w['capacity_ops_s']} at "
+                                f"{w['age_s'][0]} s"
+                                for w in cal['readings']) +
+                      f" after the fleet's start; its 3 windows acked "
                       f"{cal['window_acked_ops_s']}, shed "
                       f"{cal['window_shed']}, spread "
                       f"{cal['acked_spread']}; "
                       f"{cal['below_onset_acked_ops_s']} acked a step "
-                      f"below), planned baseline "
+                      f"below; read by {cal['age_s'][1]} s); the router "
+                      f"carried {carry['window_carried_ops_s']} of "
+                      f"{carry['offered_ops_s']} ops/s, a bound of "
+                      f"{carry['bound_ops_s']}; sized from "
+                      f"{cal['capacity_ops_s']:.1f}, planned baseline "
                       f"{plan['baseline']['of_capacity']} on "
                       f"{plan['baseline']['shard']} and burn "
                       f"{plan['burn']['of_capacity']} on "
                       f"{plan['burn']['shard']} of it, burn "
-                      f"{cal['rates_ops_s']['burn']:.1f}; "
+                      f"{cal['rates_ops_s']['burn']:.1f}; s1 in the burn "
+                      f"from {r['burn_s1']['age_s']} s: queue to "
+                      f"{r['burn_s1']['max_queue_depth']}, shed to "
+                      f"{r['burn_s1']['max_shed_rate']} ops/s, heated "
+                      f"{r['burn_s1']['heated']}; "
                       f"splits {r['actions']['splits_committed']}, merges "
                       f"{r['actions']['merges_committed']}, converged "
                       f"{r['convergence']['converged']}")

@@ -264,6 +264,41 @@ class _Shard:
                 "shed": rate - acked}
 
 
+class _WarmingShard:
+    """A one-op shard (``_Shard``) whose knee rises with the seconds
+    since its fleet started, on ``clock``: ``first`` until ``rise[0]``,
+    then linearly to ``late`` at ``rise[1]``.  Fitted to a failed whole
+    chip_smoke.py run on an H100 80GB HBM3's host, whose calibration
+    right after the start read s1's onset at 227.9 ops/s (its ramp: 250
+    shed, 227.3 shed, 206.6 clean, 227.3 shed in two windows of three)
+    and whose burn then offered s1 about 264 ops/s, absorbed without a
+    shed; and to the onsets of the passing legs, about 450 ops/s: a
+    knee of 160 (an onset of 224, the queue's 64 ops above it) rising to
+    386.  Each window takes 1.1 s of the clock (1 s offered, then its
+    ops resolved), and reads its age as ``shard_offer`` does."""
+
+    def __init__(self, clock, first: float = 160.0, late: float = 386.0,
+                 rise=(6.0, 16.0)):
+        self.clock, self.first, self.late, self.rise = (clock, first, late,
+                                                        rise)
+
+    def knee(self, t: float) -> float:
+        f = min(1.0, max(0.0, (t - self.rise[0])
+                         / (self.rise[1] - self.rise[0])))
+        return self.first + f * (self.late - self.first)
+
+    def offer(self, rate: float) -> Dict[str, float]:
+        out = dict(_Shard(self.knee(self.clock.t)).offer(rate),
+                   age_s=round(self.clock.t, 2))
+        self.clock.t += 1.1
+        return out
+
+
+class _Clock:
+    """Seconds since the leg's fleet started."""
+    t = 0.0
+
+
 def _recording(offer):
     """``offer`` that also records the rates it was asked for."""
     calls = []
@@ -437,3 +472,329 @@ def test_planned_loads_for_seed_29(capacity):
     big = soak.planned_loads(192, 29, ring0, hot, 20_000, 20_000)
     assert round(big["baseline"]["s0"], 3) == 0.558
     assert round(big["burn"]["s1"], 3) == 0.725
+
+
+def _carrying(limit: float = float("inf")):
+    """A ``carry`` whose router and client carry the rate offered up to
+    ``limit`` ops/s, and the rates it was asked for."""
+    calls = []
+
+    def carry(rate):
+        calls.append(round(rate, 1))
+        return {"s": 1.0, "offered": rate, "acked": min(rate, limit),
+                "shed": 0, "carried": min(rate, limit)}
+
+    return carry, calls
+
+
+def test_calibrate_sizes_from_the_last_of_three_onsets(monkeypatch):
+    """``calibrate`` reads the onset CALIBRATION_READINGS times, each
+    ramp after the first from two steps below the last onset, and sizes
+    from the last reading, the nearest to the burn: on a steady shard
+    whose knee is 500 ops/s, 589.5; on one that warms up
+    (``_WarmingShard``: onsets 227.3, then 487.2 twice), 487.2; an
+    onset read low or high before the last moves nothing.  The router
+    is then offered the planned burn's fleet rate (1.6 of the onset)
+    three times; where it carries all of it, the bound (the carry over
+    1.25 x 2 x 0.6) lies above the onset and moves nothing."""
+    import torch_fleet_serve_soak as soak
+
+    assert soak.CALIBRATION_READINGS == 3
+    assert (soak.CARRY_MARGIN, soak.COLD_AFTER_SPLIT) == (1.25, 2)
+    offer, calls = _recording(_Shard(knee=500.0).offer)
+    carry, asked = _carrying()
+    cal = soak.calibrate(offer, carry, 1.6, 0.6)
+    assert [r["capacity_ops_s"] for r in cal["readings"]] == [589.5] * 3
+    assert cal["capacity_ops_s"] == cal["onset_ops_s"] == 589.5
+    assert calls[12:] == [487.2, 535.9, 589.5, 589.5, 589.5] * 2
+    assert len(cal["windows"]) == len(calls)
+    assert asked == [943.2] * 3
+    assert cal["carry"] == {"offered_ops_s": 943.2,
+                            "window_offered_ops_s": [943.2] * 3,
+                            "window_carried_ops_s": [943.2] * 3,
+                            "carried_ops_s": 943.2, "bound_ops_s": 628.8}
+
+    clock = _Clock()
+    cal = soak.calibrate(_WarmingShard(clock).offer, _carrying()[0], 1.6,
+                         0.6)
+    assert [r["capacity_ops_s"] for r in cal["readings"]] == [227.3, 487.2,
+                                                              487.2]
+    assert cal["capacity_ops_s"] == 487.2
+    assert cal["readings"][0]["age_s"] == [0.0, 5.5]
+    assert cal["window_shed"] == [211, 211, 211]
+
+    for odd in ([300.0, 900.0, 589.5], [900.0, 227.3, 589.5]):
+        onsets = iter(odd)
+        monkeypatch.setattr(soak, "measure_capacity", lambda offer, start=0:
+                            {"capacity_ops_s": next(onsets), "windows": [{}],
+                             "window_acked_ops_s": [], "window_shed": []})
+        assert soak.calibrate(None, _carrying()[0], 1.6,
+                              0.6)["capacity_ops_s"] == 589.5
+
+
+def test_calibrate_bounds_the_onset_by_the_carry(monkeypatch):
+    """Where the router and the client carry less than the planned
+    burn, the capacity is the median carried rate over 1.5 (the cold
+    line after the first split, 2 x 0.6 of the capacity, a quarter
+    under it), whatever the onset; a carry that dips in one window of
+    three moves nothing."""
+    import torch_fleet_serve_soak as soak
+
+    onsets = iter([443.7, 488.7, 866.6])
+    monkeypatch.setattr(soak, "measure_capacity", lambda offer, start=0:
+                        {"capacity_ops_s": next(onsets), "windows": [{}],
+                         "window_acked_ops_s": [], "window_shed": []})
+    carried = iter([1040.0, 700.0, 1100.0])
+    cal = soak.calibrate(None, lambda rate: {"offered": rate,
+                                             "carried": next(carried)},
+                         1.6, 0.6)
+    assert cal["onset_ops_s"] == 866.6
+    assert cal["carry"]["window_carried_ops_s"] == [1040.0, 700.0, 1100.0]
+    assert cal["carry"]["carried_ops_s"] == 1040.0
+    assert cal["capacity_ops_s"] == cal["carry"]["bound_ops_s"] == 693.3
+
+
+def _fake_leg(monkeypatch, shard, clock, carry=None,
+              second_reading=False):
+    """``run_autopilot_mode`` with its fleet, router, controller,
+    sampler and ledgered traffic replaced by fakes that run on
+    ``clock`` (a controller takes 3 s to engage, a traffic leg its
+    duration), s1's probes offered to ``shard`` and the fleet's to
+    ``carry`` (default: a router that carries every rate).  Returns the
+    leg's result and its events in order: ``(what, t)``, and
+    ``("traffic", t, rate)``."""
+    import argparse
+
+    import torch_fleet_serve_soak as soak
+    from go_crdt_playground_tpu_torch.control import controller
+
+    events = []
+
+    class Fleet:
+        def __init__(self, repo, root, spec, **kwargs):
+            self.spec, self.shards, self.router = spec, [], None
+
+        sid = staticmethod(lambda i: f"s{i}")
+
+        def start(self, extra=()):
+            events.append(("start", clock.t))
+            return ("fake", 1)
+
+        def shard_addr(self, i):
+            return ("fake", 10 + i)
+
+        def close(self):
+            events.append(("close", clock.t))
+
+    fleet_offer = carry or _carrying()[0]
+
+    def shard_offer(router, keys, elements, **kwargs):
+        def offer(rate):
+            events.append(("probe", clock.t))
+            if len(keys) == elements:
+                clock.t += 1.1
+                return fleet_offer(rate)
+            return shard.offer(rate)
+        return offer
+
+    class Sampler:
+        samples = []
+
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def start(self):
+            pass
+
+        def mark(self):
+            return 0
+
+        def window(self, since_idx=0):
+            return []
+
+        def stop(self):
+            pass
+
+        def is_alive(self):
+            return False
+
+    class Pilot:
+        def __init__(self, *args):
+            self.proc = self
+
+        def await_engaged(self, timeout_s=60.0):
+            clock.t += 3.0
+            events.append(("engaged", clock.t))
+            return {"generation": 1, "adopted": "['s2']"}
+
+        def sigkill(self):
+            events.append(("pilot_down", clock.t))
+
+        terminate = sigkill
+
+        def close(self):
+            pass
+
+    def traffic(addr, rate, duration_s, elements, **kwargs):
+        events.append(("traffic", clock.t, rate))
+        clock.t += duration_s
+        return {"workload": "fake", "goodput": rate, "acked": 1,
+                "shed_overloaded": 0, "unresolved": 0, "p99_ms": 1.0,
+                "acked_elements": [], "submitted_elements": [],
+                "acked_deletes": []}
+
+    class Client:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def members(self):
+            return [], {}
+
+    for name, fake in (("ShardFleet", Fleet), ("shard_offer", shard_offer),
+                       ("_SignalSampler", Sampler),
+                       ("_AutopilotProc", Pilot),
+                       ("open_loop_leg", traffic), ("ServeClient", Client),
+                       ("_ring_info", lambda addr: {
+                           "generation": 0, "shards": ["s0", "s1"],
+                           "seed": 29})):
+        monkeypatch.setattr(soak, name, fake)
+    monkeypatch.setattr(controller, "read_decision_log", lambda path: [])
+    res = soak.run_autopilot_mode(argparse.Namespace(
+        quick=True, seed=29, second_reading=second_reading))
+    return res, events
+
+
+def test_burn_meets_a_warming_shard_above_its_knee(monkeypatch):
+    """A failed leg on a model: s1's knee rises from 160 to 386 ops/s
+    in the leg's first 16 s (``_WarmingShard``).  One onset read right
+    after the start (``measure_capacity`` alone, no warm-up reading)
+    plans s1's burn at 1.16 x 227.3 = 264 ops/s, below the knee it
+    meets when the burn starts; the leg's calibration plans it above
+    that knee, with the baseline's hottest shard still at 0.40 of the
+    capacity."""
+    import torch_fleet_serve_soak as soak
+
+    clock = _Clock()
+    shard = _WarmingShard(clock)
+    once = soak.measure_capacity(shard.offer)
+    assert once["capacity_ops_s"] == 227.3
+    # one reading, then the controller's start and the baseline
+    t_burn = clock.t + 3.0 + 5.0
+    assert 1.1636 * once["capacity_ops_s"] < shard.knee(t_burn)
+
+    clock = _Clock()
+    res, events = _fake_leg(monkeypatch, _WarmingShard(clock), clock)
+    cal = res["calibration"]
+    burn = [e for e in events if e[0] == "traffic"][1]
+    s1_burn = cal["shares"]["burn"]["s1"] * burn[2]
+    assert s1_burn > _WarmingShard(clock).knee(burn[1]) + 64 / 16.0
+    assert s1_burn / cal["capacity_ops_s"] == pytest.approx(
+        cal["planned_load"]["burn"]["of_capacity"], abs=1e-4)
+    assert 0.38 < cal["planned_load"]["baseline"]["of_capacity"] < 0.42
+
+
+@pytest.mark.parametrize("second_reading", [False, True])
+def test_autopilot_leg_order(monkeypatch, second_reading):
+    """The leg's order: the fleet starts, s1 is read three times (the
+    first two readings are the warm-up) and the router offered the
+    planned burn three times, the capacity comes from them, and only
+    then does the controller engage; no probe runs while a controller
+    does; with ``--second-reading`` s1 is read once more after the last
+    controller is stopped and before the fleet closes, and without it
+    nothing is offered after the checks' readings."""
+    import torch_fleet_serve_soak as soak
+
+    clock = _Clock()
+    res, events = _fake_leg(monkeypatch, _Shard(knee=500.0), clock,
+                            second_reading=second_reading)
+    kinds = [e[0] for e in events]
+    assert kinds[0] == "start" and kinds[-1] == "close"
+    engaged = kinds.index("engaged")
+    assert kinds[1:engaged] == ["probe"] * (engaged - 1)
+    cal = res["calibration"]
+    assert len(cal["readings"]) == 3
+    assert len(cal["windows"]) + soak.CAPACITY_WINDOWS == engaged - 1
+    assert cal["capacity_ops_s"] == 589.5
+    # the controllers run from their engagement to their stop
+    down = [i for i, k in enumerate(kinds) if k == "pilot_down"]
+    assert len(down) == 2 and kinds.count("engaged") == 2
+    running = set(range(engaged, down[0])) | set(
+        range(kinds.index("engaged", down[0]), down[1]))
+    assert not [i for i in running if kinds[i] == "probe"]
+    after = kinds[down[1] + 1:-1]
+    assert [e[0] for e in events if e[0] == "traffic"] == ["traffic"] * 5
+    if not second_reading:
+        assert after == [] and "drift" not in res
+        return
+    assert after and set(after) == {"probe"}
+    assert res["second_reading"]["capacity_ops_s"] == 589.5
+    assert res["drift"]["second_over_onset"] == 1.0
+
+
+def _cold_after_split(cold_rate: float, fleet_ops_s: float) -> bool:
+    """The controller's verdict on three calm shards (queues empty, p99
+    10 ms) that the router gives ``fleet_ops_s`` between them, with
+    ``cold_rate`` a shard, over its cold windows: merge or not."""
+    from go_crdt_playground_tpu_torch.control.policy import (
+        AutopilotPolicy, PolicyConfig)
+    from go_crdt_playground_tpu_torch.control.signals import (
+        FleetView, ShardSignals)
+
+    policy = AutopilotPolicy(PolicyConfig(
+        p99_budget_s=1.5, queue_watermark=32.0, hot_windows=3,
+        cold_windows=6, min_shards=2, max_shards=4,
+        cold_rate_per_shard=cold_rate))
+    shards = ("s0", "s1", "s2")
+    per = {s: ShardSignals(s, True, fleet_ops_s / 3, fleet_ops_s / 3, 0.0,
+                           0.0, 0.01) for s in shards}
+    actions = [policy.decide(FleetView(float(t), 1, "d", shards, 0, {},
+                                       per)).action for t in range(6)]
+    return actions[-1] == "merge"
+
+
+def test_burn_splits_and_holds_under_a_router_cap(monkeypatch):
+    """A leg's readings on an H100 80GB HBM3's host replayed: s1's
+    onsets read 443.7, 488.7, then 866.6 ops/s while the router carried
+    1,040-1,200 ops/s, and s1 read 474.5 again after the checks.  Sized
+    from 866.6 alone, the leg plans a fleet burn of 1,386.6 that a
+    router carrying 1,040 cannot deliver, and the controller's cold
+    line with three shards (2 x 520.0) is the carry itself: a calm
+    fleet 5% under it merges in the converge leg.  The leg bounds the
+    capacity by the carry (693.3): the cold line falls to 832.0, the
+    fleet stays warm down to 0.85 of the carry, and s1's share of what
+    the router carries (0.725 of 1,040) is still above its capacity at
+    the burn, so it splits."""
+    import torch_fleet_serve_soak as soak
+
+    onsets = iter([443.7, 488.7, 866.6])
+    monkeypatch.setattr(soak, "measure_capacity", lambda offer, start=0:
+                        {"capacity_ops_s": next(onsets),
+                         "windows": [{"age_s": 0.0}],
+                         "window_acked_ops_s": [], "window_shed": []})
+    clock = _Clock()
+    carry, asked = _carrying(1040.0)
+    res, events = _fake_leg(monkeypatch, None, clock, carry=carry)
+    cal = res["calibration"]
+    assert asked == [1386.6] * 3
+    assert cal["onset_ops_s"] == 866.6 and cal["capacity_ops_s"] == 693.3
+    cold_rate = res["budgets"]["pilot_flags"]["cold-rate"]
+    assert cold_rate == 416.0
+    burn = [e for e in events if e[0] == "traffic"][1][2]
+    carried = min(burn, 1040.0)
+    assert carried == 1040.0 < burn
+    # s1's share of the burn as the router carries it, over s1's onset
+    # read after the checks
+    assert cal["shares"]["burn"]["s1"] * carried > 1.5 * 474.5
+    assert not _cold_after_split(cold_rate, 0.85 * carried)
+    # the last onset alone
+    unbounded_cold = round(0.6 * 866.6, 1)
+    assert 1.6 * 866.6 > 1040.0
+    assert _cold_after_split(unbounded_cold, 0.95 * carried)
+
+

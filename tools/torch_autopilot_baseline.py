@@ -21,14 +21,23 @@ process group killed once it exits).  For each run it records:
   measured capacity, its windows, their spread and the ramp; each
   leg's hottest shard's planned load in units of it), the baseline's
   decisions (views with a hot shard, worst p99 and queue), and the
-  first split and its time against the baseline's end.
+  first split and its time against the baseline's end; where the
+  tree's soak reads them, the calibration's readings with their ages
+  after the fleet's start (``readings``) and what the router carried
+  (``carry``), s1 in the burn as the controller saw it (``burn_s1``:
+  deepest queue, highest shed rate, heated or not) and s1's onset read
+  again after the checks (the soak's ``--second-reading``, which the
+  autopilot leg gets where the tree's soak has it) over the
+  calibration's, with s1's planned burn over each (``drift``).
 
 Each run's result is written to ``--out-dir/run-<i>.json`` (its
 summary line under ``run``; the autopilot's summary, decision log,
 timeline and budgets; the other modes' results), one summary line a
 run is printed, and the totals go to
 ``--out-dir/summary.json`` and a last ``runs:`` line (runs, runs with a
-failed mode, failures by check, the capacities and their spread).
+failed mode, failures by check, the capacities and their spread,
+and each leg's second reading over its calibration, planned burn over
+the second reading and heated burn).
 ``--out-dir/trace.json`` keeps the first run that split in its
 baseline, or else the run whose baseline came nearest to the watermark,
 as a replay test reads it (tests/fixtures/torch_autopilot_trace.json,
@@ -62,7 +71,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -113,7 +122,8 @@ def _median(xs: List[float]) -> Optional[float]:
 # measured capacity prints none of them; its own is in run-<i>.json)
 CALIBRATION_KEYS = ("capacity_ops_s", "window_acked_ops_s", "window_shed",
                     "acked_spread", "below_onset_acked_ops_s", "ramp",
-                    "rates_ops_s", "planned_load")
+                    "rates_ops_s", "planned_load", "age_s", "readings",
+                    "onset_ops_s", "carry")
 
 
 def summarize_autopilot(res: Dict) -> Dict:
@@ -153,6 +163,9 @@ def summarize_autopilot(res: Dict) -> Dict:
             "max_p99_ms": max(p99s, default=None),
             "max_queue_depth": max(queues, default=None)},
         "first_split": first_split,
+        # a tree from before the second reading has none of these
+        "burn_s1": r.get("burn_s1"),
+        "drift": r.get("drift"),
     }
 
 
@@ -242,6 +255,13 @@ def fleet_soak_modes(tree: str):
     return module.FLEET_SOAK_MODES
 
 
+def second_reading_flag(tree: str) -> Tuple[str, ...]:
+    """``--second-reading`` where the tree's soak has it, else nothing."""
+    with open(os.path.join(tree, "tools", "torch_fleet_serve_soak.py")) as f:
+        return ("--second-reading",) if '"--second-reading"' in f.read() \
+            else ()
+
+
 def run_12b(tree: str, device: str, tmp: str) -> Dict[str, object]:
     """One run of 12b (module docstring)."""
     tool = os.path.join(tree, "tools", "torch_fleet_serve_soak.py")
@@ -251,6 +271,8 @@ def run_12b(tree: str, device: str, tmp: str) -> Dict[str, object]:
         before = own_children()
         alive.append({"before": mode, "alive": list(before.values())})
         reap(before)
+        if mode == "autopilot":
+            flags = (*flags, *second_reading_flag(tree))
         modes[mode] = run_mode(tool, flags, device,
                                os.path.join(tmp, f"{mode}.json"))
     return {"wall_s": round(time.perf_counter() - t0, 1),
@@ -508,6 +530,17 @@ def main(argv: List[str] = None) -> int:
         "capacity_ops_s": caps,
         "capacity_spread": (round((max(caps) - min(caps))
                                   / _median(caps), 4) if caps else None),
+        # per autopilot leg: the second reading over the calibration,
+        # s1's planned burn over the second reading, and whether s1
+        # shed or reached the watermark in the burn
+        "second_over_onset": [
+            (s["autopilot"]["drift"] or {}).get("second_over_onset")
+            for s in runs if "autopilot" in s],
+        "planned_burn_of_second": [
+            (s["autopilot"]["drift"] or {}).get("planned_burn_of_second")
+            for s in runs if "autopilot" in s],
+        "burn_s1_heated": [(s["autopilot"]["burn_s1"] or {}).get("heated")
+                           for s in runs if "autopilot" in s],
         "wall_s": [s["wall_s"] for s in runs]}
     with open(os.path.join(args.out_dir, "summary.json"), "w") as f:
         json.dump({**totals, "per_run": runs}, f, indent=1)

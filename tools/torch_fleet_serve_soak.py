@@ -84,6 +84,7 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
 import workloads  # noqa: E402  (tools/workloads.py: named seeded pickers)
+from torch_soak_util import host_reading, host_window  # noqa: E402
 
 from go_crdt_playground_tpu_torch.serve import protocol  # noqa: E402
 from go_crdt_playground_tpu_torch.serve.client import \
@@ -125,9 +126,14 @@ class _Tally:
         self.overloaded = 0  # guarded-by: lock
         self.expired = 0  # guarded-by: lock
         self.other = 0  # guarded-by: lock
+        self.first_answer_t: Optional[float] = None  # guarded-by: lock
+        self.last_answer_t: Optional[float] = None  # guarded-by: lock
 
     def on_result(self, op) -> None:
         with self.lock:
+            self.last_answer_t = time.monotonic()
+            if self.first_answer_t is None:
+                self.first_answer_t = self.last_answer_t
             if op.acked:
                 self.acked += 1
                 self.latencies.append(op.latency_s)
@@ -242,6 +248,14 @@ def open_loop_leg(addr, rate: float, duration_s: float, elements: int,
             "other_failures": tally.other,
             "send_errors": send_errors,
             "unresolved": submitted - resolved,
+            # the rate the answers came back at, first to last: what
+            # the client and the path behind it carried, where they
+            # fell behind the offer
+            "carried_ops_s": (
+                round((resolved - 1) / (tally.last_answer_t
+                                        - tally.first_answer_t), 1)
+                if resolved > 1
+                and tally.last_answer_t > tally.first_answer_t else 0.0),
             "shed_rate": round(shed / submitted, 4) if submitted else 0.0,
             "p50_ms": _r(_pctl(tally.latencies, 0.50)),
             "p95_ms": _r(_pctl(tally.latencies, 0.95)),
@@ -885,13 +899,26 @@ def measure_capacity(offer, start: float = REF_SHARD_CAPACITY,
     the onset's windows stay spread past CAPACITY_SPREAD."""
     ramp: List[Dict[str, object]] = []
     tries: List[Dict[str, object]] = []
+    # every window offered, with what the offer read beside it (its
+    # age and the host's state, where it reads them)
+    seen: List[Dict[str, object]] = []
+
+    def read(rate: float) -> Dict[str, float]:
+        reading = offer(rate)
+        seen.append({"offered": round(reading["offered"], 1),
+                     "acked_ops_s": round(reading["acked"] / reading["s"],
+                                          1),
+                     "shed": int(reading["shed"]),
+                     **{k: reading[k] for k in ("age_s", "host")
+                        if k in reading}})
+        return reading
+
     clean = None
     rate = start
     for _ in range(max_steps):
-        first = offer(rate)
-        ramp.append({"offered": round(first["offered"], 1),
-                     "acked_ops_s": round(first["acked"] / first["s"], 1),
-                     "shed": int(first["shed"])})
+        first = read(rate)
+        ramp.append({k: seen[-1][k] for k in
+                     ("offered", "acked_ops_s", "shed")})
         if first["shed"] == 0:
             clean = ramp[-1]["acked_ops_s"]
             rate *= step
@@ -901,13 +928,13 @@ def measure_capacity(offer, start: float = REF_SHARD_CAPACITY,
             rate /= step
             continue
         est = capacity_estimate(
-            [first] + [offer(rate) for _ in range(windows - 1)])
+            [first] + [read(rate) for _ in range(windows - 1)])
         tries.append(est)
         for _ in range(CAPACITY_RETRIES):
             if not (est["saturated"]
                     and est["acked_spread"] > CAPACITY_SPREAD):
                 break
-            est = capacity_estimate([offer(rate) for _ in range(windows)])
+            est = capacity_estimate([read(rate) for _ in range(windows)])
             tries.append(est)
         if est["saturated"]:
             if est["acked_spread"] > CAPACITY_SPREAD:
@@ -916,10 +943,81 @@ def measure_capacity(offer, start: float = REF_SHARD_CAPACITY,
                     f"spread past {CAPACITY_SPREAD} in "
                     f"{1 + CAPACITY_RETRIES} measurements: {tries}")
             return {**est, "below_onset_acked_ops_s": clean,
-                    "ramp": ramp, "attempts": tries}
+                    "ramp": ramp, "attempts": tries, "windows": seen}
         rate *= step
     raise RuntimeError(f"no offered rate of {ramp} saturated the shard "
                        f"above a clean step in {windows} windows: {tries}")
+
+
+# One onset is a sample of a host whose speed moves: on an H100 80GB
+# HBM3's host s1's CPU per op and the router's rose and fell together
+# by up to 2x within tens of seconds (s1's onset read 590 ops/s, then
+# 367; 443.7, 488.7, then 866.6), with no dirty page cache and s0, s2
+# and s3 idle, and the first onset after the fleet's start read lower
+# than the last in 5 of 7 legs (a failed whole run read 227.9 ops/s,
+# and its burn then offered s1 about 264, absorbed without a shed).  A
+# reading below s1's rate at the burn leaves s1 cold, so the leg reads
+# s1's onset CALIBRATION_READINGS times, each ramp after the first from
+# two steps below the last onset, and sizes from the last reading, the
+# nearest to the burn; the earlier ones warm the fleet up.
+#
+# A reading far above what the router and the soak's client carry
+# plans a burn they cannot deliver: the fleet then sees what they
+# carry, and after the first split (three shards) the controller calls
+# the fleet cold below twice its cold rate a shard (0.6 of the
+# capacity), so a carry under 1.2 of the capacity merges in the
+# converge leg and the restarted controller has no standby to adopt.
+# So the leg then offers the planned burn's fleet rate, every key of
+# the two shards deleted (each shard about half of it, under its onset,
+# and no member added), for CAPACITY_WINDOWS windows, and bounds the
+# capacity by the median carried rate over CARRY_MARGIN times that
+# line.  Where the router carries less than the planned burn, s1's
+# share of the burn is its share of what the router carries whether
+# the bound holds or not (a bounded leg still plans a burn of 1.6 of
+# the capacity, 1.72 in the full leg, against a carry of 1.5 of it):
+# the bound moves the cold line, not s1's heat.
+CALIBRATION_READINGS = 3
+CARRY_MARGIN = 1.25
+# shards left after the first split less one: the cold line's factor
+COLD_AFTER_SPLIT = 2
+
+
+def calibrate(offer, carry, burn_of_capacity: float,
+              cold_of_capacity: float) -> Dict[str, object]:
+    """The capacity the leg is sized from (the comment above): the last
+    reading's ``measure_capacity`` record, its onset as ``onset_ops_s``
+    and ``capacity_ops_s`` the lesser of it and the carry's bound, with
+    every reading's ``windows``, ``readings`` (each reading's first and
+    last window ages, where ``offer`` reads them, its onset, acked
+    windows and sheds) and ``carry`` (the rate offered, each window's
+    achieved offer and carried rate, the median carried and the
+    bound).  ``offer`` reads s1 and ``carry`` the fleet (``shard_offer``
+    's); ``burn_of_capacity`` and ``cold_of_capacity`` are the burn's
+    fleet rate and the controller's cold rate over the capacity."""
+    taken = [measure_capacity(offer)]
+    while len(taken) < CALIBRATION_READINGS:
+        taken.append(measure_capacity(
+            offer, start=taken[-1]["capacity_ops_s"] / CAPACITY_STEP ** 2))
+    onset = taken[-1]["capacity_ops_s"]
+    rate = burn_of_capacity * onset
+    windows = [carry(rate) for _ in range(CAPACITY_WINDOWS)]
+    carried = [w["carried"] for w in windows]
+    median = sorted(carried)[len(carried) // 2]
+    bound = round(median / (CARRY_MARGIN * COLD_AFTER_SPLIT
+                            * cold_of_capacity), 1)
+    return {**taken[-1], "onset_ops_s": onset,
+            "capacity_ops_s": min(onset, bound),
+            "windows": [w for r in taken for w in r["windows"]],
+            "readings": [
+                {"age_s": [r["windows"][i].get("age_s") for i in (0, -1)],
+                 **{k: r[k] for k in ("capacity_ops_s", "window_acked_ops_s",
+                                      "window_shed")}}
+                for r in taken],
+            "carry": {"offered_ops_s": round(rate, 1),
+                      "window_offered_ops_s": [round(w["offered"], 1)
+                                               for w in windows],
+                      "window_carried_ops_s": carried,
+                      "carried_ops_s": median, "bound_ops_s": bound}}
 
 
 class _ListKeys(workloads.KeyPicker):
@@ -934,25 +1032,98 @@ class _ListKeys(workloads.KeyPicker):
 
 
 def shard_offer(router, keys: List[int], elements: int,
-                window_s: float = CAPACITY_WINDOW_S):
+                window_s: float = CAPACITY_WINDOW_S,
+                pids: Optional[Dict[str, int]] = None,
+                since: Optional[float] = None):
     """``measure_capacity``'s ``offer`` against a live fleet: one
-    window of open-loop DELETES of ``keys`` (one shard's keyspace)
-    through the router, every op resolved before it returns (so the
-    next window starts from an empty queue).  A delete costs the shard
-    what an add does (a one-row batch, one K10 launch, one fsync'd WAL
-    record) and adds no member, so the measurement stays out of the
-    leg's ledger (acked and submitted elements, the phantom check)."""
+    window of open-loop DELETES of ``keys`` (one shard's keyspace, or
+    the fleet's) through the router, every op resolved before it
+    returns (so the next window starts from an empty queue).  A delete
+    costs the shard what an add does (a one-row batch, one K10 launch,
+    one fsync'd WAL record) and adds no member, so the measurement
+    stays out of the leg's ledger (acked and submitted elements, the
+    phantom check).
+    ``carried`` is the rate its answers came back at, first to last.
+    With ``since`` (a ``time.monotonic()``) each reading gains its
+    window's start in seconds after it (``age_s``); with ``pids`` (name
+    to pid) the host's state over the window (``host_window``)."""
     picker = _ListKeys(keys)
 
     def offer(rate: float) -> Dict[str, float]:
+        t0 = time.monotonic()
+        before = host_reading(pids) if pids is not None else None
         leg = open_loop_leg(router, rate, window_s, elements, del_every=1,
                             deadline_s=2.0, keys=picker)
         if leg["unresolved"] or leg["other_failures"]:
             raise RuntimeError(f"capacity offer: {leg}")
-        return {"s": window_s, "offered": leg["achieved_offer_rate"],
-                "acked": leg["acked"], "shed": leg["shed_overloaded"]}
+        out = {"s": window_s, "offered": leg["achieved_offer_rate"],
+               "acked": leg["acked"], "shed": leg["shed_overloaded"],
+               "carried": leg["carried_ops_s"]}
+        if since is not None:
+            out["age_s"] = round(t0 - since, 2)
+        if before is not None:
+            out["host"] = host_window(before, host_reading(pids))
+        return out
 
     return offer
+
+
+def autopilot_fleet(root: str, elements: int, seed: int) -> ShardFleet:
+    """The autopilot leg's fleet under ``root``, not started: two
+    shards that batch one op (a K10 launch and an fsync'd WAL record
+    each) and a router that persists its committed ring."""
+    spec = _spec(n_shards=2, elements=elements, seed=seed,
+                 actors=4, queue_depth=64, max_batch=1, flush_ms=5.0)
+    return ShardFleet(REPO, os.path.join(root, "fleet"), spec,
+                      router_state_dir=os.path.join(root, "fleet",
+                                                    "router-state"))
+
+
+def fleet_pids(fleet: ShardFleet) -> Dict[str, int]:
+    """Each running shard's and the router's pid, by name."""
+    out = {fleet.sid(i): s.proc.pid for i, s in enumerate(fleet.shards)
+           if s is not None}
+    if fleet.router is not None:
+        out["router"] = fleet.router.proc.pid
+    return out
+
+
+def owned_keys(ring, sid: str, elements: int) -> List[int]:
+    """The elements ``ring`` gives to ``sid``."""
+    return [e for e in range(elements) if ring.owner(e) == sid]
+
+
+def shard_heat(log: List[Dict], window: List[float], sid: str,
+               watermark: float) -> Dict[str, object]:
+    """Shard ``sid`` in the controller's views inside ``window`` (its
+    monotonic clock): the views, the deepest queue, the highest shed
+    rate, and whether it shed or its queue reached ``watermark``."""
+    views = [r["signals"]["per_shard"][sid] for r in log
+             if r.get("record") == "decision"
+             and window[0] <= r["signals"]["t"] <= window[1]
+             and sid in r["signals"]["per_shard"]]
+    queue = max((v["queue_depth"] for v in views), default=None)
+    shed = max((v["shed_rate"] for v in views), default=None)
+    return {"views": len(views), "max_queue_depth": queue,
+            "max_shed_rate": shed,
+            "heated": bool(views) and (queue >= watermark or shed > 0)}
+
+
+def drift_summary(calibration: Dict[str, object], reread: Dict[str, object],
+                  s1_burn_ops_s: float) -> Dict[str, object]:
+    """s1's onset read again after the checks over the calibration's,
+    and s1's planned burn load (ops/s) over the capacity the leg was
+    sized from and over the second onset."""
+    cap, onset = calibration["capacity_ops_s"], calibration["onset_ops_s"]
+    out = {"calibration_ops_s": cap, "onset_ops_s": onset,
+           "planned_burn_ops_s": round(s1_burn_ops_s, 1),
+           "planned_burn_of_calibration": round(s1_burn_ops_s / cap, 4)}
+    if "capacity_ops_s" in reread:
+        again = reread["capacity_ops_s"]
+        out.update(second_ops_s=again,
+                   second_over_onset=round(again / onset, 4),
+                   planned_burn_of_second=round(s1_burn_ops_s / again, 4))
+    return out
 
 
 def planned_loads(elements: int, seed: int, ring, hot_keys: List[int],
@@ -1142,7 +1313,8 @@ def run_autopilot_mode(args) -> Dict[str, object]:
     # batch bottleneck the reference chose, nearest its cap on either
     # device), and the rates scale by the burn's shard's measured
     # capacity over the reference's 250 ops/s (measure_capacity: the
-    # offered rate at which it starts to shed), which keeps every ratio
+    # offered rate at which it starts to shed, read thrice and bounded
+    # by what the router carries in calibrate), which keeps every ratio
     # the reference chose.
     rates = dict(REF_RATES)
     if args.quick:
@@ -1181,11 +1353,7 @@ def run_autopilot_mode(args) -> Dict[str, object]:
 
     t0 = time.time()
     root = tempfile.mkdtemp(prefix="autopilot-soak-")
-    spec = _spec(n_shards=2, elements=elements, seed=args.seed,
-                 actors=4, queue_depth=64, max_batch=1, flush_ms=5.0)
-    fleet = ShardFleet(REPO, os.path.join(root, "fleet"), spec,
-                       router_state_dir=os.path.join(root, "fleet",
-                                                     "router-state"))
+    fleet = autopilot_fleet(root, elements, args.seed)
     result: Dict[str, object] = {}
     pilot = None
     sampler = None
@@ -1195,6 +1363,8 @@ def run_autopilot_mode(args) -> Dict[str, object]:
         # their ports, no keyspace) start together: four cold starts
         # in the time of one
         addr = fleet.start(extra=(2, 3))
+        t_up = time.monotonic()
+        pids = fleet_pids(fleet)
         standby_addrs = [(fleet.sid(i), fleet.shard_addr(i))
                          for i in (2, 3)]
 
@@ -1206,13 +1376,18 @@ def run_autopilot_mode(args) -> Dict[str, object]:
         hot_keys = hot_key_set(ring0, ring4, elements, fleet.sid(1))
 
         # the burn's shard, s1, measured where and as the burn will
-        # heat it: open-loop through this fleet's router, before the
-        # controller or the harness's sampler watch (shard_offer keeps
-        # it off the ledger)
-        s1_owned = [e for e in range(elements)
-                    if ring0.owner(e) == fleet.sid(1)]
-        calibration = measure_capacity(
-            shard_offer(addr, s1_owned, elements))
+        # heat it: open-loop through this fleet's router, three times,
+        # and then what the router carries, before the controller or
+        # the harness's sampler watch (shard_offer keeps it off the
+        # ledger)
+        s1_owned = owned_keys(ring0, fleet.sid(1), elements)
+        t_cal = time.monotonic()
+        calibration = calibrate(
+            shard_offer(addr, s1_owned, elements, pids=pids, since=t_up),
+            shard_offer(addr, list(range(elements)), elements, pids=pids,
+                        since=t_up),
+            rates["burn"] / REF_SHARD_CAPACITY,
+            rates["pilot_cold"] / REF_SHARD_CAPACITY)
         scale = calibration["capacity_ops_s"] / REF_SHARD_CAPACITY
         base_rate, burn_rate, cold_rate = (
             rates["base"] * scale, rates["burn"] * scale,
@@ -1224,6 +1399,10 @@ def run_autopilot_mode(args) -> Dict[str, object]:
         hottest = max(plan["baseline"], key=plan["baseline"].get)
         calibration.update({
             "shard": fleet.sid(1),
+            # seconds after the fleet's start returned, at the
+            # calibration's first window and at its end
+            "age_s": [round(t_cal - t_up, 2),
+                      round(time.monotonic() - t_up, 2)],
             "reference_capacity_ops_s": REF_SHARD_CAPACITY,
             "scale": scale,
             "rates_ops_s": {"base": base_rate, "burn": burn_rate,
@@ -1284,6 +1463,7 @@ def run_autopilot_mode(args) -> Dict[str, object]:
         t_burn = time.monotonic()
         traffic("burn", burn_rate, burn_s, flash)
         burn_window_t = [t_burn, time.monotonic()]
+        burn_age_s = round(t_burn - t_up, 2)
         traffic("converge", burn_rate, converge_s, flash)
         ring_converged = _ring_info(addr)
         convergence = _converged(
@@ -1321,6 +1501,27 @@ def run_autopilot_mode(args) -> Dict[str, object]:
 
         recs1 = read_decision_log(log1)
         recs2 = read_decision_log(log2)
+        # with --second-reading, s1 read again as the calibration read
+        # it, now that every reading the checks take is in and the
+        # controller is gone (deletes of the keys s1 owns now: members,
+        # read above): the calibration's drift
+        drift = {}
+        if args.second_reading:
+            ring_now = _ring_info(addr)
+            s1_after = owned_keys(HashRing(ring_now["shards"],
+                                           seed=ring_now["seed"]),
+                                  fleet.sid(1), elements)
+            try:
+                reread = measure_capacity(
+                    shard_offer(addr, s1_after, elements, pids=pids,
+                                since=t_up),
+                    start=calibration["onset_ops_s"] / CAPACITY_STEP ** 2)
+            except RuntimeError as e:
+                reread = {"error": str(e)[:2000]}
+            drift = {"second_reading": reread,
+                     "drift": drift_summary(
+                         calibration, reread,
+                         plan["burn"][fleet.sid(1)] * burn_rate)}
         committed = [r for r in recs1 + recs2
                      if r.get("record") == "outcome"
                      and r.get("outcome") == "committed"]
@@ -1350,6 +1551,12 @@ def run_autopilot_mode(args) -> Dict[str, object]:
             "legs": legs,
             "baseline_window_t": baseline_window_t,
             "burn_window_t": burn_window_t,
+            # s1 in the burn as the controller saw it
+            "burn_s1": {
+                "age_s": burn_age_s,
+                **shard_heat(recs1, burn_window_t, fleet.sid(1),
+                             queue_watermark)},
+            **drift,
             "rings": {
                 "after_baseline_generation": gen_after_baseline,
                 "converged": ring_converged,
@@ -3048,6 +3255,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                        help="device-mesh replica soak")
     modes.add_argument("--zipf", action="store_true",
                        help="admission scheduler under zipf hot keys")
+    ap.add_argument("--second-reading", dest="second_reading",
+                    action="store_true",
+                    help="--autopilot: read s1's onset again after the "
+                         "checks (the calibration's drift)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of every shard (default cuda; cpu "
                          "runs the kernels' plain versions)")

@@ -1,10 +1,11 @@
 """Helpers shared by the port's process soaks (tools/torch_crash_soak.py,
 tools/torch_fleet_soak.py, tools/torch_chaos_soak.py), chip_smoke.py and
 tools/torch_autopilot_baseline.py: the name of the device a run used, a
-warm-up of a worker's δ path before it serves, and the process's own
-tree of descendants (made its subreaper, listed, killed and reaped).
-The tree is read from ``/proc`` and acts on this process's descendants
-only (Linux).
+warm-up of a worker's δ path before it serves, the host's page-cache
+and processes' CPU readings (tools/torch_fleet_serve_soak.py), and the
+process's own tree of descendants (made its subreaper, listed, killed
+and reaped).  Both are read from ``/proc``; the tree acts on this
+process's descendants only (Linux).
 """
 
 from __future__ import annotations
@@ -57,6 +58,46 @@ def warm_delta_path(n_elements: int, n_actors: int, device: str) -> None:
     finally:
         a.close()
         b.close()
+
+
+_TICK = os.sysconf("SC_CLK_TCK")
+
+
+def host_reading(pids: Dict[str, int]) -> Dict[str, object]:
+    """The host's state from reads of ``/proc`` only: dirty and
+    writeback page-cache kB (``/proc/meminfo``) and each named
+    process's CPU seconds (``/proc/<pid>/stat``; None once it is
+    gone)."""
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("Dirty", "Writeback"):
+                mem[key] = int(value.split()[0])
+    cpu: Dict[str, object] = {}
+    for name, pid in pids.items():
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            cpu[name] = (int(fields[11]) + int(fields[12])) / _TICK
+        except OSError:
+            cpu[name] = None
+    return {"dirty_kb": mem["Dirty"], "writeback_kb": mem["Writeback"],
+            "cpu_s": cpu}
+
+
+def host_window(before: Dict[str, object],
+                after: Dict[str, object]) -> Dict[str, object]:
+    """What the host did between two ``host_reading``s: the dirty and
+    writeback kB at each end and each process's CPU seconds in
+    between."""
+    return {"dirty_kb": [before["dirty_kb"], after["dirty_kb"]],
+            "writeback_kb": [before["writeback_kb"], after["writeback_kb"]],
+            "cpu_s": {name: (None if after["cpu_s"][name] is None
+                             or before["cpu_s"][name] is None else
+                             round(after["cpu_s"][name]
+                                   - before["cpu_s"][name], 2))
+                      for name in before["cpu_s"]}}
 
 
 def set_subreaper() -> None:
